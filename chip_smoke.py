@@ -1,10 +1,13 @@
 """Smoke run of the PyTorch port (cppf_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's main path — ``CategoryRunner("bowl").estimate``, single
-instance 9D pose at bowl's full width (4096 points, knn 60, 100 000 pairs,
-72 rotations = 7.2 M center votes, 64³ grid) — on the committed rendered
-views, and holds every CUDA kernel of that path against its plain PyTorch
-version.  Phases:
+Drives the port's two paths and holds every CUDA kernel of them against its
+plain PyTorch version: the main path, ``CategoryRunner("bowl").estimate``
+(single-instance 9D pose at bowl's full width: 4096 points, knn 60,
+100 000 pairs, 72 rotations = 7.2 M center votes, 64³ grid) on the
+committed rendered views, and the zero-shot path, ``zero_shot_detect`` (the
+whole demo frame at the width of ``checkpoints/bowl_reg``: res 4 mm, knn
+60, 5 M pairs, 72 rotations, adaptive voting, a 320×218×164 heatmap).
+Phases:
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: every ``cppf_tpu_torch/csrc/*.cu``, one ``nvcc`` each, together;
@@ -19,10 +22,26 @@ version.  Phases:
    exceeds 2 cm or the median up error 15°;
 5. CPU against CUDA: one view with identical draws through the plain
    versions and through the kernels; fails unless the peak voxel and the up
-   direction are the same.
+   direction are the same;
+6. ``dense_hist`` against its plain version on the demo frame's own CUDA
+   votes at three shapes: one 2^20-pair chunk (75 M votes) on the unpooled
+   whole-frame grid, the same chunk on the pool-8 coarse grid of the sparse
+   route, and one 48³ window; fails beyond 1e-3 of the maximum; times as in
+   phase 3, and the vote atomics a second;
+7. the zero-shot path on the demo frame (launch counts reset just before):
+   fails unless ``dense_hist`` launched, there are exactly 2 detections,
+   each within 4 cm of the two real bowls, with bowl-sized scales, and
+   within 1 cm and 5° of the stored JAX detection; warm seconds a frame by
+   stage (median of 3) and the peak device memory; the ``sparse=True``
+   route at its defaults (its proposals and detections are printed beside
+   the dense route's) and without its pair budget, where every voxel it
+   writes must equal the dense grid's to 1e-3 of the maximum; and a
+   reduced run (200 000 pairs) on the CPU and on the card, which must give
+   the same detections to 1 mm.
 
-``--profile`` adds the warm time of each stage of one pose and a
-torch.profiler table of its kernels.  Prints the
+``--profile`` adds the warm time of each stage of one pose, and a
+torch.profiler table of the kernels of one pose and of one zero-shot
+frame.  Prints the
 kernels JSON line, the ``nvidia-smi`` line, and last the result line.
 Usage: python3 chip_smoke.py [--profile]
 """
@@ -49,7 +68,12 @@ TIMING_REPS = 25
 TPU_KERNELS = {
     "bound_projections": "cppf_tpu/ops/pallas/vote_hist.py:126",
     "refine_window": "cppf_tpu/ops/pallas/vote_hist.py:200",
+    "dense_hist": "cppf_tpu/ops/pallas/vote_hist.py:310",
 }
+# the two real bowls of data/demo/0000_depth.png (tests/test_demo_frame.py:26-29)
+BOWL_CENTERS = np.array([[0.0799, -0.1865, 1.2541], [0.1599, -0.0345, 1.1941]])
+ZS_PAIRS = 5_000_000
+REDUCED_PAIRS = 200_000
 
 
 def check(ok: bool, what: str) -> None:
@@ -310,6 +334,273 @@ def profile_pose(runner, pc_raw):
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:100]}")
 
 
+def zero_shot_stages(encoders, cfg, z, n_pairs, device, prop_thresh=50.0, contrib_thresh=12):
+    """The zero-shot path stage by stage on the demo frame, each stage
+    synchronised.  Returns (HeatmapState, detections, {stage: seconds},
+    the network cloud's point count)."""
+    from cppf_tpu_torch.eval import zero_shot as zs
+
+    rng = np.random.default_rng(0)
+    times = {}
+
+    def timed(name, fn):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    def prep():
+        clouds = zs.frame_clouds(z["depth"], z["intrinsics"], cfg.res, cfg.knn, rng, device)
+        pc, nrm = clouds.high_pc[clouds.lo_idx], clouds.high_normal[clouds.lo_idx]
+        return clouds, pc, nrm, zs.sample_pairs(pc, nrm, n_pairs, rng)
+
+    with torch.no_grad():
+        clouds, pc, nrm, pairs = timed("prep (cloud, voxels, KNN, normals, pairs)", prep)
+        preds = timed("network (SPRIN + PPF head)",
+                      lambda: zs.frame_predictions(*encoders, clouds, pairs))
+        grid, corner, dims = timed("heatmap (ppf_vote_dense)", lambda: zs.frame_heatmap(
+            pc, preds[:, :2].contiguous(), pairs, cfg.res, 72))
+        hm = zs.HeatmapState(pc, nrm, pairs, preds, grid, corner, dims)
+        dets = timed("detect (proposals, re-rank, back-vote, axes)",
+                     lambda: zs.detect_from_heatmap(hm, cfg, prop_thresh=prop_thresh,
+                                                    contrib_thresh=contrib_thresh,
+                                                    plane_u=z["plane_u"]))
+    return hm, dets, times, clouds.high_pc.shape[0]
+
+
+def _dense_taps(votes, c, pool):
+    """Flat pooled ids and values of the 8 trilinear taps of every vote,
+    for the one-call index_add_ yardstick."""
+    fx, fy, fz, rx, ry, rz, w = votes
+    ids, vals = [], []
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                ids.append((((fx.long() + dx) // pool[0] * c[1] + (fy.long() + dy) // pool[1])
+                            * c[2] + (fz.long() + dz) // pool[2]))
+                vals.append(((rx if dx else 1 - rx) * w) * (ry if dy else 1 - ry)
+                            * (rz if dz else 1 - rz))
+    return torch.cat(ids), torch.cat(vals)
+
+
+def dense_record(votes, c, pool, label):
+    """dense_hist against its plain version on one set of votes, timed."""
+    from cppf_tpu_torch.ops import vote_hist as vh
+
+    w = votes[6]
+    V = w.shape[0]
+    kw = dict(cx=c[0], cy=c[1], cz=c[2], px=pool[0], py=pool[1], pz=pool[2])
+    got = vh.dense_hist(*votes, **kw)
+    expect = vh.dense_hist_plain(*votes, **kw)
+    err, rel = _max_err([got], [expect], f"dense_hist {label}")
+    del got, expect
+    live = w != 0
+    # distinct pooled taps of each live vote: the kernel's atomics
+    n_ax = [1 + ((f.long() + 1) // p != f.long() // p).long() for f, p in zip(votes[:3], pool)]
+    taps = (n_ax[0] * n_ax[1] * n_ax[2])[live]
+    atomics = int(taps.sum())
+    n_live = int(live.sum())
+    ops = int((3 + n_ax[0][live] + (n_ax[0] * n_ax[1])[live] + 2 * taps).sum())
+    cells = c[0] * c[1] * c[2]
+    buf = torch.zeros(tuple(c), device=w.device)
+    rec = dict(max_abs_err=err, rel_err=rel,
+               ms=cuda_ms(lambda: vh.dense_hist(*votes, **kw, out=buf)),
+               plain_ms=cuda_ms(lambda: vh.dense_hist_plain(*votes, **kw, out=buf)),
+               bytes=4 * V + 6 * 4 * n_live + 4 * cells, ops=ops)
+    ids, vals = _dense_taps(votes, c, pool)
+    flat = torch.zeros(cells, device=w.device)
+    rec["library_ms"] = cuda_ms(lambda: flat.index_add_(0, ids, vals))
+    del ids, vals
+    t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = rec["ops"] / FP32_OPS_PER_S * 1e3
+    rec["bound_ms"] = max(t_bytes, t_ops)
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"kernel dense_hist [{label}, grid {tuple(c)}, pool {pool}, V={V}, live={n_live}]: "
+          f"max abs err {err:.3e} (rel {rel:.3e}), kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, index_add_ {rec['library_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), {atomics} vote atomics = "
+          f"{atomics / rec['ms'] * 1e3:.3e} atomics/s", flush=True)
+    return rec
+
+
+def dense_phase(hm, res):
+    """Phase 6: dense_hist at the zero-shot path's three shapes, on the votes
+    of the frame's first 2^20 pairs."""
+    from cppf_tpu_torch.eval import zero_shot as zs
+    from cppf_tpu_torch.ops.voting import _vote_coords
+
+    dev = hm.pc.device
+    n = hm.pc.shape[0]
+    sel = slice(0, 1 << 20)
+    preds_tr = hm.preds[:, :2].contiguous()
+    dims = hm.dims
+
+    def votes(idxs, grid_shape, corner, gdims, comp=1.0):
+        f, r, w = _vote_coords(hm.pc, preds_tr[idxs], torch.full((n,), comp, device=dev),
+                               hm.point_idxs[idxs], torch.as_tensor(corner, device=dev), res,
+                               torch.as_tensor(gdims, device=dev).float(), grid_shape, 72, True,
+                               torch.ones(hm.point_idxs[idxs].shape[0], dtype=torch.bool,
+                                          device=dev))
+        return [a.reshape(-1).contiguous() for a in (*f, *r, w)]
+
+    gshape = tuple(int(np.ceil(d / 8) * 8) for d in dims)
+    records = {"frame": dense_record(votes(sel, gshape, hm.corner, dims), gshape, (1, 1, 1),
+                                     "frame chunk, unpooled")}
+    gshape_c = tuple(int(np.ceil(d / 64) * 64) for d in dims)
+    v = votes(sel, gshape_c, hm.corner, dims)
+    c = tuple(g // 8 for g in gshape_c)
+    records["coarse"] = dense_record(v, c, (8, 8, 8), "frame chunk, pool-8 coarse grid")
+    from cppf_tpu_torch.ops import vote_hist as vh
+
+    coarse = vh.dense_hist(*v, cx=c[0], cy=c[1], cz=c[2], px=8, py=8, pz=8)
+    del v
+    cell = np.array(np.unravel_index(int(torch.argmax(coarse)), c))
+    wo = zs._window_origin(cell, dims, 48, 8)
+    keep, comp = zs._window_pairs(wo, zs._pair_circles(hm.pc, preds_tr, hm.point_idxs, res, 48),
+                                  hm.corner, res, 48, 1 << 17)
+    records["window"] = dense_record(
+        votes(keep, (48, 48, 48), (hm.corner + wo * res).astype(np.float32),
+              np.minimum(dims - wo, 48), comp), (48, 48, 48), (1, 1, 1),
+        f"48^3 window at {tuple(int(x) for x in wo)}, {keep.numel()} pairs")
+    return records
+
+
+def _match(dets, centers):
+    """Each of ``centers`` with its nearest detection: (distance, detection)."""
+    out = []
+    for c in centers:
+        d = [float(np.linalg.norm(x.T - c)) for x in dets]
+        out.append((min(d), dets[int(np.argmin(d))]))
+    return out
+
+
+def profile_frame(encoders, cfg, z, device):
+    """Device time by kernel over one warm zero-shot frame, and the device's
+    idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, times, _ = zero_shot_stages(encoders, cfg, z, ZS_PAIRS, device)
+    wall_ms = sum(times.values()) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"profile: zero-shot frame {wall_ms:.1f} ms under the profiler, device busy "
+          f"{busy_ms:.1f} ms over {sum(e.count for e in kernels)} kernel launches (idle share "
+          f"{1 - busy_ms / wall_ms:.3f})", flush=True)
+    for e in kernels[:12]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:100]}")
+
+
+def zero_shot_phase(z, device, profile=False):
+    """Phase 7: the zero-shot path at full width on the demo frame."""
+    from cppf_tpu_torch.config import load_config
+    from cppf_tpu_torch.eval import zero_shot as zs
+    from cppf_tpu_torch.models.convert import ASSETS, load_encoders, load_npz_params
+    from cppf_tpu_torch.ops import vote_hist as vh
+
+    cfg = load_config("bowl", snapshot=os.path.join(ROOT, "checkpoints", "bowl_reg",
+                                                    "config.yaml"))
+    cfg.cls_bins = False
+    check(cfg.res == 0.004 and cfg.knn == 60, f"not bowl_reg's width: {cfg}")
+    params = load_npz_params(os.path.join(ASSETS, "bowl_reg_params_zs.npz"))
+    encoders = load_encoders(params, 9, device)
+    # warm-up, and the votes of phase 6
+    hm, _, _, n_high = zero_shot_stages(encoders, cfg, z, ZS_PAIRS, device)
+    print(f"zero-shot frame: network cloud {n_high} points, voting cloud {hm.pc.shape[0]} "
+          f"points, {hm.point_idxs.shape[0]} "
+          f"pairs after the degenerate filter (JAX CPU: {int(z['jax_n_pairs'])}), heatmap "
+          f"{tuple(int(d) for d in hm.dims)}", flush=True)
+    records = dense_phase(hm, cfg.res)
+    del hm
+
+    # ---- 7. the zero-shot path --------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vh.reset_launches()
+    dets = zs.zero_shot_detect(z["depth"], encoders, cfg, intrinsics=z["intrinsics"],
+                               n_pairs=ZS_PAIRS, device=device, plane_u=z["plane_u"])
+    torch.cuda.synchronize()
+    launches = dict(vh.LAUNCHES)
+    print(f"zero-shot path launches over 1 frame: {launches}", flush=True)
+    check(launches["dense_hist"] > 0, "dense_hist never launched on the zero-shot path")
+    for d in dets:
+        print(f"detection: T {np.round(d.T, 4)}, scale {np.round(d.scale, 4)}, "
+              f"up {np.round(d.R[:, 1], 4)}, score {d.score:.1f}, mask {int(d.mask.sum())} points",
+              flush=True)
+    check(len(dets) == 2, f"{len(dets)} detections, not the 2 demo bowls")
+    for dist, d in _match(dets, BOWL_CENTERS):
+        check(dist < 0.04, f"a detection is {dist * 1e3:.1f} mm from its bowl (>= 40 mm)")
+        check(0.10 < d.scale[0] < 0.22 and 0.10 < d.scale[2] < 0.22 and 0.02 < d.scale[1] < 0.09,
+              f"scale {d.scale} is not a bowl's")
+    for T, R in zip(z["jax_T"], z["jax_R"]):
+        dist, d = _match(dets, [T])[0]
+        up = float(np.degrees(np.arccos(np.clip(d.R[:, 1] @ R[:, 1], -1, 1))))
+        print(f"against the JAX CPU detection at {np.round(T, 4)}: T {dist * 1e3:.3f} mm, "
+              f"up {up:.3f} deg", flush=True)
+        check(dist < 0.01 and up < 5.0, "a detection is > 1 cm or > 5 deg from JAX's")
+
+    stage_runs = []
+    for _ in range(3):
+        hm, _, times, _ = zero_shot_stages(encoders, cfg, z, ZS_PAIRS, device)
+        stage_runs.append(times)
+    totals = [sum(t.values()) for t in stage_runs]
+    print(f"zero-shot path: warm {statistics.median(totals):.4f} s/frame (median of 3, "
+          f"{', '.join(f'{t:.4f}' for t in totals)}), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for name in stage_runs[0]:
+        print(f"  stage {name}: {statistics.median(t[name] for t in stage_runs):.4f} s",
+              flush=True)
+    if profile:
+        profile_frame(encoders, cfg, z, device)
+
+    # the sparse route (coarse pool-8 pass, then 48³ windows): once at its
+    # defaults, whose candidate cap and pair budget make it approximate on
+    # this frame (reported, not held to the dense route), and once with no
+    # pair budget, where every voxel it writes must equal the dense grid's
+    t0 = time.perf_counter()
+    grid_s, corner, dims = zs.frame_heatmap(hm.pc, hm.preds[:, :2].contiguous(), hm.point_idxs,
+                                            cfg.res, 72, sparse=True)
+    torch.cuda.synchronize()
+    t_sparse = time.perf_counter() - t0
+    p_dense = zs.extract_proposals_host(hm.grid, corner, cfg.res)
+    p_sparse = zs.extract_proposals_host(grid_s, corner, cfg.res)
+    d_sparse = zs.detect_from_heatmap(hm._replace(grid=grid_s), cfg, plane_u=z["plane_u"])
+    print(f"sparse route at its defaults: heatmap {t_sparse:.4f} s, {len(p_sparse)} proposals "
+          f"against the dense route's {len(p_dense)}, {len(d_sparse)} detections at "
+          f"{[np.round(d.T, 4).tolist() for d in d_sparse]}", flush=True)
+    exact = zs._sparse_frame_grid(hm.pc, hm.preds[:, :2].contiguous(), hm.point_idxs, corner,
+                                  dims, cfg.res, 72, pair_budget=1 << 62)
+    written = exact != 0
+    err = float(np.abs(exact - hm.grid)[written].max())
+    print(f"sparse route without a pair budget: {int(written.sum())} voxels written, max abs "
+          f"difference from the dense grid {err:.3e} (max {hm.grid.max():.3f})", flush=True)
+    check(written.sum() > 0 and err <= KERNEL_RTOL * hm.grid.max(),
+          "the sparse route's exact windows differ from the dense grid")
+    del hm, grid_s, exact
+
+    # CPU (plain versions) against CUDA (kernels) at 200 000 pairs; the
+    # vote thresholds scale with the pairs (proposal contrast 50 and
+    # membership count 12 at 5 M pairs become 2 and 0)
+    ratio = REDUCED_PAIRS / ZS_PAIRS
+    thresh = dict(prop_thresh=50.0 * ratio, contrib_thresh=int(12 * ratio))
+    cpu_enc = load_encoders(params, 9, "cpu")
+    _, d_cpu, t_cpu, _ = zero_shot_stages(cpu_enc, cfg, z, REDUCED_PAIRS, "cpu", **thresh)
+    _, d_gpu, _, _ = zero_shot_stages(encoders, cfg, z, REDUCED_PAIRS, device, **thresh)
+    dT = [float(np.linalg.norm(a.T - b.T)) for a, b in zip(d_cpu, d_gpu)]
+    print(f"cpu vs cuda at {REDUCED_PAIRS} pairs: {len(d_cpu)} vs {len(d_gpu)} detections, "
+          f"|dT| {dT} m (cpu run {sum(t_cpu.values()):.1f} s)", flush=True)
+    check(len(d_cpu) == len(d_gpu) > 0, "CPU and CUDA detection counts differ")
+    check(max(dT) < 1e-3, "CPU and CUDA detections are more than 1 mm apart")
+    return records, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     ap.add_argument("--profile", action="store_true", help="profile one warm pose")
@@ -356,7 +647,7 @@ def main():
     torch.cuda.synchronize()
     launches = dict(vh.LAUNCHES)
     print(f"main path launches over {n_views} poses: {launches}", flush=True)
-    for name in TPU_KERNELS:
+    for name in ("bound_projections", "refine_window"):
         check(launches[name] > 0, f"{name} never launched on the main path")
     errs = [errors(out, z, i) for i, out in enumerate(outs)]
     for i, (t_err, up_err, s_err, t_jax, up_jax) in enumerate(errs):
@@ -395,6 +686,12 @@ def main():
           f"{int(out_gpu.n_filtered)}", flush=True)
     check(dT < 1e-6, "CPU and CUDA peak voxels differ")
     check(dup < 1e-6, "CPU and CUDA up directions differ")
+
+    # ---- 6-7. dense_hist, the zero-shot path ------------------------------
+    zs_z = np.load(os.path.join(ASSETS, "demo_frame.npz"))
+    dense, zs_launches = zero_shot_phase(zs_z, runner.device, args.profile)
+    records["dense_hist"] = dense["frame"]
+    launches["dense_hist"] = zs_launches["dense_hist"]
 
     kernels = [dict(name=name, route="cuda", source="cppf_tpu_torch/csrc/vote_hist.cu",
                     replaces=TPU_KERNELS[name], launches=launches[name],

@@ -18,6 +18,22 @@ def fibonacci_sphere(samples: int) -> np.ndarray:
     return np.stack([np.cos(theta) * radius, y, np.sin(theta) * radius], -1)
 
 
+def backproject(depth: np.ndarray, intrinsics: np.ndarray, instance_mask: np.ndarray):
+    """NOCS pinhole unprojection on the host, in float64 (cppf_tpu
+    core/geometry.py:53-69): masked pixels with depth > 0 go through K⁻¹,
+    then x and y are negated.  Returns (points [M, 3], (rows, cols))."""
+    K_inv = np.linalg.inv(intrinsics)
+    valid = np.logical_and(instance_mask, depth > 0)
+    rows, cols = np.where(valid)
+    uv1 = np.stack([cols, rows, np.ones_like(cols)], 0).astype(np.float64)
+    rays = (K_inv @ uv1).T
+    z = depth[rows, cols]
+    pts = rays * (z[:, None] / rays[:, 2:3])
+    pts[:, 0] = -pts[:, 0]
+    pts[:, 1] = -pts[:, 1]
+    return pts, (rows, cols)
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.cross`` over the last axis, written out in its term order."""
     a0, a1, a2 = a.unbind(-1)

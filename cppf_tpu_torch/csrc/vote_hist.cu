@@ -1,18 +1,21 @@
 // Center-vote accumulation kernels for the branch-and-bound peak
-// (cppf_tpu_torch/ops/voting.py::ppf_vote_peak), hand-written for Hopper
-// (sm_90a).  Plain C entry points, bound from Python with ctypes
+// (cppf_tpu_torch/ops/voting.py::ppf_vote_peak) and the dense vote
+// histogram (ppf_vote_dense), hand-written for Hopper (sm_90a).  Plain C
+// entry points, bound from Python with ctypes
 // (cppf_tpu_torch/ops/vote_hist.py); each returns cudaGetLastError().
 //
 // Replaces the TPU kernels of cppf_tpu/ops/pallas/vote_hist.py:
 //   bound_projections  <- _bound_kernel  (:64-99,  pl.pallas_call at :126)
 //   refine_window      <- _refine_kernel (:143-178, pl.pallas_call at :200)
+//   dense_hist         <- _dense_kernel  (:208-251, pl.pallas_call at :310)
 //
 // Input: flat [V] vote vectors from _vote_coords — floors fx, fy, fz (int32,
 // clipped to [0, g-2]), fractions rx, ry, rz (f32), weight w (f32; 0 marks a
 // masked vote).  The splat is separable, hat_x (x) hat_y (x) hat_z, with two
 // taps an axis (trilinear) or one (nearest).
 //
-// Bound on an H100 SXM (3.35 TB/s): both kernels must read the seven vote
+// Bound of the two peak kernels on an H100 SXM (3.35 TB/s; dense_hist has
+// its own note below): each must read the seven vote
 // vectors once, 7 x 4 B x V = 202 MB at the bowl workload's V = 7.2 M, so
 // >= 60 us each; the outputs (48 KB, 16 KB) are noise.  The work per vote is
 // a handful of shared-memory atomics, far below the operation bound.
@@ -162,10 +165,119 @@ __global__ void __launch_bounds__(kThreads) refine_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// dense_hist: the dense vote histogram [cx, cy, cz], axis k pooled by p_k.
+//
+// Bound on an H100 SXM (3.35 TB/s): the weight of every vote and the other
+// six vectors of every live vote are read once (up to 28 B a vote: 2.1 GB
+// for the zero-shot frame's 2^20-pair chunk of 75 M votes, >= 0.63 ms), the
+// grid written once (48 MB at 320x224x168).  The arithmetic is ~30 flops a
+// vote, far below the operation bound.  What the bytes bound hides is the
+// scatter: up to 8 atomic adds a vote, so the kernel is bound in practice
+// by the atomic throughput of L2 (global grids) or shared memory.
+//
+// Design.  The TPU kernel contracts an x one-hot [cx, C] with a (y, z)
+// one-hot [cy*cz, C] on the MXU per chunk of C votes, at O(V * cy * cz)
+// compares, which caps its (y, z) plane (65 536 cells, a VMEM limit).  On
+// Hopper the natural form is a scatter at O(V) cost, with no such cap:
+//   * a grid that fits one block's shared memory (4*cells <= the opt-in
+//     limit, 227 KB: the pooled coarse grid of the sparse route, 123 KB) is
+//     kept as a private copy per block, splatted with shared atomics over a
+//     grid-strided range of votes and flushed with one global atomicAdd per
+//     non-zero cell, as bound_kernel does;
+//   * a larger grid (the whole frame, 48 MB, which the 50 MB L2 holds; a
+//     48^3 window, 442 KB) takes one thread per vote and a global atomicAdd
+//     per pooled tap.
+// Each axis has its taps (f, 1-r) and (f+1, r), pooled to cells f/p and
+// (f+1)/p; when both land in one cell they merge into one tap of weight
+// (1-r)+r, so a pool-8 vote costs ~1.4 atomics instead of 8.  Nearest
+// splats one tap f+(r>0.5).  Masked votes (w == 0) leave after the weight
+// load.  The limit is the device's memory: cell indices are 64-bit, and
+// the caller guarantees (f+1)/p < c on every axis (floors clipped to g-2,
+// c = ceil(g/p)).
+constexpr int kDenseThreads = 1024;
+
+template <bool kNearest>
+__device__ __forceinline__ int axis_taps(int f, float r, int p, int* c, float* h) {
+  if (kNearest) {
+    c[0] = (r > 0.5f ? f + 1 : f) / p;
+    h[0] = 1.f;
+    return 1;
+  }
+  c[0] = f / p;
+  c[1] = (f + 1) / p;
+  h[0] = 1.f - r;
+  h[1] = r;
+  if (c[1] == c[0]) {
+    h[0] += h[1];
+    return 1;
+  }
+  return 2;
+}
+
+// Adds the pooled taps of vote v to hist (global or shared).
+template <bool kNearest>
+__device__ __forceinline__ void splat_dense(
+    long long v, float wv, const int* __restrict__ fx, const int* __restrict__ fy,
+    const int* __restrict__ fz, const float* __restrict__ rx, const float* __restrict__ ry,
+    const float* __restrict__ rz, int cy, int cz, int px, int py, int pz, float* hist) {
+  int ix[2], iy[2], iz[2];
+  float hx[2], hy[2], hz[2];
+  const int nx = axis_taps<kNearest>(fx[v], rx[v], px, ix, hx);
+  const int ny = axis_taps<kNearest>(fy[v], ry[v], py, iy, hy);
+  const int nz = axis_taps<kNearest>(fz[v], rz[v], pz, iz, hz);
+  for (int a = 0; a < nx; ++a) {
+    const float wx = hx[a] * wv;
+    const long long row = (long long)ix[a] * cy;
+    for (int b = 0; b < ny; ++b) {
+      const float wxy = wx * hy[b];
+      float* line = hist + (row + iy[b]) * cz;
+      for (int c = 0; c < nz; ++c) atomicAdd(line + iz[c], wxy * hz[c]);
+    }
+  }
+}
+
+template <bool kNearest>
+__global__ void __launch_bounds__(kThreads) dense_global_kernel(
+    const int* __restrict__ fx, const int* __restrict__ fy, const int* __restrict__ fz,
+    const float* __restrict__ rx, const float* __restrict__ ry, const float* __restrict__ rz,
+    const float* __restrict__ w, long long n_votes, int cy, int cz, int px, int py, int pz,
+    float* __restrict__ out) {
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n_votes) return;
+  const float wv = w[v];
+  if (wv == 0.f) return;
+  splat_dense<kNearest>(v, wv, fx, fy, fz, rx, ry, rz, cy, cz, px, py, pz, out);
+}
+
+template <bool kNearest>
+__global__ void __launch_bounds__(kDenseThreads) dense_shared_kernel(
+    const int* __restrict__ fx, const int* __restrict__ fy, const int* __restrict__ fz,
+    const float* __restrict__ rx, const float* __restrict__ ry, const float* __restrict__ rz,
+    const float* __restrict__ w, long long n_votes, int n_cells, int cy, int cz, int px,
+    int py, int pz, float* __restrict__ out) {
+  extern __shared__ float hist[];
+  for (int i = threadIdx.x; i < n_cells; i += blockDim.x) hist[i] = 0.f;
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < n_votes;
+       v += stride) {
+    const float wv = w[v];
+    if (wv == 0.f) continue;
+    splat_dense<kNearest>(v, wv, fx, fy, fz, rx, ry, rz, cy, cz, px, py, pz, hist);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_cells; i += blockDim.x) {
+    const float s = hist[i];
+    if (s != 0.f) atomicAdd(out + i, s);
+  }
+}
+
 // Enough blocks to fill every SM at the occupancy the shared memory allows,
 // and no more than the votes need.
 template <typename Kernel>
-cudaError_t grid_size(Kernel kernel, size_t smem, long long n_votes, int* blocks) {
+cudaError_t grid_size(Kernel kernel, size_t smem, long long n_votes, int* blocks,
+                      int threads = kThreads) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
@@ -173,12 +285,38 @@ cudaError_t grid_size(Kernel kernel, size_t smem, long long n_votes, int* blocks
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return e;
-  const long long need = (n_votes + kThreads - 1) / kThreads;
+  const long long need = (n_votes + threads - 1) / threads;
   const long long fill = (long long)sms * (per_sm > 0 ? per_sm : 1);
   *blocks = (int)(need < fill ? need : fill);
   return cudaSuccess;
+}
+
+template <bool kNearest>
+cudaError_t launch_dense(const int* fx, const int* fy, const int* fz, const float* rx,
+                         const float* ry, const float* rz, const float* w, long long n_votes,
+                         int cx, int cy, int cz, int px, int py, int pz, float* out,
+                         cudaStream_t stream) {
+  const long long n_cells = (long long)cx * cy * cz;
+  int dev = 0, smem_max = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  if (n_cells * (long long)sizeof(float) <= smem_max) {
+    const size_t smem = sizeof(float) * (size_t)n_cells;
+    int blocks = 0;
+    e = grid_size(dense_shared_kernel<kNearest>, smem, n_votes, &blocks, kDenseThreads);
+    if (e != cudaSuccess) return e;
+    dense_shared_kernel<kNearest><<<blocks, kDenseThreads, smem, stream>>>(
+        fx, fy, fz, rx, ry, rz, w, n_votes, (int)n_cells, cy, cz, px, py, pz, out);
+  } else {
+    const long long blocks = (n_votes + kThreads - 1) / kThreads;
+    dense_global_kernel<kNearest><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        fx, fy, fz, rx, ry, rz, w, n_votes, cy, cz, px, py, pz, out);
+  }
+  return cudaGetLastError();
 }
 
 template <bool kNearest>
@@ -235,6 +373,19 @@ int cppf_refine_window(const void* o, const void* fx, const void* fy, const void
                   n_votes, w8, (float*)out, (cudaStream_t)stream);
   };
   return (int)(nearest ? args(launch_refine<true>) : args(launch_refine<false>));
+}
+
+// out: f32 [cx*cy*cz], zeroed or holding earlier chunks' sums (added to).
+int cppf_dense_hist(const void* fx, const void* fy, const void* fz, const void* rx,
+                    const void* ry, const void* rz, const void* w, long long n_votes, int cx,
+                    int cy, int cz, int px, int py, int pz, int nearest, void* out,
+                    void* stream) {
+  auto args = [&](auto launch) {
+    return launch((const int*)fx, (const int*)fy, (const int*)fz, (const float*)rx,
+                  (const float*)ry, (const float*)rz, (const float*)w, n_votes, cx, cy, cz, px,
+                  py, pz, (float*)out, (cudaStream_t)stream);
+  };
+  return (int)(nearest ? args(launch_dense<true>) : args(launch_dense<false>));
 }
 
 const char* cppf_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

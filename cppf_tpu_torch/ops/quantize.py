@@ -1,7 +1,19 @@
 """Voxel-grid downsampling (counterpart of cppf_tpu/ops/quantize.py)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def voxel_downsample_host(points: np.ndarray, res: float, device="cpu") -> np.ndarray:
+    """First-occurrence voxel downsample of a host cloud (counterpart of
+    cppf_tpu/data/native.py::voxel_downsample_host, C++ in native/voxel.cpp):
+    int32 indices of the first point of each occupied voxel, ascending.
+    Points are cast to float32 and divided by a float32 ``res``, as the
+    native code does; the work runs on ``device``."""
+    pc = torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(device)
+    idx, n = voxel_downsample(pc, res)
+    return idx[: int(n)].cpu().numpy()
 
 
 def voxel_downsample(pc: torch.Tensor, res, valid_mask: torch.Tensor | None = None):

@@ -12,6 +12,8 @@ for ``"trilinear"``; one, ``f + (r > 0.5)``, for ``"nearest"``.
   ``pfy``/``pfz``.
 - :func:`refine_window`: the exact fine splat mass in the ``w8``³ window at
   origin ``o`` (int32 [3] tensor on the votes' device), as [w8, w8·w8].
+- :func:`dense_hist`: the dense splat histogram [cx, cy, cz], each axis
+  pooled by an integer factor with exact mass pooling.
 
 Each wrapper takes the plain PyTorch version (``*_plain``, an
 ``index_add_`` over the splat taps) for CPU tensors, and launches the CUDA
@@ -26,7 +28,7 @@ import torch
 
 from cppf_tpu_torch.ops import cuda_build
 
-LAUNCHES = {"bound_projections": 0, "refine_window": 0}
+LAUNCHES = {"bound_projections": 0, "refine_window": 0, "dense_hist": 0}
 SMEM_MAX = 232448  # bytes of shared memory one H100 block may opt in to
 _SPLATS = ("trilinear", "nearest")
 _lib = None
@@ -89,6 +91,32 @@ def refine_window_plain(o, fx, fy, fz, rx, ry, rz, w, *, w8: int = 16,
     return win.view(w8, w8 * w8)
 
 
+def _dense_out(out, cx: int, cy: int, cz: int, device):
+    if out is None:
+        return torch.zeros((cx, cy, cz), dtype=torch.float32, device=device)
+    if (out.device != device or out.dtype != torch.float32 or out.shape != (cx, cy, cz)
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 [{cx}, {cy}, {cz}] tensor on "
+                         f"{device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
+    return out
+
+
+def dense_hist_plain(fx, fy, fz, rx, ry, rz, w, *, cx: int, cy: int, cz: int, px: int = 1,
+                     py: int = 1, pz: int = 1, splat: str = "trilinear", out=None):
+    """Plain version of :func:`dense_hist`."""
+    out = _dense_out(out, cx, cy, cz, w.device)
+    flat = out.view(-1)
+    tx, ty, tz = _taps(fx, rx, splat), _taps(fy, ry, splat), _taps(fz, rz, splat)
+    for ix, hx in tx:
+        wx = _mul(w, hx)
+        for iy, hy in ty:
+            wxy = _mul(wx, hy)
+            row = (ix // px * cy + iy // py) * cz
+            for iz, hz in tz:
+                flat.index_add_(0, row + iz // pz, _mul(wxy, hz))
+    return out
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -98,6 +126,8 @@ def _library():
         lib.cppf_bound_projections.restype = i
         lib.cppf_refine_window.argtypes = [p] * 8 + [ll, i, i, p, p]
         lib.cppf_refine_window.restype = i
+        lib.cppf_dense_hist.argtypes = [p] * 7 + [ll] + [i] * 7 + [p, p]
+        lib.cppf_dense_hist.restype = i
         lib.cppf_error_string.argtypes = [i]
         lib.cppf_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -172,3 +202,35 @@ def refine_window(o, fx, fy, fz, rx, ry, rz, w, *, w8: int = 16, splat: str = "t
         _raise_on(lib, rc, "refine_window")
         LAUNCHES["refine_window"] += 1
     return out.view(w8, w8 * w8)
+
+
+def dense_hist(fx, fy, fz, rx, ry, rz, w, *, cx: int, cy: int, cz: int, px: int = 1,
+               py: int = 1, pz: int = 1, splat: str = "trilinear", out=None):
+    """Dense splat histogram [cx, cy, cz], axis k pooled by ``p_k``.
+
+    Trilinear taps ``(f, 1-r)`` and ``(f+1, r)`` land in cells ``f // p``
+    and ``(f+1) // p`` (exact mass pooling: the result equals pool-summing
+    the unpooled histogram); nearest lands ``f + (r > 0.5)``.  The caller
+    guarantees ``(f+1) // p < c`` on every axis (floors clipped to g-2 and
+    ``c = ceil(g/p)``, as ``ppf_vote_dense`` does).  The sums are added
+    into ``out`` in place when it is given (so pair chunks accumulate into
+    one grid), else into a new zeroed grid.  Unlike the Pallas kernel, no
+    cap on the (y, z) plane: the grid only has to fit device memory.
+    """
+    _check_votes(fx, fy, fz, rx, ry, rz, w, splat)
+    if min(px, py, pz) < 1:
+        raise ValueError(f"pool factors must be >= 1, got {(px, py, pz)}")
+    out = _dense_out(out, cx, cy, cz, w.device)
+    if w.device.type == "cpu":
+        return dense_hist_plain(fx, fy, fz, rx, ry, rz, w, cx=cx, cy=cy, cz=cz, px=px, py=py,
+                                pz=pz, splat=splat, out=out)
+    if w.shape[0]:
+        lib = _library()
+        rc = lib.cppf_dense_hist(
+            fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), rx.data_ptr(), ry.data_ptr(),
+            rz.data_ptr(), w.data_ptr(), w.shape[0], cx, cy, cz, px, py, pz,
+            int(splat == "nearest"), out.data_ptr(),
+            torch.cuda.current_stream(w.device).cuda_stream)
+        _raise_on(lib, rc, "dense_hist")
+        LAUNCHES["dense_hist"] += 1
+    return out

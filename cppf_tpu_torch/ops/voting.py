@@ -7,9 +7,10 @@ math stays componentwise ([P, R] arrays per axis), scalars are divided as
 rounds differently), and cross products are written out in XLA's term
 order.
 
-The center-vote peak (:func:`ppf_vote_peak`) runs its two accumulation
-passes through :mod:`cppf_tpu_torch.ops.vote_hist`: hand-written CUDA
-kernels for CUDA tensors, their plain versions for CPU tensors.
+The center-vote peak (:func:`ppf_vote_peak`) and the dense histogram
+(:func:`ppf_vote_dense`) run their accumulation passes through
+:mod:`cppf_tpu_torch.ops.vote_hist`: hand-written CUDA kernels for CUDA
+tensors, their plain versions for CPU tensors.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Tuple
 import torch
 
 from cppf_tpu_torch.core.geometry import cross
-from cppf_tpu_torch.ops.vote_hist import bound_projections, refine_window
+from cppf_tpu_torch.ops.vote_hist import bound_projections, dense_hist, refine_window
 
 TWO_PI = 6.283185307179586
 
@@ -132,6 +133,35 @@ def ppf_vote(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
     return grid.view(gx, gy, gz)
 
 
+def ppf_vote_dense(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
+                   grid_shape: Tuple[int, int, int], n_rots: int = 72, adaptive: bool = False,
+                   pair_mask=None, splat: str = "trilinear",
+                   pool: Tuple[int, int, int] = (1, 1, 1),
+                   pair_chunk: int = 1 << 20) -> torch.Tensor:
+    """Dense vote histogram [ceil(gx/px), ceil(gy/py), ceil(gz/pz)] through
+    :func:`dense_hist` (cppf_tpu ops/voting.py:527-585): with ``pool`` (1,1,1)
+    it is :func:`ppf_vote`'s grid, else that grid pool-summed exactly.
+
+    Unlike the JAX function, pairs go ``pair_chunk`` at a time, each chunk's
+    votes accumulating into one grid (one ``dense_hist`` launch a chunk): at
+    2^20 pairs and 72 rotations a chunk's seven vote vectors take ~2 GB,
+    where a 5 M-pair frame at once would take 10 GB and its [P, R]
+    temporaries several times that."""
+    cx, cy, cz = (-(-g // p) for g, p in zip(grid_shape, pool))
+    out = torch.zeros((cx, cy, cz), dtype=torch.float32, device=pc.device)
+    dims_f = grid_dims.to(pc.dtype)
+    for s in range(0, point_idxs.shape[0], pair_chunk):
+        sl = slice(s, s + pair_chunk)
+        mask = (torch.ones(point_idxs[sl].shape[0], dtype=torch.bool, device=pc.device)
+                if pair_mask is None else pair_mask[sl])
+        (fx, fy, fz), (rx, ry, rz), wv = _vote_coords(
+            pc, preds_tr[sl], probs, point_idxs[sl], corner, res, dims_f, grid_shape, n_rots,
+            adaptive, mask)
+        dense_hist(*(a.reshape(-1) for a in (fx, fy, fz, rx, ry, rz, wv)), cx=cx, cy=cy, cz=cz,
+                   px=pool[0], py=pool[1], pz=pool[2], splat=splat, out=out)
+    return out
+
+
 def _maxpool2d(m: torch.Tensor, fa: int, fb: int) -> torch.Tensor:
     """Max over non-overlapping fa×fb blocks, zero-padding ragged edges."""
     a, b = m.shape
@@ -234,13 +264,23 @@ def grid_argmax(grid: torch.Tensor, corner: torch.Tensor, res) -> torch.Tensor:
 
 
 def backvote(pc, preds_tr, point_idxs, corner, res, grid_dims, pred_center, tol,
-             n_rots: int = 72):
+             n_rots: int = 72, chunk: int = 1 << 18):
     """Center-consistency filter (cppf_tpu ops/voting.py:599-668): sweep each
     pair's (always adaptive) vote circle; a pair hits when some in-grid sample
-    lies within ``tol`` of ``pred_center``.  Returns (offsets [P,3], the
-    negated offset of the first hit or zeros; mask [P] bool)."""
+    lies within ``tol`` of ``pred_center``.  Pairs go ``chunk`` at a time
+    (the [chunk, n_rots] temporaries stay ~1 GB on a 5 M-pair frame; a pose's
+    100 000 pairs are one chunk).  Returns (offsets [P,3], the negated offset
+    of the first hit or zeros; mask [P] bool)."""
     res = _scalar(res, pc)
     dims_f = grid_dims.to(pc.dtype)
+    parts = [_backvote_chunk(pc, preds_tr[s:s + chunk], point_idxs[s:s + chunk], corner, res,
+                             dims_f, pred_center, tol, n_rots)
+             for s in range(0, max(point_idxs.shape[0], 1), chunk)]
+    return torch.cat([o for o, _ in parts]), torch.cat([h for _, h in parts])
+
+
+def _backvote_chunk(pc, preds_tr, point_idxs, corner, res, dims_f, pred_center, tol,
+                    n_rots: int):
     a, ab_unit, degenerate, co_unit = pair_frames(pc, point_idxs)
     proj_len, odist = preds_tr[:, 0], preds_tr[:, 1]
     m = _adaptive_rots(odist, res, n_rots, adaptive=True)
@@ -265,6 +305,57 @@ def backvote(pc, preds_tr, point_idxs, corner, res, grid_dims, pred_center, tol,
     first = torch.argmax(hit.to(torch.uint8), -1, keepdim=True)
     off = -torch.stack([o.gather(1, first)[:, 0] for o in offs], -1)
     return torch.where(any_hit[:, None], off, 0.0), any_hit
+
+
+def circle_support(pc, preds_tr, point_idxs, pred_center, tol,
+                   chunk: int = 1 << 20) -> torch.Tensor:
+    """Exact center-consistency mask, the continuous form of :func:`backvote`
+    (cppf_tpu ops/voting.py:780-820): a pair hits when the analytic
+    distance ``√(axial² + (radial − |odist|)²)`` from ``pred_center`` to its
+    vote circle is ≤ ``tol``; degenerate pairs never hit.  Returns [P] bool."""
+    out = []
+    for s in range(0, max(point_idxs.shape[0], 1), chunk):
+        a, ab_unit, degenerate, _ = pair_frames(pc, point_idxs[s:s + chunk])
+        tr = preds_tr[s:s + chunk]
+        c = a - ab_unit * tr[:, 0:1]
+        v = pred_center[None, :] - c
+        axial = torch.sum(v * ab_unit, -1)
+        radial = torch.linalg.norm(v - axial[:, None] * ab_unit, dim=-1)
+        dist2 = axial * axial + (radial - torch.abs(tr[:, 1])) ** 2
+        out.append((dist2 <= tol * tol) & ~degenerate)
+    return torch.cat(out)
+
+
+def rot_vote(pc, preds_rot, point_idxs, n_rots: int = 72, chunk: int = 1 << 16) -> torch.Tensor:
+    """Candidate axes [P, n_rots, 3] (cppf_tpu ops/voting.py:823-866): each
+    pair's ``normalize(tan ψ · offset ± âb)`` on a cone around âb; zeros for
+    degenerate pairs."""
+    i = torch.arange(n_rots, dtype=pc.dtype, device=pc.device)
+    angle = i * (TWO_PI / n_rots)
+    cos_a, sin_a = torch.cos(angle), torch.sin(angle)
+    out = []
+    for s in range(0, max(point_idxs.shape[0], 1), chunk):
+        _, ab_unit, degenerate, co_unit = pair_frames(pc, point_idxs[s:s + chunk])
+        y = cross(co_unit, ab_unit)
+        offset = cos_a[None, :, None] * co_unit[:, None, :] + sin_a[None, :, None] * y[:, None, :]
+        t = torch.tan(preds_rot[s:s + chunk])
+        sign_ab = torch.where(t > 0, 1.0, -1.0)[:, None] * ab_unit
+        up = t[:, None, None] * offset + sign_ab[:, None, :]
+        up = up / (torch.linalg.norm(up, dim=-1, keepdim=True) + 1e-7)
+        out.append(torch.where(degenerate[:, None, None], 0.0, up))
+    return torch.cat(out)
+
+
+def sphere_bin_count(candidates, sphere_pts, cos_tol, chunk: int = 8192) -> torch.Tensor:
+    """Count the candidate axes [M, 3] within ``cos_tol`` of each sphere
+    direction (cppf_tpu ops/voting.py:932-962), one [chunk, S] cosine
+    product at a time.  Returns float32 [S]."""
+    sph_t = sphere_pts.T.to(torch.float32)
+    counts = torch.zeros(sphere_pts.shape[0], dtype=torch.float32, device=sphere_pts.device)
+    for s in range(0, candidates.shape[0], chunk):
+        cos = candidates[s:s + chunk].to(torch.float32) @ sph_t
+        counts += (cos > cos_tol).to(torch.float32).sum(0)
+    return counts
 
 
 def rot_vote_sphere_count(pc, preds_rot, point_idxs, sphere_pts, cos_tol, n_rots: int = 72,

@@ -85,3 +85,29 @@ def test_peak_on_card_matches_cpu(cuda):
     idx_g, peak_g = out["cuda"]
     assert torch.equal(idx_c, idx_g.cpu())
     torch.testing.assert_close(peak_g.cpu(), peak_c, rtol=1e-5, atol=0)
+
+
+# (fine grid, pool): the sparse route's pool-8 coarse grid (shared-memory
+# path), a 48³ window and the unpooled whole-frame grid (global atomics)
+DENSE = [((320, 256, 192), (8, 8, 8)), ((48, 48, 48), (1, 1, 1)), ((320, 224, 168), (1, 1, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splat", ["trilinear", "nearest"])
+@pytest.mark.parametrize("g,pool", DENSE)
+def test_dense_hist_matches_plain(cuda, g, pool, splat):
+    rng = np.random.default_rng(2)
+    v = 1_000_003
+    f = np.stack([np.clip(rng.normal(gk / 2, gk / 6, v), 0, gk - 2) for gk in g]).astype(np.int32)
+    r = rng.random((3, v)).astype(np.float32)
+    w = (rng.random(v) < 0.8).astype(np.float32) * rng.random(v).astype(np.float32)
+    votes = [torch.from_numpy(a).to(cuda) for a in (*f, *r, w)]
+    kw = dict(cx=-(-g[0] // pool[0]), cy=-(-g[1] // pool[1]), cz=-(-g[2] // pool[2]),
+              px=pool[0], py=pool[1], pz=pool[2], splat=splat)
+    before = vote_hist.LAUNCHES["dense_hist"]
+    got = vote_hist.dense_hist(*votes, **kw)
+    _close([got], [vote_hist.dense_hist_plain(*votes, **kw)])
+    # a second launch adds into the first one's grid
+    _close([vote_hist.dense_hist(*votes, **kw, out=got)],
+           [2 * vote_hist.dense_hist_plain(*votes, **kw)])
+    assert vote_hist.LAUNCHES["dense_hist"] == before + 2

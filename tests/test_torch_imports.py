@@ -35,6 +35,8 @@ def test_port_file_list_is_complete():
     names = {os.path.relpath(p, ROOT) for p in PORT_FILES}
     assert "cppf_tpu_torch/ops/vote_hist.py" in names
     assert "cppf_tpu_torch/eval/nocs_inference.py" in names
+    for module in ("eval/zero_shot.py", "eval/anchor.py", "ops/ransac.py"):
+        assert f"cppf_tpu_torch/{module}" in names
 
 
 def test_runner_needs_cuda_unless_told_cpu():
