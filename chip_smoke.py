@@ -11,15 +11,26 @@ Phases:
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: every ``cppf_tpu_torch/csrc/*.cu``, one ``nvcc`` each, together;
-3. kernels: each kernel against its plain version on the same CUDA votes
-   from the main path (bowl: V = 7.2 M, 64³; and the same votes on bottle's
-   pooled 120³ grid), with times by CUDA events (median of 25), the
-   memory/operation bound, and one ``index_add_`` call as the library
-   yardstick; fails beyond 1e-3 relative;
-4. main path: the 4 views on the card, launch counts (reset just before),
-   errors against ground truth and against the stored JAX estimates, warm
-   ms per pose; fails if a kernel never launched, if the median T error
-   exceeds 2 cm or the median up error 15°;
+   prints each kernel's registers and spills (``-Xptxas -v``) and fails on
+   a spill;
+3. kernels: both front ends of ``bound_projections`` and ``refine_window``
+   (votes: the flat vote vectors; pairs: the pair parameters, the votes made
+   in the kernel) against the plain version on the same CUDA inputs from
+   the main path (bowl: 100 000 pairs, V = 7.2 M, 64³; and the same pairs on
+   bottle's pooled 120³ grid), and once each with nearest splat and with
+   adaptive rotations; fails beyond 1e-3 of the maximum.  Times by CUDA
+   events in turns (median of 25; calls under a millisecond 8 at a time
+   behind a spinning kernel, so that the host's launch time stays out), the
+   bytes and operations bound of each front end with both terms, the shared
+   atomics a second, one ``index_add_`` call as the library yardstick, and
+   the kernel's time before the redesign;
+4. main path: the center-vote stage alone must allocate less than one
+   [P, R] vote vector; then the 4 views on the card, launch counts (reset
+   just before), errors against ground truth and against the stored JAX
+   estimates, warm ms per pose and the peak device memory of one; fails
+   unless the pairs front ends launched once and at most twice a pose and
+   the votes front ends never, if the median T error exceeds 2 cm or the
+   median up error 15°;
 5. CPU against CUDA: one view with identical draws through the plain
    versions and through the kernels; fails unless the peak voxel and the up
    direction are the same;
@@ -41,7 +52,8 @@ Phases:
 
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose and of one zero-shot
-frame.  Prints the
+frame (``scripts/pose_stages.py`` runs the pose half for several checkouts
+in turns).  Prints the
 kernels JSON line, the ``nvidia-smi`` line, and last the result line.
 Usage: python3 chip_smoke.py [--profile]
 """
@@ -65,11 +77,20 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 KERNEL_RTOL = 1e-3
 TIMING_REPS = 25
+SPIN_CYCLES = 8_000_000  # ~5 ms of device time at 1.7 GHz, to let the host run ahead
 TPU_KERNELS = {
     "bound_projections": "cppf_tpu/ops/pallas/vote_hist.py:126",
     "refine_window": "cppf_tpu/ops/pallas/vote_hist.py:200",
     "dense_hist": "cppf_tpu/ops/pallas/vote_hist.py:310",
 }
+# kernel ms before the redesign (PERF.md: NVIDIA H100 80GB HBM3, 700.00 W)
+EARLIER_MS = {("bound_projections", "bowl 64^3"): 0.534, ("refine_window", "bowl 64^3"): 0.163,
+              ("bound_projections", "bottle pooled 120^3"): 0.703,
+              ("refine_window", "bottle pooled 120^3"): 0.156}
+# peak device memory before the pairs front ends, same card: of the center-vote
+# stage above its inputs, and of one warm pose (scripts/pose_stages.py)
+EARLIER_STAGE_MIB = 302.26
+EARLIER_POSE_MIB = 664.76
 # the two real bowls of data/demo/0000_depth.png (tests/test_demo_frame.py:26-29)
 BOWL_CENTERS = np.array([[0.0799, -0.1865, 1.2541], [0.1599, -0.0345, 1.1941]])
 ZS_PAIRS = 5_000_000
@@ -81,19 +102,39 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
-def cuda_ms(fn) -> float:
-    """Median device time of one call, by CUDA events, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(TIMING_REPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
+def _event_ms(fn, calls: int) -> float:
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(calls):
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def cuda_ms_turns(fns):
+    """Median device time of one call of each of ``fns``, by CUDA events,
+    after a warm-up, the functions timed in turns (a, b, a, b, ...) so that
+    clocks and neighbours treat them alike.  A call that takes under a
+    millisecond is sampled 8 at a time, queued behind a spinning kernel:
+    the host, which needs longer to launch such a kernel than the card needs
+    to run it, is then ahead of the card, and the events see device time
+    alone."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    small = [_event_ms(fn, 1) < 1.0 for fn in fns]
+    times = [[] for _ in fns]
+    for _ in range(TIMING_REPS):
+        for fn, batched, ts in zip(fns, small, times):
+            if batched:
+                torch.cuda._sleep(SPIN_CYCLES)
+            ts.append(_event_ms(fn, 8 if batched else 1))
+    return [statistics.median(ts) for ts in times]
+
+
+def cuda_ms(fn) -> float:
+    return cuda_ms_turns([fn])[0]
 
 
 def smi_line() -> str:
@@ -102,10 +143,15 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main_path_votes(runner, pc_raw, grid_shape):
-    """The flat vote vectors ppf_vote_peak builds for one view, and the
-    origin of its first refine window."""
-    from cppf_tpu_torch.ops.voting import _vote_coords, ppf_vote_peak
+def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False):
+    """What ppf_vote_peak is given for one view, on the card: its arguments
+    (``peak_args``), the pair-parameter block and grid frame that the pairs
+    front ends read, the flat vote vectors that the votes front ends read
+    (made from the same block by the plain votes_from_pair_params), and the
+    origin of the first refine window."""
+    from cppf_tpu_torch.ops.vote_hist import vote_frame
+    from cppf_tpu_torch.ops.voting import (pair_vote_params, ppf_vote_peak,
+                                           votes_from_pair_params)
     from cppf_tpu_torch.pipeline.pose import (PoseDraws, decode_translation, grid_frame,
                                               pair_predictions)
     from cppf_tpu_torch.pipeline.preprocess import preprocess_cloud
@@ -126,12 +172,17 @@ def main_path_votes(runner, pc_raw, grid_shape):
         corner, dims = grid_frame(pre.pc, pre.valid_mask, pcfg)
         probs = torch.ones(pre.pc.shape[0], device=dev)
         mask = torch.ones(idxs.shape[0], dtype=torch.bool, device=dev)
-        f, r, w = _vote_coords(pre.pc, preds_tr, probs, idxs, corner, pcfg.res,
-                               dims.float(), grid_shape, pcfg.num_rots, False, mask)
-        peak, _ = ppf_vote_peak(pre.pc, preds_tr, probs, idxs, corner, pcfg.res, dims,
-                                grid_shape, n_rots=pcfg.num_rots, max_rounds=1)
-    votes = [a.reshape(-1).contiguous() for a in (*f, *r, w)]
-    return votes, (peak // 16 * 16).to(torch.int32)
+        params = pair_vote_params(pre.pc, preds_tr, probs, idxs, pcfg.res, pcfg.num_rots,
+                                  adaptive, mask)
+        f, r, w = votes_from_pair_params(params, corner, pcfg.res, dims.float(), grid_shape,
+                                         pcfg.num_rots)
+        peak_args = (pre.pc, preds_tr, probs, idxs, corner, pcfg.res, dims, grid_shape)
+        peak, _ = ppf_vote_peak(*peak_args, n_rots=pcfg.num_rots, adaptive=adaptive,
+                                max_rounds=1)
+    return dict(peak_args=peak_args, params=params, n_rots=pcfg.num_rots,
+                frame=vote_frame(corner, pcfg.res, dims.float()), grid_shape=grid_shape,
+                votes=[a.reshape(-1).contiguous() for a in (*f, *r, w)],
+                o=(peak // 16 * 16).to(torch.int32))
 
 
 def _bound_taps(votes, gx, gy, by_n, bz_n, pfy, pfz):
@@ -182,65 +233,130 @@ def _max_err(got, expect, name):
     return err, err / scale
 
 
-def kernel_phase(votes, o, grid, label):
-    """Compare and time both kernels on one set of votes; returns their
-    records for the kernels line."""
+def _pairs_work(inp, live_votes):
+    """Bytes and operations the pairs front ends need on these inputs: the
+    first 16 bytes of every pair and the other 32 of each that votes; per
+    vote made (rotation i < m of a voting pair) one axis of 8 operations (2
+    products, 2 sums, the corner, the division, 2 compares), and for a live
+    vote the other two axes and 3 floors and 3 fractions.  A cosf or sinf
+    counts as one operation, where a pair's m is not the table's."""
+    params, n_rots = inp["params"], inp["n_rots"]
+    m = params[:, 1].view(torch.int32)
+    voting = (params[:, 0] != 0) & (m > 0)
+    made = torch.clamp(m, max=n_rots)[voting].sum().item()
+    off_table = torch.clamp(m, max=n_rots)[voting & (m != n_rots)].sum().item()
+    bytes_ = 16 * params.shape[0] + 32 * int(voting.sum()) + 4 * 7
+    ops = 8 * made + (16 + 6) * live_votes + 2 * off_table
+    return bytes_, ops, voting
+
+
+def _set_bound(rec, prefix, bytes_, ops):
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    rec[prefix + "bound_ms"] = max(t_bytes, t_ops)
+    rec[prefix + "bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rec[prefix + "bound_terms"] = f"bytes {t_bytes:.5f} ms, operations {t_ops:.5f} ms"
+
+
+def kernel_phase(inp, label, splat="trilinear", timed=True):
+    """Hold both front ends of both peak kernels against the plain version
+    on one view's inputs and, when ``timed``, time them in turns; returns
+    their records for the kernels line."""
     from cppf_tpu_torch.ops import vote_hist as vh
     from cppf_tpu_torch.ops.voting import _poolf
 
+    votes, o, params, frame = inp["votes"], inp["o"], inp["params"], inp["frame"]
     fx, fy, fz, rx, ry, rz, w = votes
     V = w.shape[0]
+    grid = inp["grid_shape"][0]
     pf = _poolf(grid)
     bn = -(-grid // pf)
-    kw = dict(gx=grid, gy=grid, by_n=bn, bz_n=bn, pfy=pf, pfz=pf, splat="trilinear")
+    kw = dict(by_n=bn, bz_n=bn, pfy=pf, pfz=pf, splat=splat)
+    pkw = dict(n_rots=inp["n_rots"], grid_shape=inp["grid_shape"])
     w8 = 16
     records = {}
 
-    got = vh.bound_projections(*votes, **kw)
-    expect = vh.bound_projections_plain(*votes, **kw)
-    err, rel = _max_err(got, expect, f"bound_projections {label}")
-    ids, vals = _bound_taps(votes, grid, grid, bn, bn, pf, pf)
-    out = torch.zeros(3 * grid * bn, device=w.device)
+    def both(name, expect, votes_fn, pairs_fn):
+        err, rel = _max_err(votes_fn(), expect, f"{name} {label}, votes front end")
+        perr, prel = _max_err(pairs_fn(), expect, f"{name} {label}, pairs front end")
+        print(f"kernel {name} [{label}, {splat}]: votes front end max abs err {err:.3e} (rel "
+              f"{rel:.3e}), pairs front end {perr:.3e} (rel {prel:.3e}); launch (blocks, "
+              f"cluster) votes {vh.LAST_LAUNCH.get(name)}, pairs "
+              f"{vh.LAST_LAUNCH.get(name + '_pairs')}",
+              flush=True)
+        return dict(max_abs_err=err, rel_err=rel, pairs_max_abs_err=perr, pairs_rel_err=prel)
+
+    def bound_votes():
+        return vh.bound_projections(*votes, gx=grid, gy=grid, **kw)
+
+    def bound_pairs():
+        return vh.bound_projections_pairs(params, frame, **pkw, **kw)
+
+    def refine_votes():
+        return [vh.refine_window(o, *votes, w8=w8, splat=splat)]
+
+    def refine_pairs():
+        return [vh.refine_window_pairs(o, params, frame, **pkw, w8=w8, splat=splat)]
+
+    expect = vh.bound_projections_plain(*votes, gx=grid, gy=grid, **kw)
+    records["bound_projections"] = both("bound_projections", expect, bound_votes, bound_pairs)
+    expect = [vh.refine_window_plain(o, *votes, w8=w8, splat=splat)]
+    records["refine_window"] = both("refine_window", expect, refine_votes, refine_pairs)
+    if not timed:
+        return records
+
     live = int((w != 0).sum())
     n_out = 3 * grid * bn
-    bytes_ = 4 * V + 6 * 4 * live + 4 * n_out     # w of every vote, the rest of the live ones
-    ops = 31 * live                               # 6 hats, 3 weighted, 12 products, 12 adds
-    records["bound_projections"] = dict(
-        max_abs_err=err, rel_err=rel,
-        ms=cuda_ms(lambda: vh.bound_projections(*votes, **kw)),
-        plain_ms=cuda_ms(lambda: vh.bound_projections_plain(*votes, **kw)),
-        library_ms=cuda_ms(lambda: out.index_add_(0, ids, vals)),
-        bytes=bytes_, ops=ops)
+    pair_bytes, pair_ops, voting = _pairs_work(inp, live)
+    rec = records["bound_projections"]
+    ids, vals = _bound_taps(votes, grid, grid, bn, bn, pf, pf)
+    out = torch.zeros(n_out, device=w.device)
+    ms, pairs_ms = cuda_ms_turns([bound_votes, bound_pairs])
+    rec.update(ms=ms, pairs_ms=pairs_ms,
+               plain_ms=cuda_ms(lambda: vh.bound_projections_plain(*votes, gx=grid, gy=grid,
+                                                                   **kw)),
+               library_ms=cuda_ms(lambda: out.index_add_(0, ids, vals)),
+               atomics=12 * live)
     del ids, vals
+    # votes: w of every vote, the rest of the live ones; 6 hats, 3 weighted,
+    # 12 products, 12 adds a live vote
+    _set_bound(rec, "", 4 * V + 6 * 4 * live + 4 * n_out, 31 * live)
+    _set_bound(rec, "pairs_", pair_bytes + 4 * n_out, pair_ops + 31 * live)
 
-    got = vh.refine_window(o, *votes, w8=w8)
-    expect = vh.refine_window_plain(o, *votes, w8=w8)
-    err, rel = _max_err([got], [expect], f"refine_window {label}")
+    rec = records["refine_window"]
     ids, vals = _refine_taps(votes, o, w8)
     out = torch.zeros(w8 ** 3 + 1, device=w.device)
     lx = fx - o[0]
     near = (lx >= -1) & (lx < w8) & (w != 0)
     inside = near & (fy - o[1] >= -1) & (fy - o[1] < w8) & (fz - o[2] >= -1) & (fz - o[2] < w8)
     n_near, n_in = int(near.sum()), int(inside.sum())
-    # fx of every vote, w/fy/fz of those in the window's x range, the
-    # fractions of those that reach the window; 8 corners of 3 products
-    # and an add for each of those
-    bytes_ = 4 * V + 3 * 4 * n_near + 3 * 4 * n_in + 4 * w8 ** 3
-    records["refine_window"] = dict(
-        max_abs_err=err, rel_err=rel,
-        ms=cuda_ms(lambda: vh.refine_window(o, *votes, w8=w8)),
-        plain_ms=cuda_ms(lambda: vh.refine_window_plain(o, *votes, w8=w8)),
-        library_ms=cuda_ms(lambda: out.index_add_(0, ids, vals)),
-        bytes=bytes_, ops=8 * 4 * n_in)
+    kept = vh.window_cull_plain(params, frame, o, w8) & voting
+    ms, pairs_ms = cuda_ms_turns([refine_votes, refine_pairs])
+    rec.update(ms=ms, pairs_ms=pairs_ms,
+               plain_ms=cuda_ms(lambda: vh.refine_window_plain(o, *votes, w8=w8, splat=splat)),
+               library_ms=cuda_ms(lambda: out.index_add_(0, ids, vals)),
+               atomics=int((ids != w8 ** 3).sum()), culled_share=1 - int(kept.sum())
+               / max(int(voting.sum()), 1))
+    del ids, vals
+    # votes: fx of every vote, w/fy/fz of those in the window's x range, the
+    # fractions of those that reach the window; 8 corners of 3 products and
+    # an add for each of those.  pairs: 20 operations of the cull a voting
+    # pair, one axis (8) a vote of a kept pair, the rest as the bound pass
+    _set_bound(rec, "", 4 * V + 3 * 4 * n_near + 3 * 4 * n_in + 4 * w8 ** 3, 8 * 4 * n_in)
+    m_kept = torch.clamp(params[:, 1].view(torch.int32), max=inp["n_rots"])[kept].sum().item()
+    _set_bound(rec, "pairs_", pair_bytes + 4 * w8 ** 3,
+               20 * int(voting.sum()) + 8 * m_kept + (16 + 6 + 32) * n_in)
     for name, rec in records.items():
-        t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = rec["ops"] / FP32_OPS_PER_S * 1e3
-        rec["bound_ms"] = max(t_bytes, t_ops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"kernel {name} [{label}, V={V}, live={live}]: max abs err "
-              f"{rec['max_abs_err']:.3e} (rel {rec['rel_err']:.3e}), kernel {rec['ms']:.4f} ms, "
-              f"plain {rec['plain_ms']:.4f} ms, index_add_ {rec['library_ms']:.4f} ms, "
-              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
+        print(f"kernel {name} [{label}, V={V}, live={live}]: votes front end {rec['ms']:.4f} ms "
+              f"(bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}: {rec['bound_terms']}), "
+              f"pairs front end {rec['pairs_ms']:.4f} ms (bound {rec['pairs_bound_ms']:.5f} ms "
+              f"by {rec['pairs_bound_by']}: {rec['pairs_bound_terms']}), plain "
+              f"{rec['plain_ms']:.4f} ms, index_add_ {rec['library_ms']:.4f} ms; "
+              f"{rec['atomics']} shared atomics = {rec['atomics'] / rec['ms'] * 1e3:.3e}/s "
+              f"(votes), {rec['atomics'] / rec['pairs_ms'] * 1e3:.3e}/s (pairs); earlier kernel "
+              f"{EARLIER_MS.get((name, label), float('nan')):.3f} ms"
+              + (f"; window cull drops {rec['culled_share']:.3f} of the voting pairs"
+                 if "culled_share" in rec else ""), flush=True)
     return records
 
 
@@ -626,6 +742,9 @@ def main():
                      glob.glob(os.path.join(ROOT, "cppf_tpu_torch", "csrc", "*.cu")))
     cuda_build.build(sources)
     print(f"build: {sources} in {time.perf_counter() - t0:.1f} s", flush=True)
+    for kernel, usage in cuda_build.resource_usage("vote_hist").items():
+        print(f"  ptxas {kernel}: {usage}", flush=True)
+        check("0 bytes spill stores, 0 bytes spill loads" in usage, f"{kernel} spills registers")
 
     # ---- 3. kernels against their plain versions -----------------------------
     runner = CategoryRunner("bowl")
@@ -634,21 +753,43 @@ def main():
           and runner.cfg.npoint_pad == 4096 and pcfg.knn == 60, f"not full width: {pcfg}")
     z = np.load(os.path.join(ASSETS, "bowl_views.npz"))
     n_views = int(z["n_views"])
-    votes, o = main_path_votes(runner, z["pc_0"], pcfg.grid_shape)
-    check(votes[0].shape[0] == 7_200_000, f"V = {votes[0].shape[0]}")
-    records = kernel_phase(votes, o, 64, "bowl 64^3")
-    votes, o = main_path_votes(runner, z["pc_0"], (120, 120, 120))
-    kernel_phase(votes, o, 120, "bottle pooled 120^3")
-    del votes
+    inp = main_path_inputs(runner, z["pc_0"], pcfg.grid_shape)
+    check(inp["votes"][0].shape[0] == 7_200_000, f"V = {inp['votes'][0].shape[0]}")
+    records = kernel_phase(inp, "bowl 64^3")
+    kernel_phase(inp, "bowl 64^3", splat="nearest", timed=False)
+    kernel_phase(main_path_inputs(runner, z["pc_0"], pcfg.grid_shape, adaptive=True),
+                 "bowl 64^3, adaptive rotations", timed=False)
+    kernel_phase(main_path_inputs(runner, z["pc_0"], (120, 120, 120)), "bottle pooled 120^3")
 
     # ---- 4. the main path on the card ----------------------------------------
+    # the center-vote stage alone must allocate less than one [P, R] vector
+    from cppf_tpu_torch.ops.voting import ppf_vote_peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ppf_vote_peak(*inp["peak_args"], n_rots=pcfg.num_rots, max_rounds=pcfg.peak_rounds)
+    torch.cuda.synchronize()
+    stage_bytes = torch.cuda.max_memory_allocated() - base
+    vector_bytes = 4 * inp["votes"][0].shape[0]
+    print(f"center-vote stage: peak device memory {stage_bytes / 2**20:.2f} MiB above its "
+          f"inputs (one [P, R] vote vector is {vector_bytes / 2**20:.2f} MiB; before the pairs "
+          f"front ends the stage held {EARLIER_STAGE_MIB:.1f} MiB)", flush=True)
+    check(stage_bytes < vector_bytes, "the center-vote stage made a [P, R] tensor")
+    del inp
+
     vh.reset_launches()
     outs = [runner.estimate(z[f"pc_{i}"])[0] for i in range(n_views)]
     torch.cuda.synchronize()
     launches = dict(vh.LAUNCHES)
     print(f"main path launches over {n_views} poses: {launches}", flush=True)
-    for name in ("bound_projections", "refine_window"):
-        check(launches[name] > 0, f"{name} never launched on the main path")
+    check(launches["bound_projections_pairs"] == n_views,
+          f"bound_projections_pairs launched {launches['bound_projections_pairs']} times over "
+          f"{n_views} poses, not once a pose")
+    check(0 < launches["refine_window_pairs"] <= 2 * n_views,
+          f"refine_window_pairs launched {launches['refine_window_pairs']} times over "
+          f"{n_views} poses, not 1 or 2 a pose")
+    check(launches["bound_projections"] == 0 and launches["refine_window"] == 0,
+          "the main path built vote vectors for the votes front ends")
     errs = [errors(out, z, i) for i, out in enumerate(outs)]
     for i, (t_err, up_err, s_err, t_jax, up_jax) in enumerate(errs):
         print(f"view {i}: T err {t_err * 1e3:.2f} mm, up err {up_err:.2f} deg, scale err "
@@ -669,6 +810,12 @@ def main():
           f"min {min(times):.2f})", flush=True)
     check(t_med < 0.02, f"median T error {t_med * 1e3:.1f} mm >= 20 mm")
     check(up_med < 15.0, f"median up error {up_med:.1f} deg >= 15 deg")
+    torch.cuda.reset_peak_memory_stats()
+    runner.estimate(z["pc_0"])
+    torch.cuda.synchronize()
+    print(f"main path: peak device memory of one warm pose "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (before the pairs front ends "
+          f"{EARLIER_POSE_MIB:.1f} MiB)", flush=True)
     if args.profile:
         stage_times(runner, z["pc_0"])
         profile_pose(runner, z["pc_0"])
@@ -693,12 +840,22 @@ def main():
     records["dense_hist"] = dense["frame"]
     launches["dense_hist"] = zs_launches["dense_hist"]
 
-    kernels = [dict(name=name, route="cuda", source="cppf_tpu_torch/csrc/vote_hist.cu",
-                    replaces=TPU_KERNELS[name], launches=launches[name],
-                    max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
-                    bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-                    library_ms=rec["library_ms"])
-               for name, rec in records.items()]
+    # a redesigned kernel's launches are those of either front end: the main
+    # path takes the pairs one
+    kernels = []
+    for name, rec in records.items():
+        k = dict(name=name, route="cuda", source="cppf_tpu_torch/csrc/vote_hist.cu",
+                 replaces=TPU_KERNELS[name],
+                 launches=launches[name] + launches.get(name + "_pairs", 0),
+                 max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
+                 bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                 library_ms=rec["library_ms"])
+        if "pairs_ms" in rec:
+            k.update({key: rec[key] for key in ("pairs_ms", "pairs_bound_ms", "pairs_bound_by",
+                                                "pairs_max_abs_err")},
+                     pairs_launches=launches[name + "_pairs"],
+                     earlier_ms=EARLIER_MS[(name, "bowl 64^3")])
+        kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device,

@@ -2,167 +2,707 @@
 // (cppf_tpu_torch/ops/voting.py::ppf_vote_peak) and the dense vote
 // histogram (ppf_vote_dense), hand-written for Hopper (sm_90a).  Plain C
 // entry points, bound from Python with ctypes
-// (cppf_tpu_torch/ops/vote_hist.py); each returns cudaGetLastError().
+// (cppf_tpu_torch/ops/vote_hist.py); each returns a cudaError_t.
 //
 // Replaces the TPU kernels of cppf_tpu/ops/pallas/vote_hist.py:
 //   bound_projections  <- _bound_kernel  (:64-99,  pl.pallas_call at :126)
 //   refine_window      <- _refine_kernel (:143-178, pl.pallas_call at :200)
 //   dense_hist         <- _dense_kernel  (:208-251, pl.pallas_call at :310)
 //
-// Input: flat [V] vote vectors from _vote_coords — floors fx, fy, fz (int32,
-// clipped to [0, g-2]), fractions rx, ry, rz (f32), weight w (f32; 0 marks a
-// masked vote).  The splat is separable, hat_x (x) hat_y (x) hat_z, with two
-// taps an axis (trilinear) or one (nearest).
+// A vote is three floors (int32, clipped to [0, g-2]), three fractions and a
+// weight (0 marks a masked vote).  The splat is separable, hat_x (x) hat_y
+// (x) hat_z, with two taps an axis (trilinear) or one (nearest).  The TPU
+// kernels contract one-hot splat matrices on the MXU; on Hopper the natural
+// form is a scatter.  dense_hist has its own note below; the rest of this
+// one is about the two peak kernels.
 //
-// Bound of the two peak kernels on an H100 SXM (3.35 TB/s; dense_hist has
-// its own note below): each must read the seven vote
-// vectors once, 7 x 4 B x V = 202 MB at the bowl workload's V = 7.2 M, so
-// >= 60 us each; the outputs (48 KB, 16 KB) are noise.  The work per vote is
-// a handful of shared-memory atomics, far below the operation bound.
+// One splat core, two vote sources.  splat_bound and splat_window take one
+// vote in registers.  Each kernel has two front ends that feed them:
+//   * votes (bound_votes_kernel, refine_votes_kernel): the seven flat [V]
+//     vectors the TPU kernels take.  Bound: it must read the weight of every
+//     vote and the other 24 bytes of every live one (202 MB at the bowl
+//     workload's V = 7.2 M: >= 48 us at 3.35 TB/s); the outputs (48 KB,
+//     16 KB) are noise and the arithmetic is ~30 operations a vote.
+//   * pairs (bound_pairs_kernel, refine_pairs_kernel): the 48 bytes a pair
+//     that every vote derives from (voting.py::pair_vote_params: weight,
+//     rotation count m, circle center c, axes x and y).  The kernel makes
+//     vote i < m in registers, g_k = (c_k + cos(a_i) x_k + sin(a_i) y_k -
+//     corner_k) / res with a_i = i 2pi/m, then the validity tests, floor,
+//     clip and fraction of voting.py::votes_from_pair_params in that
+//     operation order, each step rounded on its own (__fmul_rn, __fadd_rn,
+//     __fsub_rn, __fdiv_rn: no fused multiply-add, IEEE division, cosf and
+//     sinf at full precision; a table in shared memory when m is the
+//     rotation count of the call, which it is for every pair unless voting
+//     is adaptive).  No [P, R] vector exists.  Bound: 4.8 MB of parameters
+//     and ~60 operations a vote, some microseconds either way; what holds
+//     the kernel is instruction issue for making and addressing the votes.
 //
-// Design.  The TPU kernels contract one-hot splat matrices on the MXU; on
-// Hopper the natural form is a scatter.  Each block keeps its private copy
-// of the output in shared memory, walks a grid-strided range of votes with
-// coalesced loads, splats with shared-memory atomics (no global traffic per
-// vote), and flushes its non-zero cells to global memory with one atomicAdd
-// each.  Masked votes (w == 0) leave right after the weight load.  The
-// refine window rejects a vote from its x floor alone when the vote cannot
-// reach the window, so most votes cost two loads.  Any V is accepted: the
-// tail is masked by the loop bound.  Atomics make the float sums
-// order-dependent, so results agree with the plain PyTorch version to
-// rounding, not bit for bit.
+// Lanes on one circle.  Neighbouring rotations of one pair land under two
+// voxels apart, so lanes that hold neighbouring votes hit the same cells.
+// The pairs front ends give a lane a pair (of `split` quarter circles, so
+// that 100 000 pairs fill the card), and a warp 32 different circles.  The
+// votes front end of the bound pass gives a lane four consecutive votes
+// (16-byte loads), which puts a warp's lanes four rotations apart; merging
+// equal cells by __match_any_sync before the atomic is there to be timed and
+// loses.  The window's votes front end keeps one vote a lane: the few votes
+// that reach the window are runs of neighbouring rotations, and one vote a
+// lane packs a run into one warp pass of the splat.
+//
+// Accumulation.  Each block keeps a private copy of the output in shared
+// memory.  A float atomicAdd there compiles to a compare-and-swap loop
+// (ATOMS.CAST.SPIN) that retries under contention and took four fifths of
+// the kernels' time; the copy is therefore int32 fixed point, added to with
+// the native ATOMS.ADD.  A block scales by the largest power of two that
+// cannot overflow whatever cells its votes hit (a pass over its weights
+// first: fixed_scale), which at bowl's shapes is 2^15 (pairs) or 2^16 (votes)
+// a unit of weight.  The bound pass rounds each tap up, so its sums stay upper
+// bounds; the window rounds to nearest.  Sums inside a block no longer
+// depend on the order of the votes.
+//
+// Flush.  A block converts its non-zero cells to float and adds them to the
+// output with one global atomicAdd each.  Blocks of a thread-block cluster
+// can first sum their copies through distributed shared memory (flush), so
+// that one add a cell leaves a cluster; on the H100 this measured slower at
+// every cluster size (fewer resident blocks, two cluster barriers) than one
+// block a cluster, which is what ops/vote_hist.py launches.  The launch is
+// sized by cudaOccupancyMaxActiveClusters for the shape asked.
+//
+// Window cull (refine_pairs_kernel).  A pair's votes lie on an ellipse about
+// c with semi-axes |x| and |y|; a pair whose shell misses the ball around
+// the window (plus one voxel) is skipped before any vote is made.  The
+// window origin is read from device memory: no host read.
+//
+// Tolerance.  Kernel and plain version agree to 1e-3 of the largest cell,
+// not bit for bit: blocks' sums are added by float atomics in any order;
+// fixed point rounds each tap by at most one unit; in the pairs front ends
+// cosf may differ from torch.cos in the last bit, which moves a trilinear
+// grid by rounding but can move one whole vote where the arithmetic has a
+// step (the validity tests g >= 0.01 and g < d - 1.01, nearest's r > 0.5).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+
+// The accumulate step of the peak kernels' splats: a native integer atomic on
+// a fixed-point value.  scripts/tune_vote_kernels.py rebuilds this file with
+// CPPF_SPLAT_PART set, to time the kernels' parts (the results are then
+// wrong): 1 accumulates nothing (the store never happens, but the compiler
+// cannot know), 2 takes the float atomic, which on shared memory is a
+// compare-and-swap loop.
+#if CPPF_SPLAT_PART == 1
+#define CPPF_SPLAT_ADD(addr, val, fixed) \
+  ((val) == -1.2345e-30f ? (void)(*(addr) = (fixed)) : (void)0)
+#elif CPPF_SPLAT_PART == 2
+#define CPPF_SPLAT_ADD(addr, val, fixed) atomicAdd((float*)(addr), val)
+#else
+#define CPPF_SPLAT_ADD(addr, val, fixed) atomicAdd(addr, fixed)
+#endif
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // dense_global_kernel: one vote a thread
+constexpr int kPeakThreads = 1024;  // most threads a block of the peak kernels may have
+constexpr float kTwoPi = 6.2831855f;
 
-// Shared layout: Mxy [gx, by_n] | Mxz [gx, bz_n] | Myz [gy, bz_n].  Rows are
-// fine x (or y) taps weighted by w; columns are the unweighted y (or z) taps
-// pooled by pfy (or pfz).
-template <bool kNearest>
-__global__ void __launch_bounds__(kThreads) bound_kernel(
-    const int* __restrict__ fx, const int* __restrict__ fy, const int* __restrict__ fz,
-    const float* __restrict__ rx, const float* __restrict__ ry, const float* __restrict__ rz,
-    const float* __restrict__ w, long long n_votes, int gx, int gy, int by_n, int bz_n,
-    int pfy, int pfz, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int n_xy = gx * by_n;
-  const int n_xz = gx * bz_n;
-  const int n_all = n_xy + n_xz + gy * bz_n;
-  float* sxy = smem;
-  float* sxz = smem + n_xy;
-  float* syz = smem + n_xy + n_xz;
-  for (int i = threadIdx.x; i < n_all; i += blockDim.x) smem[i] = 0.f;
+// One vote in registers: floors, fractions, weight.
+struct Vote {
+  int x, y, z;
+  float ax, ay, az, w;
+};
+
+// ---------------------------------------------------------------------------
+// The splat core.
+
+// A block accumulates in fixed point: value * scale as int32, scale a power
+// of two.  A float atomicAdd on shared memory is a compare-and-swap loop
+// (ATOMS.CAST.SPIN) that retries whenever another lane hits the cell; the
+// integer add is one native instruction (ATOMS.ADD), and its sums do not
+// depend on the order of the votes.  kUp rounds up, which keeps a sum an
+// upper bound; else to nearest.
+template <bool kUp>
+__device__ __forceinline__ int to_fixed(float val, float scale) {
+  return kUp ? __float2int_ru(val * scale) : __float2int_rn(val * scale);
+}
+
+// The scale for a block whose n votes carry mass = sum |w|: the largest power
+// of two with scale * mass + 4 n inside int32.  No cell can hold more than
+// every vote's whole weight plus a rounding unit for each of a vote's (at
+// most 4) taps into it.
+__device__ __forceinline__ float fixed_scale(float mass, float n) {
+  if (!(mass > 0.f)) return 1.f;
+  const float limit = 2147483000.f - 4.f * n;
+  // at most 2^126, so that a vanishing mass cannot make the scale infinite
+  float scale = exp2f(floorf(log2f(fminf(limit / mass, 8.5e37f))));
+  if (scale * mass > limit) scale *= 0.5f;  // log2f rounded up across a power of two
+  return scale;
+}
+
+// Block-wide sum (every thread calls it and gets the result).
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float part[32];
+  __shared__ float total;
+  for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
   __syncthreads();
-
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < n_votes;
-       v += stride) {
-    const float wv = w[v];
-    if (wv == 0.f) continue;
-    const int x = fx[v], y = fy[v], z = fz[v];
-    const float ax = rx[v], ay = ry[v], az = rz[v];
-    if (kNearest) {
-      const int nx = ax > 0.5f ? x + 1 : x;
-      const int ny = ay > 0.5f ? y + 1 : y;
-      const int nz = az > 0.5f ? z + 1 : z;
-      atomicAdd(&sxy[nx * by_n + ny / pfy], wv);
-      atomicAdd(&sxz[nx * bz_n + nz / pfz], wv);
-      atomicAdd(&syz[ny * bz_n + nz / pfz], wv);
-    } else {
-      const float hx0 = (1.f - ax) * wv, hx1 = ax * wv;
-      const float hy0 = 1.f - ay, hy1 = ay;
-      const float hz0 = 1.f - az, hz1 = az;
-      const int cy0 = y / pfy, cy1 = (y + 1) / pfy;
-      const int cz0 = z / pfz, cz1 = (z + 1) / pfz;
-      float* xy0 = sxy + x * by_n;
-      float* xy1 = xy0 + by_n;
-      atomicAdd(xy0 + cy0, hx0 * hy0);
-      atomicAdd(xy0 + cy1, hx0 * hy1);
-      atomicAdd(xy1 + cy0, hx1 * hy0);
-      atomicAdd(xy1 + cy1, hx1 * hy1);
-      float* xz0 = sxz + x * bz_n;
-      float* xz1 = xz0 + bz_n;
-      atomicAdd(xz0 + cz0, hx0 * hz0);
-      atomicAdd(xz0 + cz1, hx0 * hz1);
-      atomicAdd(xz1 + cz0, hx1 * hz0);
-      atomicAdd(xz1 + cz1, hx1 * hz1);
-      const float wy0 = hy0 * wv, wy1 = hy1 * wv;
-      float* yz0 = syz + y * bz_n;
-      float* yz1 = yz0 + bz_n;
-      atomicAdd(yz0 + cz0, wy0 * hz0);
-      atomicAdd(yz0 + cz1, wy0 * hz1);
-      atomicAdd(yz1 + cz0, wy1 * hz0);
-      atomicAdd(yz1 + cz1, wy1 * hz1);
-    }
+  if (threadIdx.x < 32) {
+    float s = threadIdx.x < blockDim.x / 32 ? part[threadIdx.x] : 0.f;
+    for (int d = 16; d; d >>= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
+    if (threadIdx.x == 0) total = s;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n_all; i += blockDim.x) {
-    const float s = smem[i];
-    if (s != 0.f) atomicAdd(out + i, s);
+  return total;
+}
+
+// Adds N tap values to base[cell[.]].  With kMerge every lane of the warp
+// calls it (dead lanes with live = false): lanes with the same key, hence the
+// same cells, sum their values by shuffle and the lowest of them adds.
+template <bool kMerge, int N>
+__device__ __forceinline__ void add_taps(int* base, float scale, const int* cell,
+                                         const float* val, int key, bool live) {
+  if (!kMerge) {
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        CPPF_SPLAT_ADD(base + cell[j], val[j], to_fixed<true>(val[j], scale));
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(0xffffffffu, live ? key : -1 - lane);
+  float sum[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) sum[j] = 0.f;
+  for (unsigned rest = peers; rest; rest &= rest - 1) {
+    const int src = __ffs(rest) - 1;
+#pragma unroll
+    for (int j = 0; j < N; ++j) sum[j] += __shfl_sync(peers, val[j], src);
+  }
+  if (live && lane == __ffs(peers) - 1) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      CPPF_SPLAT_ADD(base + cell[j], sum[j], to_fixed<true>(sum[j], scale));
   }
 }
 
-// Exact fine splat mass in the w8^3 window at origin o (device int32[3],
-// read here: no host sync).  Output [w8, w8*w8], x rows, (y, z) y-major.
-template <bool kNearest>
-__global__ void __launch_bounds__(kThreads) refine_kernel(
-    const int* __restrict__ o, const int* __restrict__ fx, const int* __restrict__ fy,
-    const int* __restrict__ fz, const float* __restrict__ rx, const float* __restrict__ ry,
-    const float* __restrict__ rz, const float* __restrict__ w, long long n_votes, int w8,
-    float* __restrict__ out) {
-  extern __shared__ float win[];
-  const int n_all = w8 * w8 * w8;
-  for (int i = threadIdx.x; i < n_all; i += blockDim.x) win[i] = 0.f;
-  const int ox = o[0], oy = o[1], oz = o[2];
-  __syncthreads();
+// A block's copy of the projections: Mxy [gx, by_n] | Mxz [gx, bz_n] |
+// Myz [gy, bz_n].  Rows are fine x (or y) taps weighted by w; columns are
+// the unweighted y (or z) taps pooled by pfy (or pfz).
+struct Proj {
+  int *xy, *xz, *yz;
+  int by_n, bz_n, pfy, pfz;
+  float scale;
+};
 
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < n_votes;
-       v += stride) {
-    // a floor at o-1 still reaches the window with its +1 tap
-    const int lx = fx[v] - ox;
-    if (lx < -1 || lx >= w8) continue;
-    const float wv = w[v];
-    if (wv == 0.f) continue;
-    const int ly = fy[v] - oy;
-    const int lz = fz[v] - oz;
-    if (ly < -1 || ly >= w8 || lz < -1 || lz >= w8) continue;
-    const float ax = rx[v], ay = ry[v], az = rz[v];
-    if (kNearest) {
-      const int nx = ax > 0.5f ? lx + 1 : lx;
-      const int ny = ay > 0.5f ? ly + 1 : ly;
-      const int nz = az > 0.5f ? lz + 1 : lz;
-      if (nx >= 0 && nx < w8 && ny >= 0 && ny < w8 && nz >= 0 && nz < w8)
-        atomicAdd(&win[(nx * w8 + ny) * w8 + nz], wv);
-    } else {
-      const float hx[2] = {(1.f - ax) * wv, ax * wv};
-      const float hy[2] = {1.f - ay, ay};
-      const float hz[2] = {1.f - az, az};
+template <bool kNearest, bool kMerge>
+__device__ __forceinline__ void splat_bound(const Proj& P, const Vote& v, bool live) {
+  if (kNearest) {
+    const int nx = v.ax > 0.5f ? v.x + 1 : v.x;
+    const int ny = v.ay > 0.5f ? v.y + 1 : v.y;
+    const int nz = v.az > 0.5f ? v.z + 1 : v.z;
+    const int cxy = nx * P.by_n + ny / P.pfy;
+    const int cxz = nx * P.bz_n + nz / P.pfz;
+    const int cyz = ny * P.bz_n + nz / P.pfz;
+    add_taps<kMerge, 1>(P.xy, P.scale, &cxy, &v.w, cxy, live);
+    add_taps<kMerge, 1>(P.xz, P.scale, &cxz, &v.w, cxz, live);
+    add_taps<kMerge, 1>(P.yz, P.scale, &cyz, &v.w, cyz, live);
+    return;
+  }
+  const float hx0 = (1.f - v.ax) * v.w, hx1 = v.ax * v.w;
+  const float hy0 = 1.f - v.ay, hy1 = v.ay;
+  const float hz0 = 1.f - v.az, hz1 = v.az;
+  const int cy0 = v.y / P.pfy, cy1 = (v.y + 1) / P.pfy;
+  const int cz0 = v.z / P.pfz, cz1 = (v.z + 1) / P.pfz;
+  {
+    const int r0 = v.x * P.by_n, r1 = r0 + P.by_n;
+    const int cell[4] = {r0 + cy0, r0 + cy1, r1 + cy0, r1 + cy1};
+    const float val[4] = {hx0 * hy0, hx0 * hy1, hx1 * hy0, hx1 * hy1};
+    add_taps<kMerge, 4>(P.xy, P.scale, cell, val, (v.x << 16) | v.y, live);
+  }
+  {
+    const int r0 = v.x * P.bz_n, r1 = r0 + P.bz_n;
+    const int cell[4] = {r0 + cz0, r0 + cz1, r1 + cz0, r1 + cz1};
+    const float val[4] = {hx0 * hz0, hx0 * hz1, hx1 * hz0, hx1 * hz1};
+    add_taps<kMerge, 4>(P.xz, P.scale, cell, val, (v.x << 16) | v.z, live);
+  }
+  {
+    const float wy0 = hy0 * v.w, wy1 = hy1 * v.w;
+    const int r0 = v.y * P.bz_n, r1 = r0 + P.bz_n;
+    const int cell[4] = {r0 + cz0, r0 + cz1, r1 + cz0, r1 + cz1};
+    const float val[4] = {wy0 * hz0, wy0 * hz1, wy1 * hz0, wy1 * hz1};
+    add_taps<kMerge, 4>(P.yz, P.scale, cell, val, (v.y << 16) | v.z, live);
+  }
+}
+
+// The window's splat: v's floors are relative to the window origin, each in
+// [-1, w8) (a floor at -1 still reaches the window with its +1 tap).
+template <bool kNearest>
+__device__ __forceinline__ void splat_window(int* win, float scale, int w8, const Vote& v) {
+  if (kNearest) {
+    const int nx = v.ax > 0.5f ? v.x + 1 : v.x;
+    const int ny = v.ay > 0.5f ? v.y + 1 : v.y;
+    const int nz = v.az > 0.5f ? v.z + 1 : v.z;
+    if (nx >= 0 && nx < w8 && ny >= 0 && ny < w8 && nz >= 0 && nz < w8)
+      CPPF_SPLAT_ADD(&win[(nx * w8 + ny) * w8 + nz], v.w, to_fixed<false>(v.w, scale));
+    return;
+  }
+  const float hx[2] = {(1.f - v.ax) * v.w, v.ax * v.w};
+  const float hy[2] = {1.f - v.ay, v.ay};
+  const float hz[2] = {1.f - v.az, v.az};
 #pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const int X = lx + dx;
-        if (X < 0 || X >= w8) continue;
+  for (int dx = 0; dx < 2; ++dx) {
+    const int X = v.x + dx;
+    if (X < 0 || X >= w8) continue;
 #pragma unroll
-        for (int dy = 0; dy < 2; ++dy) {
-          const int Y = ly + dy;
-          if (Y < 0 || Y >= w8) continue;
+    for (int dy = 0; dy < 2; ++dy) {
+      const int Y = v.y + dy;
+      if (Y < 0 || Y >= w8) continue;
 #pragma unroll
-          for (int dz = 0; dz < 2; ++dz) {
-            const int Z = lz + dz;
-            if (Z < 0 || Z >= w8) continue;
-            atomicAdd(&win[(X * w8 + Y) * w8 + Z], hx[dx] * (hy[dy] * hz[dz]));
-          }
-        }
+      for (int dz = 0; dz < 2; ++dz) {
+        const int Z = v.z + dz;
+        if (Z < 0 || Z >= w8) continue;
+        const float val = hx[dx] * (hy[dy] * hz[dz]);
+        CPPF_SPLAT_ADD(&win[(X * w8 + Y) * w8 + Z], val, to_fixed<false>(val, scale));
       }
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_all; i += blockDim.x) {
-    const float s = win[i];
+}
+
+// Adds a block's fixed-point copy into the float out; copy[n_cells] holds the
+// block's scale (float bits).  The blocks of a cluster first sum their
+// copies through distributed shared memory, each taking a slice of the cells,
+// so one global atomicAdd a non-zero cell leaves a cluster.
+__device__ __forceinline__ float unscaled(const int* copy, int n_cells, int i) {
+  return (float)copy[i] / __int_as_float(copy[n_cells]);
+}
+
+__device__ __forceinline__ void flush(const int* copy, int n_cells, float* out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_blocks = (int)cluster.num_blocks();
+  if (n_blocks == 1) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_cells; i += blockDim.x)
+      if (copy[i] != 0) atomicAdd(out + i, unscaled(copy, n_cells, i));
+    return;
+  }
+  cluster.sync();
+  const int per = (n_cells + n_blocks - 1) / n_blocks;
+  const int lo = (int)cluster.block_rank() * per;
+  const int hi = min(n_cells, lo + per);
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < n_blocks; ++r)
+      s += unscaled(cluster.map_shared_rank(copy, r), n_cells, i);
     if (s != 0.f) atomicAdd(out + i, s);
   }
+  cluster.sync();  // no block leaves while another still reads its copy
+}
+
+// ---------------------------------------------------------------------------
+// Front end 1: votes.  Seven flat [V] streams, four votes a lane from each
+// (16-byte loads; the streams are 16-byte aligned), the ragged tail by
+// 4-byte loads.
+
+struct Streams {
+  const int *fx, *fy, *fz;
+  const float *rx, *ry, *rz, *w;
+  long long n;
+};
+
+__device__ __forceinline__ void load4(const int* p, long long v0, long long n, int* out) {
+  if (v0 + 3 < n) {
+    const int4 q = *reinterpret_cast<const int4*>(p + v0);
+    out[0] = q.x, out[1] = q.y, out[2] = q.z, out[3] = q.w;
+  } else {
+    for (int j = 0; j < 4; ++j) out[j] = v0 + j < n ? p[v0 + j] : 0;
+  }
+}
+
+__device__ __forceinline__ void load4(const float* p, long long v0, long long n, float* out) {
+  if (v0 + 3 < n) {
+    const float4 q = *reinterpret_cast<const float4*>(p + v0);
+    out[0] = q.x, out[1] = q.y, out[2] = q.z, out[3] = q.w;
+  } else {
+    for (int j = 0; j < 4; ++j) out[j] = v0 + j < n ? p[v0 + j] : 0.f;
+  }
+}
+
+// The fixed-point scale of a block that takes `each` votes a thread from
+// first + threadIdx.x * each on, every `step`: a pass over its weights.
+__device__ __forceinline__ float votes_scale(const Streams& S, long long first, long long step,
+                                             int each) {
+  float mass = 0.f, n = 0.f;
+  for (long long v0 = first + (long long)threadIdx.x * each; v0 < S.n; v0 += step) {
+    for (int j = 0; j < each && v0 + j < S.n; ++j) {
+      const float w = S.w[v0 + j];
+      if (w != 0.f) mass += fabsf(w), n += 1.f;
+    }
+  }
+  mass = block_sum(mass);
+  return fixed_scale(mass, block_sum(n));
+}
+
+template <bool kNearest, bool kMerge>
+__global__ void __launch_bounds__(kPeakThreads) bound_votes_kernel(
+    Streams S, int gx, int gy, int by_n, int bz_n, int pfy, int pfz, float* __restrict__ out) {
+  extern __shared__ int smem[];
+  const int n_xy = gx * by_n, n_xz = gx * bz_n;
+  const int n_all = n_xy + n_xz + gy * bz_n;
+  for (int i = threadIdx.x; i < n_all; i += blockDim.x) smem[i] = 0;
+
+  // the trip count is the same for every thread of the block, so that with
+  // kMerge whole warps reach the warp votes
+  const long long n_groups = (S.n + 3) / 4;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const float scale = votes_scale(S, 4 * (long long)blockIdx.x * blockDim.x, 4 * stride, 4);
+  if (threadIdx.x == 0) smem[n_all] = __float_as_int(scale);
+  const Proj P = {smem, smem + n_xy, smem + n_xy + n_xz, by_n, bz_n, pfy, pfz, scale};
+  __syncthreads();
+  for (long long g0 = (long long)blockIdx.x * blockDim.x; g0 < n_groups; g0 += stride) {
+    const long long v0 = 4 * (g0 + threadIdx.x);
+    float w[4] = {0.f, 0.f, 0.f, 0.f}, ax[4] = {}, ay[4] = {}, az[4] = {};
+    int x[4] = {}, y[4] = {}, z[4] = {};
+    if (v0 < S.n) load4(S.w, v0, S.n, w);
+    const bool any = w[0] != 0.f || w[1] != 0.f || w[2] != 0.f || w[3] != 0.f;
+    if (any) {  // dead votes cost the weight load alone
+      load4(S.fx, v0, S.n, x), load4(S.fy, v0, S.n, y), load4(S.fz, v0, S.n, z);
+      load4(S.rx, v0, S.n, ax), load4(S.ry, v0, S.n, ay), load4(S.rz, v0, S.n, az);
+    } else if (!kMerge) {
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const Vote v = {x[j], y[j], z[j], ax[j], ay[j], az[j], w[j]};
+      splat_bound<kNearest, kMerge>(P, v, w[j] != 0.f);
+    }
+  }
+  flush(smem, n_all, out);
+}
+
+// Exact fine splat mass in the w8^3 window at origin o (device int32[3],
+// read here: no host read).  Output [w8, w8*w8], x rows, (y, z) y-major.
+template <bool kNearest>
+__global__ void __launch_bounds__(kPeakThreads) refine_votes_kernel(
+    const int* __restrict__ o, Streams S, int w8, float* __restrict__ out) {
+  extern __shared__ int win[];
+  const int n_all = w8 * w8 * w8;
+  for (int i = threadIdx.x; i < n_all; i += blockDim.x) win[i] = 0;
+  const int ox = o[0], oy = o[1], oz = o[2];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const float scale = votes_scale(S, (long long)blockIdx.x * blockDim.x, stride, 1);
+  if (threadIdx.x == 0) win[n_all] = __float_as_int(scale);
+  __syncthreads();
+
+  // One vote a lane, 4-byte loads: the votes that reach the window are runs
+  // of neighbouring rotations, which this mapping packs into one warp pass of
+  // the splat; four votes a lane (16-byte loads) spread a run over four
+  // passes and measured slower.  Most votes miss the window's x range and
+  // cost the fx load alone.
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < S.n; i += stride) {
+    Vote v;
+    v.x = S.fx[i] - ox;
+    if (v.x < -1 || v.x >= w8) continue;
+    v.w = S.w[i];
+    if (v.w == 0.f) continue;
+    v.y = S.fy[i] - oy;
+    v.z = S.fz[i] - oz;
+    if (v.y < -1 || v.y >= w8 || v.z < -1 || v.z >= w8) continue;
+    v.ax = S.rx[i], v.ay = S.ry[i], v.az = S.rz[i];
+    splat_window<kNearest>(win, scale, w8, v);
+  }
+  flush(win, n_all, out);
+}
+
+// ---------------------------------------------------------------------------
+// Front end 2: pairs.  A lane owns a pair (48 bytes: weight, rotation count
+// m, circle center c, axes x and y) and makes its votes in registers,
+//   g_k = (c_k + cos(a_i) x_k + sin(a_i) y_k - corner_k) / res,  a_i = i 2pi/m,
+// with the arithmetic of voting.py::votes_from_pair_params in its operation
+// order, each step rounded on its own (no fused multiply-add), so that a
+// vote equals the one PyTorch makes on the card up to cosf against torch.cos.
+
+struct Frame {
+  float corner[3], res, hi[3];
+  int fmax[3];
+};
+
+// frame: device f32 [7] = corner | res | runtime grid dims.
+__device__ __forceinline__ Frame load_frame(const float* frame, int gx, int gy, int gz) {
+  Frame F;
+  const int g[3] = {gx, gy, gz};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    F.corner[k] = frame[k];
+    F.hi[k] = __fsub_rn(fminf(frame[4 + k], (float)g[k]), 1.01f);
+    F.fmax[k] = g[k] - 2;
+  }
+  F.res = frame[3];
+  return F;
+}
+
+struct Pair {
+  float w;
+  int m;
+  float c[3], x[3], y[3];
+};
+
+// False for a pair that casts no vote; then only its first 16 bytes are read.
+__device__ __forceinline__ bool load_pair(const float4* __restrict__ params, long long p,
+                                          Pair& q) {
+  const float4 a = params[3 * p];
+  q.w = a.x;
+  q.m = __float_as_int(a.y);
+  if (q.w == 0.f || q.m <= 0) return false;
+  const float4 b = params[3 * p + 1], c = params[3 * p + 2];
+  q.c[0] = a.z, q.c[1] = a.w, q.c[2] = b.x;
+  q.x[0] = b.y, q.x[1] = b.z, q.x[2] = b.w;
+  q.y[0] = c.x, q.y[1] = c.y, q.y[2] = c.z;
+  return true;
+}
+
+// cos | sin of i 2pi/n_rots, the angles of every pair with m == n_rots (all
+// pairs unless voting is adaptive).
+__device__ __forceinline__ void fill_circle_table(float* table, int n_rots) {
+  const float step = __fdiv_rn(kTwoPi, (float)max(n_rots, 1));
+  for (int i = threadIdx.x; i < n_rots; i += blockDim.x) {
+    const float a = __fmul_rn((float)i, step);
+    table[i] = cosf(a);
+    table[n_rots + i] = sinf(a);
+  }
+}
+
+__device__ __forceinline__ void circle_sample(const float* table, int n_rots, int m, float step,
+                                              int i, float& cs, float& sn) {
+  if (m == n_rots) {
+    cs = table[i], sn = table[n_rots + i];
+  } else {
+    const float a = __fmul_rn((float)i, step);
+    cs = cosf(a), sn = sinf(a);
+  }
+}
+
+// Axis k of the vote at (cs, sn): false when it lies outside the grid's
+// valid range, else its floor (clipped as the plain version clips) and
+// fraction.
+__device__ __forceinline__ bool vote_axis(const Pair& q, const Frame& F, int k, float cs,
+                                          float sn, int& f, float& r) {
+  const float pos = __fadd_rn(__fadd_rn(q.c[k], __fmul_rn(cs, q.x[k])), __fmul_rn(sn, q.y[k]));
+  const float g = __fdiv_rn(__fsub_rn(pos, F.corner[k]), F.res);
+  if (!(g >= 0.01f && g < F.hi[k])) return false;
+  f = min(max((int)floorf(g), 0), F.fmax[k]);
+  r = __fsub_rn(g, (float)f);
+  return true;
+}
+
+// Work item t of n_pairs * split: pair t % n_pairs (a warp holds 32 different
+// circles) and the rotations [first, last) of chunk t / n_pairs.
+__device__ __forceinline__ void rotation_range(long long t, long long n_pairs, int n_rots,
+                                               int split, int m, int& first, int& last) {
+  const int per = (n_rots + split - 1) / split;
+  first = (int)(t / n_pairs) * per;
+  last = min(min(m, n_rots), first + per);
+}
+
+// The fixed-point scale of a block of a pairs kernel: a pass over the weight
+// and rotation count of its work items.
+__device__ __forceinline__ float pairs_scale(const float4* __restrict__ params,
+                                             long long n_pairs, int n_rots, int split) {
+  const long long work = n_pairs * split;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  float mass = 0.f, n = 0.f;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work; t += stride) {
+    const float4 a = params[3 * (t % n_pairs)];
+    int first, last;
+    rotation_range(t, n_pairs, n_rots, split, __float_as_int(a.y), first, last);
+    if (a.x != 0.f && last > first) mass += fabsf(a.x) * (float)(last - first), n += last - first;
+  }
+  mass = block_sum(mass);
+  return fixed_scale(mass, block_sum(n));
+}
+
+template <bool kNearest>
+__global__ void __launch_bounds__(kPeakThreads) bound_pairs_kernel(
+    const float4* __restrict__ params, long long n_pairs, int n_rots, int split,
+    const float* __restrict__ frame, int gx, int gy, int gz, int by_n, int bz_n, int pfy,
+    int pfz, float* __restrict__ out) {
+  extern __shared__ int smem[];
+  const int n_xy = gx * by_n, n_xz = gx * bz_n;
+  const int n_all = n_xy + n_xz + gy * bz_n;
+  float* table = reinterpret_cast<float*>(smem + n_all + 1);
+  for (int i = threadIdx.x; i < n_all; i += blockDim.x) smem[i] = 0;
+  fill_circle_table(table, n_rots);
+  const Frame F = load_frame(frame, gx, gy, gz);
+  const float scale = pairs_scale(params, n_pairs, n_rots, split);
+  if (threadIdx.x == 0) smem[n_all] = __float_as_int(scale);
+  const Proj P = {smem, smem + n_xy, smem + n_xy + n_xz, by_n, bz_n, pfy, pfz, scale};
+  __syncthreads();
+
+  const long long work = n_pairs * split;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work; t += stride) {
+    Pair q;
+    if (!load_pair(params, t % n_pairs, q)) continue;
+    int first, last;
+    rotation_range(t, n_pairs, n_rots, split, q.m, first, last);
+    const float step = __fdiv_rn(kTwoPi, (float)q.m);
+    for (int i = first; i < last; ++i) {
+      float cs, sn;
+      circle_sample(table, n_rots, q.m, step, i, cs, sn);
+      Vote v;
+      v.w = q.w;
+      if (vote_axis(q, F, 0, cs, sn, v.x, v.ax) && vote_axis(q, F, 1, cs, sn, v.y, v.ay) &&
+          vote_axis(q, F, 2, cs, sn, v.z, v.az))
+        splat_bound<kNearest, false>(P, v, true);
+    }
+  }
+  flush(smem, n_all, out);
+}
+
+// The window cull.  The votes of a pair lie on an ellipse about c with
+// semi-axes |x| and |y| (x is perpendicular to y), so between the spheres of
+// radius min and max of the two.  The votes that reach the window have
+// coordinates in [o-1, o+w8): a box of half diagonal sqrt(3)/2 (w8+1) voxels
+// about o + (w8-1)/2.  One more voxel of margin covers the rounding.  A pair
+// whose shell misses the ball around that box casts nothing into the window.
+__device__ __forceinline__ bool shell_reaches_window(const Pair& q, const float* centre,
+                                                     float reach) {
+  float d2 = 0.f, x2 = 0.f, y2 = 0.f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float d = q.c[k] - centre[k];
+    d2 += d * d, x2 += q.x[k] * q.x[k], y2 += q.y[k] * q.y[k];
+  }
+  const float d = sqrtf(d2), rx = sqrtf(x2), ry = sqrtf(y2);
+  return d - reach <= fmaxf(rx, ry) && d + reach >= fminf(rx, ry);
+}
+
+template <bool kNearest>
+__global__ void __launch_bounds__(kPeakThreads) refine_pairs_kernel(
+    const int* __restrict__ o, const float4* __restrict__ params, long long n_pairs, int n_rots,
+    int split, const float* __restrict__ frame, int gx, int gy, int gz, int w8,
+    float* __restrict__ out) {
+  extern __shared__ int win[];
+  const int n_all = w8 * w8 * w8;
+  float* table = reinterpret_cast<float*>(win + n_all + 1);
+  for (int i = threadIdx.x; i < n_all; i += blockDim.x) win[i] = 0;
+  fill_circle_table(table, n_rots);
+  const Frame F = load_frame(frame, gx, gy, gz);
+  const float scale = pairs_scale(params, n_pairs, n_rots, split);
+  if (threadIdx.x == 0) win[n_all] = __float_as_int(scale);
+  const int org[3] = {o[0], o[1], o[2]};
+  float centre[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    centre[k] = F.corner[k] + ((float)org[k] + 0.5f * (float)(w8 - 1)) * F.res;
+  const float reach = (0.8660254f * (float)(w8 + 1) + 1.f) * F.res;
+  __syncthreads();
+
+  const long long work = n_pairs * split;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work; t += stride) {
+    Pair q;
+    if (!load_pair(params, t % n_pairs, q)) continue;
+    if (!shell_reaches_window(q, centre, reach)) continue;
+    int first, last;
+    rotation_range(t, n_pairs, n_rots, split, q.m, first, last);
+    const float step = __fdiv_rn(kTwoPi, (float)q.m);
+    for (int i = first; i < last; ++i) {
+      float cs, sn;
+      circle_sample(table, n_rots, q.m, step, i, cs, sn);
+      Vote v;
+      v.w = q.w;
+      // an axis that is invalid or misses the window ends the vote
+      if (!vote_axis(q, F, 0, cs, sn, v.x, v.ax)) continue;
+      v.x -= org[0];
+      if (v.x < -1 || v.x >= w8) continue;
+      if (!vote_axis(q, F, 1, cs, sn, v.y, v.ay)) continue;
+      v.y -= org[1];
+      if (v.y < -1 || v.y >= w8) continue;
+      if (!vote_axis(q, F, 2, cs, sn, v.z, v.az)) continue;
+      v.z -= org[2];
+      if (v.z < -1 || v.z >= w8) continue;
+      splat_window<kNearest>(win, scale, w8, v);
+    }
+  }
+  flush(win, n_all, out);
+}
+
+// Launches a peak kernel: `threads` a block, clusters of `cluster` blocks (or
+// the largest power-of-two fraction of it that the device will co-schedule
+// with this much shared memory), and as many clusters as are resident at
+// once by cudaOccupancyMaxActiveClusters, or fewer when `work` items need
+// fewer threads.  info, when not null, receives {blocks, cluster size}.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_peak(void (*kernel)(KArgs...), long long work, int threads, size_t smem,
+                        int cluster, cudaStream_t stream, int* info, Args... args) {
+  if (threads < 32 || threads > kPeakThreads || threads % 32 || cluster < 1 || cluster > 16 ||
+      (cluster & (cluster - 1)))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+
+  // what the device grants this kernel at this shape is asked once
+  static std::mutex lock;
+  static std::map<std::tuple<const void*, int, int, size_t, int>, std::pair<int, int>> granted;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  const auto key = std::make_tuple((const void*)kernel, device, threads, smem, cluster);
+  int resident = 0;
+  {
+    std::lock_guard<std::mutex> guard(lock);
+    auto hit = granted.find(key);
+    if (hit == granted.end()) {
+      // the most a block may opt in to, so that no later shape finds it lower
+      int optin = 0;
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+      if (e != cudaSuccess) return e;
+      cudaFuncAttributes fixed;  // the kernel's static shared memory counts against it
+      e = cudaFuncGetAttributes(&fixed, (const void*)kernel);
+      if (e != cudaSuccess) return e;
+      optin -= (int)fixed.sharedSizeBytes;
+      if (smem > (size_t)optin) return cudaErrorInvalidValue;
+      e = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+      if (e != cudaSuccess) return e;
+      if (cluster > 8) {
+        e = cudaFuncSetAttribute((const void*)kernel,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return e;
+      }
+      int c = cluster;
+      for (;; c /= 2) {
+        attr.val.clusterDim.x = c;
+        cfg.gridDim = dim3(c);
+        e = cudaOccupancyMaxActiveClusters(&resident, (const void*)kernel, &cfg);
+        if (e == cudaSuccess && resident > 0) break;
+        if (c == 1) return e != cudaSuccess ? e : cudaErrorLaunchOutOfResources;
+        (void)cudaGetLastError();  // a cluster this large is refused: try half
+      }
+      hit = granted.emplace(key, std::make_pair(resident, c)).first;
+    }
+    resident = hit->second.first;
+    cluster = hit->second.second;
+  }
+  attr.val.clusterDim.x = cluster;
+  const long long per_cluster = (long long)threads * cluster;
+  long long clusters = (work + per_cluster - 1) / per_cluster;
+  if (clusters > resident) clusters = resident;
+  if (clusters < 1) clusters = 1;
+  cfg.gridDim = dim3((unsigned)(clusters * cluster));
+  if (info) info[0] = (int)(clusters * cluster), info[1] = cluster;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -320,59 +860,95 @@ cudaError_t launch_dense(const int* fx, const int* fy, const int* fz, const floa
 }
 
 template <bool kNearest>
-cudaError_t launch_bound(const int* fx, const int* fy, const int* fz, const float* rx,
-                         const float* ry, const float* rz, const float* w, long long n_votes,
-                         int gx, int gy, int by_n, int bz_n, int pfy, int pfz, float* out,
-                         cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)gx * by_n + (size_t)gx * bz_n + (size_t)gy * bz_n);
-  int blocks = 0;
-  cudaError_t e = grid_size(bound_kernel<kNearest>, smem, n_votes, &blocks);
-  if (e != cudaSuccess) return e;
-  bound_kernel<kNearest><<<blocks, kThreads, smem, stream>>>(
-      fx, fy, fz, rx, ry, rz, w, n_votes, gx, gy, by_n, bz_n, pfy, pfz, out);
-  return cudaGetLastError();
+cudaError_t launch_bound_pairs(const float4* params, long long n_pairs, int n_rots,
+                               const float* frame, int gx, int gy, int gz, int by_n, int bz_n,
+                               int pfy, int pfz, int split, int threads, int cluster, float* out,
+                               cudaStream_t stream, int* info) {
+  const size_t smem = sizeof(float) * ((size_t)gx * by_n + (size_t)gx * bz_n +
+                                       (size_t)gy * bz_n + 1 + 2 * (size_t)n_rots);
+  return launch_peak(bound_pairs_kernel<kNearest>, n_pairs * split, threads, smem, cluster,
+                     stream, info, params, n_pairs, n_rots, split, frame, gx, gy, gz, by_n, bz_n,
+                     pfy, pfz, out);
 }
 
 template <bool kNearest>
-cudaError_t launch_refine(const int* o, const int* fx, const int* fy, const int* fz,
-                          const float* rx, const float* ry, const float* rz, const float* w,
-                          long long n_votes, int w8, float* out, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)w8 * w8 * w8;
-  int blocks = 0;
-  cudaError_t e = grid_size(refine_kernel<kNearest>, smem, n_votes, &blocks);
-  if (e != cudaSuccess) return e;
-  refine_kernel<kNearest><<<blocks, kThreads, smem, stream>>>(
-      o, fx, fy, fz, rx, ry, rz, w, n_votes, w8, out);
-  return cudaGetLastError();
+cudaError_t launch_refine_pairs(const int* o, const float4* params, long long n_pairs, int n_rots,
+                                const float* frame, int gx, int gy, int gz, int w8, int split,
+                                int threads, int cluster, float* out, cudaStream_t stream,
+                                int* info) {
+  const size_t smem = sizeof(float) * ((size_t)w8 * w8 * w8 + 1 + 2 * (size_t)n_rots);
+  return launch_peak(refine_pairs_kernel<kNearest>, n_pairs * split, threads, smem, cluster,
+                     stream, info, o, params, n_pairs, n_rots, split, frame, gx, gy, gz, w8, out);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Every entry point returns a cudaError_t (0 on success) and takes the launch
+// shape from its caller: threads a block, blocks a cluster, and for the pairs
+// front ends the number of lanes that share a pair's rotations (split).
+// info: host int[2] or null, receives {blocks, cluster size} of the launch.
+
 // out: zeroed f32 [gx*by_n + gx*bz_n + gy*bz_n] = Mxy | Mxz | Myz.
 int cppf_bound_projections(const void* fx, const void* fy, const void* fz, const void* rx,
                            const void* ry, const void* rz, const void* w, long long n_votes,
                            int gx, int gy, int by_n, int bz_n, int pfy, int pfz, int nearest,
-                           void* out, void* stream) {
-  auto args = [&](auto launch) {
-    return launch((const int*)fx, (const int*)fy, (const int*)fz, (const float*)rx,
-                  (const float*)ry, (const float*)rz, (const float*)w, n_votes, gx, gy, by_n,
-                  bz_n, pfy, pfz, (float*)out, (cudaStream_t)stream);
+                           int merge, int threads, int cluster, void* out, void* stream,
+                           int* info) {
+  const Streams S = {(const int*)fx,   (const int*)fy,   (const int*)fz,  (const float*)rx,
+                     (const float*)ry, (const float*)rz, (const float*)w, n_votes};
+  const size_t smem =
+      sizeof(float) * ((size_t)gx * by_n + (size_t)gx * bz_n + (size_t)gy * bz_n + 1);
+  auto go = [&](auto kernel) {
+    return (int)launch_peak(kernel, (n_votes + 3) / 4, threads, smem, cluster,
+                            (cudaStream_t)stream, info, S, gx, gy, by_n, bz_n, pfy, pfz,
+                            (float*)out);
   };
-  return (int)(nearest ? args(launch_bound<true>) : args(launch_bound<false>));
+  if (nearest) return merge ? go(bound_votes_kernel<true, true>) : go(bound_votes_kernel<true, false>);
+  return merge ? go(bound_votes_kernel<false, true>) : go(bound_votes_kernel<false, false>);
 }
 
 // out: zeroed f32 [w8 * w8 * w8]; o: device int32[3].
 int cppf_refine_window(const void* o, const void* fx, const void* fy, const void* fz,
                        const void* rx, const void* ry, const void* rz, const void* w,
-                       long long n_votes, int w8, int nearest, void* out, void* stream) {
-  auto args = [&](auto launch) {
-    return launch((const int*)o, (const int*)fx, (const int*)fy, (const int*)fz,
-                  (const float*)rx, (const float*)ry, (const float*)rz, (const float*)w,
-                  n_votes, w8, (float*)out, (cudaStream_t)stream);
+                       long long n_votes, int w8, int nearest, int threads, int cluster,
+                       void* out, void* stream, int* info) {
+  const Streams S = {(const int*)fx,   (const int*)fy,   (const int*)fz,  (const float*)rx,
+                     (const float*)ry, (const float*)rz, (const float*)w, n_votes};
+  const size_t smem = sizeof(float) * ((size_t)w8 * w8 * w8 + 1);
+  auto go = [&](auto kernel) {
+    return (int)launch_peak(kernel, n_votes, threads, smem, cluster, (cudaStream_t)stream, info,
+                            (const int*)o, S, w8, (float*)out);
   };
-  return (int)(nearest ? args(launch_refine<true>) : args(launch_refine<false>));
+  return nearest ? go(refine_votes_kernel<true>) : go(refine_votes_kernel<false>);
+}
+
+// params: f32 [n_pairs, 12] of voting.py::pair_vote_params; frame: device
+// f32 [7] = corner | res | runtime grid dims; out as cppf_bound_projections.
+int cppf_bound_projections_pairs(const void* params, long long n_pairs, int n_rots,
+                                 const void* frame, int gx, int gy, int gz, int by_n, int bz_n,
+                                 int pfy, int pfz, int nearest, int split, int threads,
+                                 int cluster, void* out, void* stream, int* info) {
+  auto go = [&](auto launch) {
+    return (int)launch((const float4*)params, n_pairs, n_rots, (const float*)frame, gx, gy, gz,
+                       by_n, bz_n, pfy, pfz, split, threads, cluster, (float*)out,
+                       (cudaStream_t)stream, info);
+  };
+  return nearest ? go(launch_bound_pairs<true>) : go(launch_bound_pairs<false>);
+}
+
+// As cppf_refine_window, from pair parameters.
+int cppf_refine_window_pairs(const void* o, const void* params, long long n_pairs, int n_rots,
+                             const void* frame, int gx, int gy, int gz, int w8, int nearest,
+                             int split, int threads, int cluster, void* out, void* stream,
+                             int* info) {
+  auto go = [&](auto launch) {
+    return (int)launch((const int*)o, (const float4*)params, n_pairs, n_rots,
+                       (const float*)frame, gx, gy, gz, w8, split, threads, cluster, (float*)out,
+                       (cudaStream_t)stream, info);
+  };
+  return nearest ? go(launch_refine_pairs<true>) : go(launch_refine_pairs<false>);
 }
 
 // out: f32 [cx*cy*cz], zeroed or holding earlier chunks' sums (added to).

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface under ``cppf_tpu_torch/_build/`` (listed in .gitignore),
 named by the hash of the source and flags, so an edited source rebuilds and
-an unchanged one is reused.  Libraries load through ``ctypes``.  Nothing
+an unchanged one is reused.  The compiler's output (``-Xptxas -v``: each
+kernel's registers, shared memory and spills) is kept beside the library as
+``<library>.log``.  Libraries load through ``ctypes``.  Nothing
 builds at import: the first launch (or :func:`build`) does.
 """
 from __future__ import annotations
@@ -19,7 +21,7 @@ PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -56,6 +58,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{log}")
             continue
+        with open(paths[name] + ".log", "w") as f:
+            f.write(log)
         os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -69,3 +73,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build([name])[name])
         _libs[name] = lib
     return lib
+
+
+def resource_usage(name: str) -> Dict[str, str]:
+    """Kernel (mangled name) → ptxas's line of registers, shared memory and
+    spills, from the build log of ``csrc/<name>.cu``."""
+    with open(build([name])[name] + ".log") as f:
+        lines = f.read().splitlines()
+    usage, kernel, spills = {}, None, ""
+    for line in lines:
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "bytes spill stores" in line:
+            spills = line.split(":", 1)[-1].strip()
+        elif "Used" in line and "registers" in line and kernel:
+            usage[kernel] = f"{line.split(':', 1)[-1].strip()}; {spills}"
+            kernel = None
+    return usage

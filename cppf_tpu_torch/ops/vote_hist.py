@@ -15,6 +15,13 @@ for ``"trilinear"``; one, ``f + (r > 0.5)``, for ``"nearest"``.
 - :func:`dense_hist`: the dense splat histogram [cx, cy, cz], each axis
   pooled by an integer factor with exact mass pooling.
 
+The two peak kernels have a second front end that takes pairs instead of
+votes (:func:`bound_projections_pairs`, :func:`refine_window_pairs`): a
+``voting.pair_vote_params`` block [P, 12] and the grid's frame
+(:func:`vote_frame`), from which the kernel makes each vote in registers,
+so that no [P, R] vote vector exists.  Their plain version is
+``voting.votes_from_pair_params`` followed by the votes' plain version.
+
 Each wrapper takes the plain PyTorch version (``*_plain``, an
 ``index_add_`` over the splat taps) for CPU tensors, and launches the CUDA
 kernel of ``csrc/vote_hist.cu`` for CUDA tensors — there is no fallback
@@ -28,8 +35,23 @@ import torch
 
 from cppf_tpu_torch.ops import cuda_build
 
-LAUNCHES = {"bound_projections": 0, "refine_window": 0, "dense_hist": 0}
+LAUNCHES = {"bound_projections": 0, "refine_window": 0, "dense_hist": 0,
+            "bound_projections_pairs": 0, "refine_window_pairs": 0}
 SMEM_MAX = 232448  # bytes of shared memory one H100 block may opt in to
+_SMEM_FIXED = 4 + 256  # a peak kernel's block scale and its reduction scratch
+# The launch shape of each peak kernel: threads a block, blocks a cluster
+# (the kernel halves it until the device grants it), for the pairs front
+# ends the lanes that share one pair's rotations, for the votes front end
+# of the bound pass whether lanes with the same cell merge before the
+# atomic.  Each dict is in the order of the C entry point's arguments.
+# Chosen by scripts/tune_vote_kernels.py, which times the others.
+LAUNCH_SHAPE = {
+    "bound_projections": dict(merge=0, threads=512, cluster=1),
+    "refine_window": dict(threads=1024, cluster=1),
+    "bound_projections_pairs": dict(split=4, threads=1024, cluster=1),
+    "refine_window_pairs": dict(split=4, threads=1024, cluster=1),
+}
+LAST_LAUNCH = {}  # wrapper name -> (blocks, cluster size) of its latest launch
 _SPLATS = ("trilinear", "nearest")
 _lib = None
 
@@ -117,20 +139,27 @@ def dense_hist_plain(fx, fy, fz, rx, ry, rz, w, *, cx: int, cy: int, cz: int, px
     return out
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``csrc/vote_hist.cu``."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.cppf_bound_projections.argtypes = [p] * 7 + [ll] + [i] * 10 + [p, p, p]
+    lib.cppf_refine_window.argtypes = [p] * 8 + [ll] + [i] * 4 + [p, p, p]
+    lib.cppf_bound_projections_pairs.argtypes = [p, ll, i, p] + [i] * 11 + [p, p, p]
+    lib.cppf_refine_window_pairs.argtypes = [p, p, ll, i, p] + [i] * 8 + [p, p, p]
+    lib.cppf_dense_hist.argtypes = [p] * 7 + [ll] + [i] * 7 + [p, p]
+    for fn in (lib.cppf_bound_projections, lib.cppf_refine_window,
+               lib.cppf_bound_projections_pairs, lib.cppf_refine_window_pairs,
+               lib.cppf_dense_hist):
+        fn.restype = i
+    lib.cppf_error_string.argtypes = [i]
+    lib.cppf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = cuda_build.load("vote_hist")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.cppf_bound_projections.argtypes = [p] * 7 + [ll] + [i] * 7 + [p, p]
-        lib.cppf_bound_projections.restype = i
-        lib.cppf_refine_window.argtypes = [p] * 8 + [ll, i, i, p, p]
-        lib.cppf_refine_window.restype = i
-        lib.cppf_dense_hist.argtypes = [p] * 7 + [ll] + [i] * 7 + [p, p]
-        lib.cppf_dense_hist.restype = i
-        lib.cppf_error_string.argtypes = [i]
-        lib.cppf_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _bind(cuda_build.load("vote_hist"))
     return _lib
 
 
@@ -151,9 +180,39 @@ def _check_votes(fx, fy, fz, rx, ry, rz, w, splat):
         raise ValueError(f"unsupported device {w.device}")
 
 
-def _raise_on(lib, rc: int, what: str) -> None:
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` at an address the kernels' 16-byte loads accept (a fresh tensor
+    always is; a slice that starts mid-row is copied)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(name: str, entry: str, *args) -> None:
+    """Call the C entry point ``entry`` with ``args``, the launch shape of
+    ``name``, the current stream and an info buffer; raise unless it
+    launched, else count it."""
+    lib = _library()
+    info = (ctypes.c_int * 2)()
+    *head, out = args
+    rc = getattr(lib, entry)(*head, *LAUNCH_SHAPE[name].values(), out.data_ptr(),
+                             torch.cuda.current_stream(out.device).cuda_stream, info)
     if rc != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.cppf_error_string(rc).decode()}")
+        raise RuntimeError(f"{name} launch failed: {lib.cppf_error_string(rc).decode()}")
+    LAUNCHES[name] += 1
+    LAST_LAUNCH[name] = tuple(info)
+
+
+def _projection_views(out, gx, gy, by_n, bz_n):
+    n_xy, n_xz = gx * by_n, gx * bz_n
+    return (out[:n_xy].view(gx, by_n), out[n_xy:n_xy + n_xz].view(gx, bz_n),
+            out[n_xy + n_xz:].view(gy, bz_n))
+
+
+def _projection_buffer(gx, gy, by_n, bz_n, extra_bytes, device):
+    n = gx * by_n + gx * bz_n + gy * bz_n
+    if 4 * n + extra_bytes > SMEM_MAX:
+        raise ValueError(f"projections of {gx}x{gy} rows by {by_n}+{bz_n} columns do not "
+                         f"fit one block's {SMEM_MAX} bytes of shared memory")
+    return torch.zeros(n, dtype=torch.float32, device=device)
 
 
 def bound_projections(fx, fy, fz, rx, ry, rz, w, *, gx: int, gy: int, by_n: int,
@@ -163,44 +222,124 @@ def bound_projections(fx, fy, fz, rx, ry, rz, w, *, gx: int, gy: int, by_n: int,
     if w.device.type == "cpu":
         return bound_projections_plain(fx, fy, fz, rx, ry, rz, w, gx=gx, gy=gy, by_n=by_n,
                                        bz_n=bz_n, pfy=pfy, pfz=pfz, splat=splat)
-    n_xy, n_xz, n_yz = gx * by_n, gx * bz_n, gy * bz_n
-    if 4 * (n_xy + n_xz + n_yz) > SMEM_MAX:
-        raise ValueError(f"projections of {gx}x{gy} rows by {by_n}+{bz_n} columns do not "
-                         f"fit one block's {SMEM_MAX} bytes of shared memory")
-    out = torch.zeros(n_xy + n_xz + n_yz, dtype=torch.float32, device=w.device)
+    out = _projection_buffer(gx, gy, by_n, bz_n, _SMEM_FIXED, w.device)
     if w.shape[0]:
-        lib = _library()
-        rc = lib.cppf_bound_projections(
-            fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), rx.data_ptr(), ry.data_ptr(),
-            rz.data_ptr(), w.data_ptr(), w.shape[0], gx, gy, by_n, bz_n, pfy, pfz,
-            int(splat == "nearest"), out.data_ptr(),
-            torch.cuda.current_stream(w.device).cuda_stream)
-        _raise_on(lib, rc, "bound_projections")
-        LAUNCHES["bound_projections"] += 1
-    return (out[:n_xy].view(gx, by_n), out[n_xy:n_xy + n_xz].view(gx, bz_n),
-            out[n_xy + n_xz:].view(gy, bz_n))
+        votes = [_aligned(t) for t in (fx, fy, fz, rx, ry, rz, w)]
+        _launch("bound_projections", "cppf_bound_projections", *(t.data_ptr() for t in votes),
+                w.shape[0], gx, gy, by_n, bz_n, pfy, pfz, int(splat == "nearest"), out)
+    return _projection_views(out, gx, gy, by_n, bz_n)
+
+
+def _check_origin(o, device):
+    if o.device != device or o.dtype != torch.int32 or o.shape != (3,):
+        raise ValueError(f"o must be an int32 [3] tensor on {device}")
 
 
 def refine_window(o, fx, fy, fz, rx, ry, rz, w, *, w8: int = 16, splat: str = "trilinear"):
     """Exact fine counts [w8, w8·w8] in the window at origin ``o``."""
     _check_votes(fx, fy, fz, rx, ry, rz, w, splat)
-    if o.device != w.device or o.dtype != torch.int32 or o.shape != (3,):
-        raise ValueError(f"o must be an int32 [3] tensor on {w.device}")
+    _check_origin(o, w.device)
     if w.device.type == "cpu":
         return refine_window_plain(o, fx, fy, fz, rx, ry, rz, w, w8=w8, splat=splat)
-    if 4 * w8 ** 3 > SMEM_MAX:
+    if 4 * w8 ** 3 + _SMEM_FIXED > SMEM_MAX:
         raise ValueError(f"a {w8}^3 window does not fit one block's shared memory")
     o = o.contiguous()
     out = torch.zeros(w8 * w8 * w8, dtype=torch.float32, device=w.device)
     if w.shape[0]:
-        lib = _library()
-        rc = lib.cppf_refine_window(
-            o.data_ptr(), fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), rx.data_ptr(),
-            ry.data_ptr(), rz.data_ptr(), w.data_ptr(), w.shape[0], w8,
-            int(splat == "nearest"), out.data_ptr(),
-            torch.cuda.current_stream(w.device).cuda_stream)
-        _raise_on(lib, rc, "refine_window")
-        LAUNCHES["refine_window"] += 1
+        votes = [_aligned(t) for t in (fx, fy, fz, rx, ry, rz, w)]
+        _launch("refine_window", "cppf_refine_window", o.data_ptr(),
+                *(t.data_ptr() for t in votes), w.shape[0], w8, int(splat == "nearest"), out)
+    return out.view(w8, w8 * w8)
+
+
+def vote_frame(corner, res, dims_f) -> torch.Tensor:
+    """The grid's frame as the pairs front ends read it: float32 [7] =
+    corner [3] | res | runtime grid dims [3], on the corner's device (built
+    there: nothing is read to the host)."""
+    res = torch.as_tensor(res, dtype=torch.float32, device=corner.device)
+    return torch.cat([corner.reshape(3).float(), res.reshape(1), dims_f.reshape(3).float()])
+
+
+def _check_pairs(params, frame, grid_shape, n_rots, splat):
+    if splat not in _SPLATS:
+        raise ValueError(f"splat must be one of {_SPLATS}, got {splat!r}")
+    if (params.dtype != torch.float32 or params.dim() != 2 or params.shape[1] != 12
+            or not params.is_contiguous()):
+        raise ValueError(f"params must be a contiguous float32 [P, 12] block, got "
+                         f"{params.dtype} {tuple(params.shape)}")
+    if (frame.device != params.device or frame.dtype != torch.float32 or frame.shape != (7,)
+            or not frame.is_contiguous()):
+        raise ValueError(f"frame must be a contiguous float32 [7] tensor on {params.device}")
+    if params.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {params.device}")
+    if len(grid_shape) != 3 or min(grid_shape) < 2 or n_rots < 1:
+        raise ValueError(f"bad grid shape {grid_shape} or rotation count {n_rots}")
+
+
+def _plain_votes(params, frame, grid_shape, n_rots):
+    from cppf_tpu_torch.ops.voting import votes_from_pair_params  # voting imports this module
+
+    f, r, w = votes_from_pair_params(params, frame[:3], frame[3], frame[4:], grid_shape, n_rots)
+    return [a.reshape(-1) for a in (*f, *r, w)]
+
+
+def bound_projections_pairs(params, frame, *, n_rots: int, grid_shape, by_n: int, bz_n: int,
+                            pfy: int, pfz: int, splat: str = "trilinear"):
+    """:func:`bound_projections` of the votes of a ``pair_vote_params`` block
+    in the grid ``frame`` (:func:`vote_frame`), without the votes: the kernel
+    makes them in registers."""
+    _check_pairs(params, frame, grid_shape, n_rots, splat)
+    gx, gy, gz = grid_shape
+    kw = dict(gx=gx, gy=gy, by_n=by_n, bz_n=bz_n, pfy=pfy, pfz=pfz, splat=splat)
+    if params.device.type == "cpu":
+        return bound_projections_plain(*_plain_votes(params, frame, grid_shape, n_rots), **kw)
+    out = _projection_buffer(gx, gy, by_n, bz_n, _SMEM_FIXED + 8 * n_rots, params.device)
+    if params.shape[0]:
+        params = _aligned(params)
+        _launch("bound_projections_pairs", "cppf_bound_projections_pairs", params.data_ptr(),
+                params.shape[0], n_rots, frame.data_ptr(), gx, gy, gz, by_n, bz_n, pfy, pfz,
+                int(splat == "nearest"), out)
+    return _projection_views(out, gx, gy, by_n, bz_n)
+
+
+def window_cull_plain(params, frame, o, w8: int) -> torch.Tensor:
+    """[P] bool: False for the pairs the window kernel skips before it makes
+    a vote.  A pair's votes lie on an ellipse about ``c`` with semi-axes
+    ``|x|`` and ``|y|``; the votes that reach the window have coordinates in
+    ``[o-1, o+w8)``, a box of half diagonal ``√3/2·(w8+1)`` voxels about
+    ``o + (w8-1)/2``.  With one more voxel of margin, a pair whose shell
+    ``min(|x|,|y|) ≤ distance ≤ max(|x|,|y|)`` misses the ball around that
+    box casts nothing into the window."""
+    corner, res = frame[:3], frame[3]
+    centre = corner + (o.to(torch.float32) + 0.5 * (w8 - 1)) * res
+    reach = (0.8660254 * (w8 + 1) + 1.0) * res
+    d = torch.linalg.norm(params[:, 2:5] - centre, dim=-1)
+    rx = torch.linalg.norm(params[:, 5:8], dim=-1)
+    ry = torch.linalg.norm(params[:, 8:11], dim=-1)
+    return (d - reach <= torch.maximum(rx, ry)) & (d + reach >= torch.minimum(rx, ry))
+
+
+def refine_window_pairs(o, params, frame, *, n_rots: int, grid_shape, w8: int = 16,
+                        splat: str = "trilinear"):
+    """:func:`refine_window` of the votes of a ``pair_vote_params`` block,
+    without the votes.  Pairs that :func:`window_cull_plain` drops are
+    skipped before any vote is made."""
+    _check_pairs(params, frame, grid_shape, n_rots, splat)
+    _check_origin(o, params.device)
+    if params.device.type == "cpu":
+        culled = params.clone()
+        culled[:, 0] = torch.where(window_cull_plain(params, frame, o, w8), params[:, 0], 0.0)
+        return refine_window_plain(o, *_plain_votes(culled, frame, grid_shape, n_rots), w8=w8,
+                                   splat=splat)
+    if 4 * w8 ** 3 + _SMEM_FIXED + 8 * n_rots > SMEM_MAX:
+        raise ValueError(f"a {w8}^3 window does not fit one block's shared memory")
+    o = o.contiguous()
+    out = torch.zeros(w8 * w8 * w8, dtype=torch.float32, device=params.device)
+    if params.shape[0]:
+        params = _aligned(params)
+        _launch("refine_window_pairs", "cppf_refine_window_pairs", o.data_ptr(),
+                params.data_ptr(), params.shape[0], n_rots, frame.data_ptr(), *grid_shape, w8,
+                int(splat == "nearest"), out)
     return out.view(w8, w8 * w8)
 
 
@@ -231,6 +370,7 @@ def dense_hist(fx, fy, fz, rx, ry, rz, w, *, cx: int, cy: int, cz: int, px: int 
             rz.data_ptr(), w.data_ptr(), w.shape[0], cx, cy, cz, px, py, pz,
             int(splat == "nearest"), out.data_ptr(),
             torch.cuda.current_stream(w.device).cuda_stream)
-        _raise_on(lib, rc, "dense_hist")
+        if rc != 0:
+            raise RuntimeError(f"dense_hist launch failed: {lib.cppf_error_string(rc).decode()}")
         LAUNCHES["dense_hist"] += 1
     return out

@@ -19,9 +19,12 @@ from typing import Tuple
 import torch
 
 from cppf_tpu_torch.core.geometry import cross
-from cppf_tpu_torch.ops.vote_hist import bound_projections, dense_hist, refine_window
+from cppf_tpu_torch.ops.vote_hist import (bound_projections, bound_projections_pairs,
+                                          dense_hist, refine_window, refine_window_pairs,
+                                          vote_frame)
 
 TWO_PI = 6.283185307179586
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}  # same-width integers
 
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
@@ -59,14 +62,26 @@ def _circle(m, n_rots: int, like: torch.Tensor):
     return torch.cos(angle), torch.sin(angle), i[None, :] < m[:, None]
 
 
-def _vote_coords(pc, preds_tr, probs, point_idxs, corner, res, dims_f, grid_shape,
-                 n_rots, adaptive, pair_mask, halfspace=None):
-    """Componentwise voxel coordinates of every vote (cppf_tpu ops/voting.py
-    :67-135).  Returns (f, r, w): three int32 [P, R] floors clipped to
-    [0, g-2], three f32 [P, R] fractions, and [P, R] weights with every
-    validity mask folded in as zeros.  ``halfspace = (a_ref [P,3], n_ref
-    [P,3], gate [P] bool, margin)`` keeps, for gated pairs, only candidates
-    with (cand − a_ref)·n_ref ≤ margin."""
+def pair_vote_params(pc, preds_tr, probs, point_idxs, res, n_rots: int, adaptive: bool,
+                     pair_mask) -> torch.Tensor:
+    """Everything a pair's votes derive from, as one contiguous [P, 12]
+    block of ``pc``'s type (float32 for the kernels: 48 bytes a pair, three
+    16-byte loads):
+
+    ====== =================================================================
+    column
+    ====== =================================================================
+    0      weight ``max(probs[a], probs[b])``, times a float ``pair_mask``;
+           0 for a degenerate pair or one a bool ``pair_mask`` drops
+    1      rotation count ``m`` (:func:`_adaptive_rots`), integer bits
+    2-4    circle center ``c = a − âb·proj_len``
+    5-7    ``x = co_unit·odist``
+    8-10   ``y = x × âb``
+    11     0
+    ====== =================================================================
+
+    Vote ``i < m`` of the pair is ``c + cos(i·2π/m)·x + sin(i·2π/m)·y``
+    (:func:`votes_from_pair_params`).  ``res`` is a 0-d tensor or a number."""
     res = _scalar(res, pc)
     a, ab_unit, degenerate, co_unit = pair_frames(pc, point_idxs)
     proj_len, odist = preds_tr[:, 0], preds_tr[:, 1]
@@ -75,15 +90,34 @@ def _vote_coords(pc, preds_tr, probs, point_idxs, corner, res, dims_f, grid_shap
     c = a - ab_unit * proj_len[:, None]
     x = co_unit * odist[:, None]
     y = cross(x, ab_unit)
-    cos_a, sin_a, rot_valid = _circle(m, n_rots, pc)
 
     idx = point_idxs.long()
     w = torch.maximum(probs[idx[:, 0]], probs[idx[:, 1]])
-    valid = rot_valid & (~degenerate)[:, None]
+    keep = ~degenerate
     if pair_mask.dtype == torch.bool:
-        valid = valid & pair_mask[:, None]
+        keep = keep & pair_mask
     else:
         w = w * pair_mask
+    w = torch.where(keep, w, 0.0)
+    # assembled as integers so that the copy cannot touch the bits of m
+    bits = _BITS[pc.dtype]
+    cols = [w[:, None], c, x, y, torch.zeros_like(w)[:, None]]
+    block = torch.cat([cols[0].view(bits), m.to(bits)[:, None]]
+                      + [t.contiguous().view(bits) for t in cols[1:]], 1)
+    return block.view(pc.dtype)
+
+
+def votes_from_pair_params(params, corner, res, dims_f, grid_shape, n_rots: int,
+                           halfspace=None):
+    """The [P, R] half of :func:`_vote_coords`: every vote of every pair of
+    a :func:`pair_vote_params` block.  The pairs front ends of the vote
+    kernels do this arithmetic in registers, in this operation order; this
+    is their plain version.  Returns (f, r, w) as :func:`_vote_coords`."""
+    res = _scalar(res, params)
+    w = params[:, 0]
+    m = params[:, 1].view(_BITS[params.dtype]).to(torch.int32)
+    c, x, y = params[:, 2:5], params[:, 5:8], params[:, 8:11]
+    cos_a, sin_a, valid = _circle(m, n_rots, params)
 
     if halfspace is not None:
         a_ref, n_ref, hs_gate, hs_margin = halfspace
@@ -104,6 +138,20 @@ def _vote_coords(pc, preds_tr, probs, point_idxs, corner, res, dims_f, grid_shap
         rcomp.append(gk - fk)
     wv = torch.where(valid, w[:, None], 0.0)
     return fcomp, rcomp, wv
+
+
+def _vote_coords(pc, preds_tr, probs, point_idxs, corner, res, dims_f, grid_shape,
+                 n_rots, adaptive, pair_mask, halfspace=None):
+    """Componentwise voxel coordinates of every vote (cppf_tpu ops/voting.py
+    :67-135).  Returns (f, r, w): three int32 [P, R] floors clipped to
+    [0, g-2], three f32 [P, R] fractions, and [P, R] weights with every
+    validity mask folded in as zeros.  ``halfspace = (a_ref [P,3], n_ref
+    [P,3], gate [P] bool, margin)`` keeps, for gated pairs, only candidates
+    with (cand − a_ref)·n_ref ≤ margin."""
+    params = pair_vote_params(pc, preds_tr, probs, point_idxs, res, n_rots, adaptive,
+                              pair_mask)
+    return votes_from_pair_params(params, corner, res, dims_f, grid_shape, n_rots,
+                                  halfspace=halfspace)
 
 
 def ppf_vote(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
@@ -186,6 +234,11 @@ def ppf_vote_peak(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
     """Argmax and max of the :func:`ppf_vote` grid without building the grid
     (cppf_tpu ops/voting.py:280-524), by branch-and-bound:
 
+    On a CUDA tensor (and without ``halfspace``) both passes take the pairs
+    front ends of the kernels, which make each vote in registers from
+    :func:`pair_vote_params`; else the votes of :func:`_vote_coords` are
+    built once and go through the votes front ends (``LAUNCHES`` says which).
+
     1. ``bound_projections`` accumulates the 2D projections Mxy/Mxz/Myz
        (y/z columns pooled to ≤ 64 bins); every voxel of a coarse
        ``coarse_factor``³ cell is bounded by the min of their block maxima.
@@ -210,20 +263,34 @@ def ppf_vote_peak(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
     if pair_mask is None:
         pair_mask = torch.ones(point_idxs.shape[0], dtype=torch.bool, device=dev)
 
-    fcomp, rcomp, wv = _vote_coords(
-        pc, preds_tr, probs, point_idxs, corner, res, grid_dims.to(pc.dtype), grid_shape,
-        n_rots, adaptive, pair_mask, halfspace=halfspace)
-    fx, fy, fz = (a.reshape(-1) for a in fcomp)
-    rx, ry, rz = (a.reshape(-1) for a in rcomp)
-    wf = wv.reshape(-1)
-
     # ---- bound pass ---------------------------------------------------------
     pfy, pfz = _poolf(gy), _poolf(gz)
     if f8 % pfy or f8 % pfz:
         raise ValueError(f"pool factors ({pfy}, {pfz}) must divide coarse_factor {f8}")
     by_n, bz_n = -(-gy // pfy), -(-gz // pfz)
-    mxy, mxz, myz = bound_projections(fx, fy, fz, rx, ry, rz, wf, gx=gx, gy=gy, by_n=by_n,
-                                      bz_n=bz_n, pfy=pfy, pfz=pfz, splat=splat)
+    bound_kw = dict(by_n=by_n, bz_n=bz_n, pfy=pfy, pfz=pfz, splat=splat)
+    dims_f = grid_dims.to(pc.dtype)
+    if dev.type == "cuda" and halfspace is None:
+        # pairs front ends: the kernels make the votes, no [P, R] tensor exists
+        params = pair_vote_params(pc, preds_tr, probs, point_idxs, res, n_rots, adaptive,
+                                  pair_mask)
+        frame = vote_frame(corner, res, dims_f)
+        pairs_kw = dict(n_rots=n_rots, grid_shape=grid_shape)
+        mxy, mxz, myz = bound_projections_pairs(params, frame, **pairs_kw, **bound_kw)
+
+        def refine(o):
+            return refine_window_pairs(o, params, frame, **pairs_kw, w8=w8, splat=splat)
+    else:
+        # votes front ends: the CPU's plain versions, and the half-space gate
+        fcomp, rcomp, wv = _vote_coords(pc, preds_tr, probs, point_idxs, corner, res, dims_f,
+                                        grid_shape, n_rots, adaptive, pair_mask,
+                                        halfspace=halfspace)
+        votes = [a.reshape(-1) for a in (*fcomp, *rcomp, wv)]
+        mxy, mxz, myz = bound_projections(*votes, gx=gx, gy=gy, **bound_kw)
+
+        def refine(o):
+            return refine_window(o, *votes, w8=w8, splat=splat)
+
     bnd = torch.minimum(
         torch.minimum(_maxpool2d(mxy, f8, f8 // pfy)[:, :, None],
                       _maxpool2d(mxz, f8, f8 // pfz)[:, None, :]),
@@ -240,7 +307,7 @@ def ppf_vote_peak(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
         cell = torch.stack([cflat // (cy_n * cz_n), (cflat // cz_n) % cy_n,
                             cflat % cz_n]).to(torch.int32)
         o = (cell * f8) // w8 * w8  # window-aligned: covers whole cells
-        win = refine_window(o, fx, fy, fz, rx, ry, rz, wf, w8=w8, splat=splat)
+        win = refine(o)
         wflat = torch.argmax(win)
         local = torch.stack([wflat // (w8 * w8), (wflat // w8) % w8,
                              wflat % w8]).to(torch.int32)

@@ -13,6 +13,7 @@ import torch
 
 from cppf_tpu.ops.pallas import vote_hist as pallas_vh
 from cppf_tpu_torch.ops import vote_hist
+from cppf_tpu_torch.ops import voting
 
 torch.set_num_threads(1)
 
@@ -79,3 +80,120 @@ def test_wrappers_check_inputs():
         vote_hist.refine_window(torch.zeros(3, dtype=torch.int64), *votes, w8=W8)
     with pytest.raises(ValueError):
         vote_hist.bound_projections(*votes, **_bound_kw(64, 1), splat="cubic")
+
+
+def _pairs(g, n_rots, adaptive, seed=0, n=128, p=700):
+    """A pair-parameter block and grid frame whose vote circles cross near
+    one center of a g³ grid at 4 mm, with some pairs masked."""
+    rng = np.random.default_rng(seed)
+    res = 4e-3
+    pc = (rng.normal(size=(n, 3)) * 0.04).astype(np.float32)
+    idxs = rng.integers(0, n, (p, 2)).astype(np.int32)
+    idxs[:3, 1] = idxs[:3, 0]
+    a, b = pc[idxs[:, 0]], pc[idxs[:, 1]]
+    d = (a - b) / (np.linalg.norm(a - b, axis=-1, keepdims=True) + 1e-7)
+    proj = np.sum(a * d, -1)
+    odist = np.linalg.norm(a - proj[:, None] * d, axis=-1)
+    preds_tr = np.stack([proj, odist], -1).astype(np.float32)
+    corner = torch.from_numpy((pc.min(0) - 0.02).astype(np.float32))
+    dims = torch.tensor([g - 3.0, g - 1.0, g + 4.0])
+    mask = torch.from_numpy(rng.random(p) < 0.9)
+    params = voting.pair_vote_params(torch.from_numpy(pc), torch.from_numpy(preds_tr),
+                                     torch.from_numpy(rng.random(n).astype(np.float32)),
+                                     torch.from_numpy(idxs), res, n_rots, adaptive, mask)
+    f, r, w = voting.votes_from_pair_params(params, corner, res, dims, (g, g, g), n_rots)
+    votes = [t.reshape(-1) for t in (*f, *r, w)]
+    return params, vote_hist.vote_frame(corner, res, dims), votes
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("splat", ["trilinear", "nearest"])
+@pytest.mark.parametrize("g,pf,n_rots", [(64, 1, 72), (120, 2, 8)])
+def test_pairs_front_ends_equal_votes_front_ends(g, pf, n_rots, splat, adaptive):
+    """On the CPU the pairs wrappers are votes_from_pair_params and the plain
+    versions, so they equal the votes wrappers on the same votes exactly;
+    the window's cull changes nothing."""
+    params, frame, votes = _pairs(g, n_rots, adaptive)
+    kw = dict(by_n=-(-g // pf), bz_n=-(-g // pf), pfy=pf, pfz=pf, splat=splat)
+    pkw = dict(n_rots=n_rots, grid_shape=(g, g, g))
+    expect = vote_hist.bound_projections(*votes, gx=g, gy=g, **kw)
+    got = vote_hist.bound_projections_pairs(params, frame, **pkw, **kw)
+    assert float(expect[0].sum()) > 0
+    for e, t in zip(expect, got):
+        assert torch.equal(e, t)
+    for start in (0, 8, g // 2 // W8 * W8, g - W8):
+        o = torch.full((3,), start, dtype=torch.int32)
+        assert torch.equal(vote_hist.refine_window_pairs(o, params, frame, **pkw, w8=W8,
+                                                         splat=splat),
+                           vote_hist.refine_window(o, *votes, w8=W8, splat=splat))
+
+
+def test_pairs_front_end_matches_pallas():
+    """The pairs wrapper on the CPU against the Pallas kernel (interpret
+    mode) on the votes of the same pairs, as the votes wrapper is held; the
+    cells here sum ~1e4 terms to several hundred, hence rtol 1e-5 beside the
+    atol."""
+    params, frame, votes = _pairs(64, 72, False, seed=3, p=512)  # V = 72 chunks of 512
+    kw = _bound_kw(64, 1)
+    expect = pallas_vh.bound_projections(*(jnp.asarray(v.numpy()) for v in votes), **kw,
+                                         chunk=512, interpret=True)
+    got = vote_hist.bound_projections_pairs(params, frame, n_rots=72, grid_shape=(64,) * 3,
+                                            by_n=64, bz_n=64, pfy=1, pfz=1)
+    for e, t in zip(expect, got):
+        np.testing.assert_allclose(t.numpy(), np.asarray(e), rtol=1e-5, atol=1e-4)
+
+
+BAD_PAIRS = {
+    "params dtype": lambda p, f, o: (p.double(), f, o),
+    "params width": lambda p, f, o: (p[:, :11].contiguous(), f, o),
+    "params rank": lambda p, f, o: (p.reshape(-1), f, o),
+    "params strided": lambda p, f, o: (torch.cat([p, p], 1)[:, :12], f, o),
+    "params device": lambda p, f, o: (p.to("meta"), f, o),
+    "frame shape": lambda p, f, o: (p, f[:6], o),
+    "frame dtype": lambda p, f, o: (p, f.double(), o),
+    "frame device": lambda p, f, o: (p, f.to("meta"), o),
+    "origin dtype": lambda p, f, o: (p, f, o.long()),
+    "origin shape": lambda p, f, o: (p, f, o[:2]),
+}
+
+
+@pytest.mark.parametrize("what", sorted(BAD_PAIRS))
+def test_pairs_wrappers_check_inputs(what):
+    params, frame, _ = _pairs(64, 8, False, p=50)
+    o = torch.zeros(3, dtype=torch.int32)
+    params, frame, o = BAD_PAIRS[what](params, frame, o)
+    pkw = dict(n_rots=8, grid_shape=(64, 64, 64))
+    with pytest.raises(ValueError):
+        vote_hist.refine_window_pairs(o, params, frame, **pkw, w8=W8)
+    if not what.startswith("origin"):
+        with pytest.raises(ValueError):
+            vote_hist.bound_projections_pairs(params, frame, **pkw, by_n=64, bz_n=64, pfy=1,
+                                              pfz=1)
+
+
+def test_pairs_wrappers_check_options():
+    params, frame, _ = _pairs(64, 8, False, p=50)
+    with pytest.raises(ValueError):
+        vote_hist.bound_projections_pairs(params, frame, n_rots=8, grid_shape=(64, 64, 64),
+                                          by_n=64, bz_n=64, pfy=1, pfz=1, splat="cubic")
+    with pytest.raises(ValueError):
+        vote_hist.bound_projections_pairs(params, frame, n_rots=0, grid_shape=(64, 64, 64),
+                                          by_n=64, bz_n=64, pfy=1, pfz=1)
+    with pytest.raises(ValueError):
+        vote_hist.refine_window_pairs(torch.zeros(3, dtype=torch.int32), params, frame,
+                                      n_rots=8, grid_shape=(64, 64))
+
+
+@pytest.mark.parametrize("what", ["strided", "device", "shape"])
+def test_votes_wrappers_check_layout(what):
+    votes = _torch(_votes(64))
+    if what == "strided":
+        votes[0] = torch.stack([votes[0], votes[0]], 1)[:, 0]
+    elif what == "device":
+        votes[3] = votes[3].to("meta")
+    else:
+        votes[5] = votes[5][:-1]
+    with pytest.raises(ValueError):
+        vote_hist.bound_projections(*votes, **_bound_kw(64, 1))
+    with pytest.raises(ValueError):
+        vote_hist.refine_window(torch.zeros(3, dtype=torch.int32), *votes, w8=W8)

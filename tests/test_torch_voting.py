@@ -1,14 +1,18 @@
 """The port's voting ops against cppf_tpu.ops.voting on identical inputs."""
 from functools import partial
 
+import hypothesis.strategies as st
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
 
 from cppf_tpu.core.geometry import fibonacci_sphere
 from cppf_tpu.ops import voting as jv
+from cppf_tpu_torch.core.geometry import cross
+from cppf_tpu_torch.ops import vote_hist
 from cppf_tpu_torch.ops import voting as tv
 
 torch.set_num_threads(1)
@@ -75,6 +79,142 @@ def test_vote_coords_elementwise(adaptive, halfspace):
     for fj, rj, ft, rt in zip(f_j, r_j, f_t, r_t):
         np.testing.assert_array_equal(ft.numpy()[live], np.asarray(fj)[live])
         np.testing.assert_allclose(rt.numpy()[live], np.asarray(rj)[live], atol=2e-5)
+
+
+def _mask(kind, p, seed=7):
+    rng = np.random.default_rng(seed)
+    if kind == "bool":
+        return rng.random(p) < 0.8
+    return rng.random(p).astype(np.float32)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_vote_coords_float_mask_matches_jax(adaptive):
+    """A float pair_mask scales the weights; as test_vote_coords_elementwise
+    otherwise: weights and live floors exactly, live fractions to 2e-5."""
+    pc, preds_tr, probs, idxs, corner, dims = _instance(6)
+    probs = np.random.default_rng(6).random(len(probs)).astype(np.float32)
+    mask = _mask("float", idxs.shape[0])
+    fn = jax.jit(partial(jv._vote_coords, grid_shape=GSHAPE, n_rots=N_ROTS, adaptive=adaptive))
+    f_j, r_j, w_j = fn(*_j(pc, preds_tr, probs, idxs, corner), jnp.float32(RES),
+                       jnp.asarray(dims, jnp.float32), pair_mask=jnp.asarray(mask))
+    f_t, r_t, w_t = tv._vote_coords(*_t(pc, preds_tr, probs, idxs, corner), RES,
+                                    torch.from_numpy(dims).float(), GSHAPE, N_ROTS, adaptive,
+                                    torch.from_numpy(mask))
+    w_j = np.asarray(w_j)
+    np.testing.assert_array_equal(w_t.numpy(), w_j)
+    live = w_j > 0
+    assert live.mean() > 0.3
+    for fj, rj, ft, rt in zip(f_j, r_j, f_t, r_t):
+        np.testing.assert_array_equal(ft.numpy()[live], np.asarray(fj)[live])
+        np.testing.assert_allclose(rt.numpy()[live], np.asarray(rj)[live], atol=2e-5)
+
+
+def _vote_coords_unsplit(pc, preds_tr, probs, point_idxs, corner, res, dims_f, grid_shape,
+                         n_rots, adaptive, pair_mask):
+    """_vote_coords as one function, as it was before it became
+    pair_vote_params followed by votes_from_pair_params: the reference for
+    bit equality."""
+    res = tv._scalar(res, pc)
+    a, ab_unit, degenerate, co_unit = tv.pair_frames(pc, point_idxs)
+    proj_len, odist = preds_tr[:, 0], preds_tr[:, 1]
+    m = tv._adaptive_rots(odist, res, n_rots, adaptive)
+    c = a - ab_unit * proj_len[:, None]
+    x = co_unit * odist[:, None]
+    y = cross(x, ab_unit)
+    cos_a, sin_a, rot_valid = tv._circle(m, n_rots, pc)
+    idx = point_idxs.long()
+    w = torch.maximum(probs[idx[:, 0]], probs[idx[:, 1]])
+    valid = rot_valid & (~degenerate)[:, None]
+    if pair_mask.dtype == torch.bool:
+        valid = valid & pair_mask[:, None]
+    else:
+        w = w * pair_mask
+    fcomp, rcomp = [], []
+    for k in range(3):
+        gk = (c[:, k, None] + cos_a * x[:, k, None] + sin_a * y[:, k, None]
+              - corner[k]) / res
+        dk = torch.clamp(dims_f[k], max=grid_shape[k])
+        valid = valid & (gk >= 0.01) & (gk < dk - 1.01)
+        fk = torch.clamp(torch.floor(gk).to(torch.int32), 0, grid_shape[k] - 2)
+        fcomp.append(fk)
+        rcomp.append(gk - fk)
+    return fcomp, rcomp, torch.where(valid, w[:, None], 0.0)
+
+
+@pytest.mark.parametrize("n_rots,grid", [(8, 64), (72, 120)])
+@pytest.mark.parametrize("mask_kind", ["bool", "float"])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_pair_params_votes_bit_equal(adaptive, mask_kind, n_rots, grid):
+    """votes_from_pair_params(pair_vote_params(...)) is the unsplit
+    _vote_coords bit for bit: floors, fractions and weights."""
+    pc, preds_tr, probs, idxs, corner, dims = _instance(8, n=160, p=1500)
+    probs = np.random.default_rng(8).random(len(probs)).astype(np.float32)
+    mask = torch.from_numpy(_mask(mask_kind, idxs.shape[0]))
+    gshape = (grid,) * 3
+    t = _t(pc, preds_tr, probs, idxs, corner)
+    dims_f = torch.from_numpy(dims).float()
+    expect = _vote_coords_unsplit(*t, RES, dims_f, gshape, n_rots, adaptive, mask)
+    params = tv.pair_vote_params(t[0], t[1], t[2], t[3], RES, n_rots, adaptive, mask)
+    assert params.shape == (idxs.shape[0], 12) and params.is_contiguous()
+    got = tv.votes_from_pair_params(params, t[4], RES, dims_f, gshape, n_rots)
+    assert (expect[2] > 0).float().mean() > 0.2
+    for e, g in zip((*expect[0], *expect[1], expect[2]), (*got[0], *got[1], got[2])):
+        assert e.dtype == g.dtype
+        assert torch.equal(e.view(torch.int32), g.view(torch.int32))
+    again = tv._vote_coords(*t, RES, dims_f, gshape, n_rots, adaptive, mask)
+    assert torch.equal(again[2], expect[2])
+
+
+def test_pair_params_keep_float64():
+    """The split keeps _vote_coords usable in float64 (the kernels take
+    float32 only): same votes as the unsplit function."""
+    pc, preds_tr, probs, idxs, corner, dims = _instance(9, n=64, p=200)
+    t = [x.double() if x.dtype == torch.float32 else x
+         for x in _t(pc, preds_tr, probs, idxs, corner)]
+    mask = torch.ones(idxs.shape[0], dtype=torch.bool)
+    dims_f = torch.from_numpy(dims).double()
+    expect = _vote_coords_unsplit(*t, RES, dims_f, GSHAPE, N_ROTS, True, mask)
+    got = tv._vote_coords(*t, RES, dims_f, GSHAPE, N_ROTS, True, mask)
+    assert got[2].dtype == torch.float64 and float(got[2].sum()) > 0
+    for e, g in zip((*expect[0], *expect[1], expect[2]), (*got[0], *got[1], got[2])):
+        assert torch.equal(e, g)
+
+
+@settings(max_examples=40, deadline=None, database=None, derandomize=True)
+@given(seed=st.integers(0, 5), adaptive=st.booleans(),
+       o=st.tuples(*[st.integers(-8, 56)] * 3), w8=st.sampled_from([8, 16]))
+def test_window_cull_keeps_every_pair_with_a_vote_in_the_window(seed, adaptive, o, w8):
+    """No pair that window_cull_plain drops has a live vote whose splat can
+    reach the window (a floor in [o-1, o+w8) on every axis)."""
+    pc, preds_tr, probs, idxs, corner, dims = _instance(seed, n=96, p=600)
+    t = _t(pc, preds_tr, probs, idxs, corner)
+    mask = torch.ones(idxs.shape[0], dtype=torch.bool)
+    params = tv.pair_vote_params(t[0], t[1], t[2], t[3], RES, N_ROTS, adaptive, mask)
+    dims_f = torch.from_numpy(dims).float()
+    f, _, w = tv.votes_from_pair_params(params, t[4], RES, dims_f, GSHAPE, N_ROTS)
+    reaches = w != 0
+    for k in range(3):
+        reaches = reaches & (f[k] >= o[k] - 1) & (f[k] < o[k] + w8)
+    keep = vote_hist.window_cull_plain(params, vote_hist.vote_frame(t[4], RES, dims_f),
+                                       torch.tensor(o, dtype=torch.int32), w8)
+    assert not bool((reaches.any(1) & ~keep).any())
+
+
+def test_window_cull_drops_far_pairs():
+    """The cull is not vacuous: a window in a far corner of the grid drops
+    pairs, and one on the vote center keeps most."""
+    pc, preds_tr, probs, idxs, corner, dims = _instance(1)
+    t = _t(pc, preds_tr, probs, idxs, corner)
+    params = tv.pair_vote_params(t[0], t[1], t[2], t[3], RES, N_ROTS, False,
+                                 torch.ones(idxs.shape[0], dtype=torch.bool))
+    frame = vote_hist.vote_frame(t[4], RES, torch.from_numpy(dims).float())
+    center = ((np.float32([0.01, -0.005, 0.0]) - corner) / RES).astype(np.int32) - 8
+    near = vote_hist.window_cull_plain(params, frame, torch.from_numpy(center), 16)
+    far = vote_hist.window_cull_plain(params, frame, torch.tensor([48, 48, 48],
+                                                                  dtype=torch.int32), 16)
+    assert near.float().mean() > 0.9
+    assert far.float().mean() < 0.5
 
 
 @pytest.mark.parametrize("splat", ["trilinear", "nearest"])
