@@ -18,12 +18,16 @@ Phases:
    in the kernel) against the plain version on the same CUDA inputs from
    the main path (bowl: 100 000 pairs, V = 7.2 M, 64³; and the same pairs on
    bottle's pooled 120³ grid), and once each with nearest splat and with
-   adaptive rotations; fails beyond 1e-3 of the maximum.  Times by CUDA
-   events in turns (median of 25; calls under a millisecond 8 at a time
-   behind a spinning kernel, so that the host's launch time stays out), the
-   bytes and operations bound of each front end with both terms, the shared
-   atomics a second, one ``index_add_`` call as the library yardstick, and
-   the kernel's time before the redesign;
+   adaptive rotations; fails beyond 1e-3 of the maximum, and against the
+   plain version summed in float64 beyond ``EXACT_RTOL`` (the window) or
+   outside [-``BOUND_UNDER_RTOL``, ``BOUND_OVER_RTOL``] (the bound pass,
+   whose taps round up) of the maximum, but for the pairs front end under
+   adaptive rotations, whose votes may differ from PyTorch's at a step.
+   Times by CUDA events in
+   turns (median of 25; calls under a millisecond 8 at a time behind a
+   spinning kernel, so that the host's launch time stays out), the bytes
+   and operations bound of each front end with both terms, the shared
+   atomics a second, and one ``index_add_`` call as the library yardstick;
 4. main path: the center-vote stage alone must allocate less than one
    [P, R] vote vector; then the 4 views on the card, launch counts (reset
    just before), errors against ground truth and against the stored JAX
@@ -76,6 +80,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 KERNEL_RTOL = 1e-3
+# Of the largest cell, against the plain version summed in float64.  The
+# window kernels round a tap to the nearest fixed-point unit; the bound
+# kernels round every tap up, so that a cell of n taps lies above the exact
+# sum by up to n units, and below it by the float rounding of the blocks'
+# flush at most.
+EXACT_RTOL = 1e-5
+BOUND_OVER_RTOL = 1e-4
+BOUND_UNDER_RTOL = 1e-6
 TIMING_REPS = 25
 SPIN_CYCLES = 8_000_000  # ~5 ms of device time at 1.7 GHz, to let the host run ahead
 TPU_KERNELS = {
@@ -83,14 +95,6 @@ TPU_KERNELS = {
     "refine_window": "cppf_tpu/ops/pallas/vote_hist.py:200",
     "dense_hist": "cppf_tpu/ops/pallas/vote_hist.py:310",
 }
-# kernel ms before the redesign (PERF.md: NVIDIA H100 80GB HBM3, 700.00 W)
-EARLIER_MS = {("bound_projections", "bowl 64^3"): 0.534, ("refine_window", "bowl 64^3"): 0.163,
-              ("bound_projections", "bottle pooled 120^3"): 0.703,
-              ("refine_window", "bottle pooled 120^3"): 0.156}
-# peak device memory before the pairs front ends, same card: of the center-vote
-# stage above its inputs, and of one warm pose (scripts/pose_stages.py)
-EARLIER_STAGE_MIB = 302.26
-EARLIER_POSE_MIB = 664.76
 # the two real bowls of data/demo/0000_depth.png (tests/test_demo_frame.py:26-29)
 BOWL_CENTERS = np.array([[0.0799, -0.1865, 1.2541], [0.1599, -0.0345, 1.1941]])
 ZS_PAIRS = 5_000_000
@@ -222,15 +226,28 @@ def _refine_taps(votes, o, w8):
     return torch.cat(ids), torch.cat(vals)
 
 
-def _max_err(got, expect, name):
+def _max_err(got, expect, name, rtol=KERNEL_RTOL):
     got = torch.cat([g.reshape(-1) for g in got])
     expect = torch.cat([e.reshape(-1) for e in expect])
     err = (got - expect).abs().max().item()
     scale = expect.abs().max().item()
     check(scale > 0, f"{name}: plain version is all zero")
-    check(err <= KERNEL_RTOL * scale, f"{name}: kernel differs from plain by {err} "
-          f"(> {KERNEL_RTOL} of {scale})")
+    check(err <= rtol * scale, f"{name}: kernel differs from plain by {err} "
+          f"(> {rtol} of {scale})")
     return err, err / scale
+
+
+def _exact_err(got, exact, name, under, over):
+    """(lowest, highest) of kernel minus float64 sum over the cells, as
+    shares of the largest cell; fails outside [-under, over]."""
+    got = torch.cat([g.reshape(-1) for g in got])
+    exact = torch.cat([e.reshape(-1) for e in exact])
+    scale = exact.max().item()
+    lo = (got - exact).min().item() / scale
+    hi = (got - exact).max().item() / scale
+    check(-under <= lo and hi <= over, f"{name}: kernel minus float64 sums spans [{lo}, {hi}] "
+          f"of the maximum, outside [-{under}, {over}]")
+    return lo, hi
 
 
 def _pairs_work(inp, live_votes):
@@ -258,39 +275,59 @@ def _set_bound(rec, prefix, bytes_, ops):
     rec[prefix + "bound_terms"] = f"bytes {t_bytes:.5f} ms, operations {t_ops:.5f} ms"
 
 
-def kernel_phase(inp, label, splat="trilinear", timed=True):
+def kernel_phase(inp, label, splat="trilinear", timed=True, adaptive=False):
     """Hold both front ends of both peak kernels against the plain version
     on one view's inputs and, when ``timed``, time them in turns; returns
-    their records for the kernels line."""
+    their records for the kernels line: the unprefixed keys are the pairs
+    front end's, which the main path launches, the ``votes_`` ones the votes
+    front end's."""
     from cppf_tpu_torch.ops import vote_hist as vh
     from cppf_tpu_torch.ops.voting import _poolf
 
     votes, o, params, frame = inp["votes"], inp["o"], inp["params"], inp["frame"]
     fx, fy, fz, rx, ry, rz, w = votes
+    votes64 = [fx, fy, fz, rx.double(), ry.double(), rz.double(), w.double()]
     V = w.shape[0]
     grid = inp["grid_shape"][0]
     pf = _poolf(grid)
     bn = -(-grid // pf)
-    kw = dict(by_n=bn, bz_n=bn, pfy=pf, pfz=pf, splat=splat)
+    kw = dict(gx=grid, gy=grid, by_n=bn, bz_n=bn, pfy=pf, pfz=pf, splat=splat)
     pkw = dict(n_rots=inp["n_rots"], grid_shape=inp["grid_shape"])
     w8 = 16
     records = {}
 
-    def both(name, expect, votes_fn, pairs_fn):
-        err, rel = _max_err(votes_fn(), expect, f"{name} {label}, votes front end")
-        perr, prel = _max_err(pairs_fn(), expect, f"{name} {label}, pairs front end")
-        print(f"kernel {name} [{label}, {splat}]: votes front end max abs err {err:.3e} (rel "
-              f"{rel:.3e}), pairs front end {perr:.3e} (rel {prel:.3e}); launch (blocks, "
-              f"cluster) votes {vh.LAST_LAUNCH.get(name)}, pairs "
-              f"{vh.LAST_LAUNCH.get(name + '_pairs')}",
-              flush=True)
-        return dict(max_abs_err=err, rel_err=rel, pairs_max_abs_err=perr, pairs_rel_err=prel)
+    def both(name, plain_fn, votes_fn, pairs_fn, under, over):
+        """Each front end against the plain version, and against the plain
+        version summed in float64 within [-under, over] of the maximum (the
+        pairs front end under adaptive rotations is not held to that: a vote
+        of its own making may fall on the other side of a step than
+        PyTorch's)."""
+        expect, exact = plain_fn(votes), [t.float() for t in plain_fn(votes64)]
+        rec = {}
+        for prefix, fn, tight in (("", pairs_fn, not adaptive), ("votes_", votes_fn, True)):
+            end = "votes front end" if prefix else "pairs front end"
+            got = fn()
+            err, rel = _max_err(got, expect, f"{name} {label}, {end}")
+            lo, hi = _exact_err(got, exact, f"{name} {label}, {end}",
+                                *((under, over) if tight else (KERNEL_RTOL, KERNEL_RTOL)))
+            rec.update({prefix + "max_abs_err": err, prefix + "rel_err": rel})
+            print(f"kernel {name} [{label}, {splat}], {end}: max abs err {err:.3e} (rel "
+                  f"{rel:.3e}); kernel minus float64 sums in [{lo:.3e}, {hi:.3e}] of the "
+                  f"maximum", flush=True)
+        return rec
+
+    def bound_plain(v):
+        return vh.bound_projections_plain(*v, **kw)
 
     def bound_votes():
-        return vh.bound_projections(*votes, gx=grid, gy=grid, **kw)
+        return vh.bound_projections(*votes, **kw)
 
     def bound_pairs():
-        return vh.bound_projections_pairs(params, frame, **pkw, **kw)
+        return vh.bound_projections_pairs(params, frame, **pkw, by_n=bn, bz_n=bn, pfy=pf, pfz=pf,
+                                          splat=splat)
+
+    def refine_plain(v):
+        return [vh.refine_window_plain(o, *v, w8=w8, splat=splat)]
 
     def refine_votes():
         return [vh.refine_window(o, *votes, w8=w8, splat=splat)]
@@ -298,10 +335,15 @@ def kernel_phase(inp, label, splat="trilinear", timed=True):
     def refine_pairs():
         return [vh.refine_window_pairs(o, params, frame, **pkw, w8=w8, splat=splat)]
 
-    expect = vh.bound_projections_plain(*votes, gx=grid, gy=grid, **kw)
-    records["bound_projections"] = both("bound_projections", expect, bound_votes, bound_pairs)
-    expect = [vh.refine_window_plain(o, *votes, w8=w8, splat=splat)]
-    records["refine_window"] = both("refine_window", expect, refine_votes, refine_pairs)
+    def from_pairs(plain_fn):
+        """The pairs front end's plain version: the votes, then their sums."""
+        return lambda: plain_fn(vh._plain_votes(params, frame, inp["grid_shape"], inp["n_rots"]))
+
+    records["bound_projections"] = both("bound_projections", bound_plain, bound_votes,
+                                        bound_pairs, BOUND_UNDER_RTOL, BOUND_OVER_RTOL)
+    records["refine_window"] = both("refine_window", refine_plain, refine_votes, refine_pairs,
+                                    EXACT_RTOL, EXACT_RTOL)
+    del votes64
     if not timed:
         return records
 
@@ -311,17 +353,16 @@ def kernel_phase(inp, label, splat="trilinear", timed=True):
     rec = records["bound_projections"]
     ids, vals = _bound_taps(votes, grid, grid, bn, bn, pf, pf)
     out = torch.zeros(n_out, device=w.device)
-    ms, pairs_ms = cuda_ms_turns([bound_votes, bound_pairs])
-    rec.update(ms=ms, pairs_ms=pairs_ms,
-               plain_ms=cuda_ms(lambda: vh.bound_projections_plain(*votes, gx=grid, gy=grid,
-                                                                   **kw)),
+    votes_ms, ms = cuda_ms_turns([bound_votes, bound_pairs])
+    rec.update(ms=ms, votes_ms=votes_ms, plain_ms=cuda_ms(from_pairs(bound_plain)),
+               votes_plain_ms=cuda_ms(lambda: bound_plain(votes)),
                library_ms=cuda_ms(lambda: out.index_add_(0, ids, vals)),
                atomics=12 * live)
     del ids, vals
     # votes: w of every vote, the rest of the live ones; 6 hats, 3 weighted,
     # 12 products, 12 adds a live vote
-    _set_bound(rec, "", 4 * V + 6 * 4 * live + 4 * n_out, 31 * live)
-    _set_bound(rec, "pairs_", pair_bytes + 4 * n_out, pair_ops + 31 * live)
+    _set_bound(rec, "votes_", 4 * V + 6 * 4 * live + 4 * n_out, 31 * live)
+    _set_bound(rec, "", pair_bytes + 4 * n_out, pair_ops + 31 * live)
 
     rec = records["refine_window"]
     ids, vals = _refine_taps(votes, o, w8)
@@ -331,9 +372,9 @@ def kernel_phase(inp, label, splat="trilinear", timed=True):
     inside = near & (fy - o[1] >= -1) & (fy - o[1] < w8) & (fz - o[2] >= -1) & (fz - o[2] < w8)
     n_near, n_in = int(near.sum()), int(inside.sum())
     kept = vh.window_cull_plain(params, frame, o, w8) & voting
-    ms, pairs_ms = cuda_ms_turns([refine_votes, refine_pairs])
-    rec.update(ms=ms, pairs_ms=pairs_ms,
-               plain_ms=cuda_ms(lambda: vh.refine_window_plain(o, *votes, w8=w8, splat=splat)),
+    votes_ms, ms = cuda_ms_turns([refine_votes, refine_pairs])
+    rec.update(ms=ms, votes_ms=votes_ms, plain_ms=cuda_ms(from_pairs(refine_plain)),
+               votes_plain_ms=cuda_ms(lambda: refine_plain(votes)),
                library_ms=cuda_ms(lambda: out.index_add_(0, ids, vals)),
                atomics=int((ids != w8 ** 3).sum()), culled_share=1 - int(kept.sum())
                / max(int(voting.sum()), 1))
@@ -342,19 +383,20 @@ def kernel_phase(inp, label, splat="trilinear", timed=True):
     # fractions of those that reach the window; 8 corners of 3 products and
     # an add for each of those.  pairs: 20 operations of the cull a voting
     # pair, one axis (8) a vote of a kept pair, the rest as the bound pass
-    _set_bound(rec, "", 4 * V + 3 * 4 * n_near + 3 * 4 * n_in + 4 * w8 ** 3, 8 * 4 * n_in)
+    _set_bound(rec, "votes_", 4 * V + 3 * 4 * n_near + 3 * 4 * n_in + 4 * w8 ** 3, 8 * 4 * n_in)
     m_kept = torch.clamp(params[:, 1].view(torch.int32), max=inp["n_rots"])[kept].sum().item()
-    _set_bound(rec, "pairs_", pair_bytes + 4 * w8 ** 3,
+    _set_bound(rec, "", pair_bytes + 4 * w8 ** 3,
                20 * int(voting.sum()) + 8 * m_kept + (16 + 6 + 32) * n_in)
     for name, rec in records.items():
-        print(f"kernel {name} [{label}, V={V}, live={live}]: votes front end {rec['ms']:.4f} ms "
-              f"(bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}: {rec['bound_terms']}), "
-              f"pairs front end {rec['pairs_ms']:.4f} ms (bound {rec['pairs_bound_ms']:.5f} ms "
-              f"by {rec['pairs_bound_by']}: {rec['pairs_bound_terms']}), plain "
-              f"{rec['plain_ms']:.4f} ms, index_add_ {rec['library_ms']:.4f} ms; "
-              f"{rec['atomics']} shared atomics = {rec['atomics'] / rec['ms'] * 1e3:.3e}/s "
-              f"(votes), {rec['atomics'] / rec['pairs_ms'] * 1e3:.3e}/s (pairs); earlier kernel "
-              f"{EARLIER_MS.get((name, label), float('nan')):.3f} ms"
+        print(f"kernel {name} [{label}, V={V}, live={live}]: pairs front end {rec['ms']:.4f} ms "
+              f"(bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}: {rec['bound_terms']}; "
+              f"plain, votes made first, {rec['plain_ms']:.4f} ms), votes front end "
+              f"{rec['votes_ms']:.4f} ms (bound {rec['votes_bound_ms']:.4f} ms by "
+              f"{rec['votes_bound_by']}: {rec['votes_bound_terms']}; plain "
+              f"{rec['votes_plain_ms']:.4f} ms), index_add_ of the taps "
+              f"{rec['library_ms']:.4f} ms; {rec['atomics']} shared atomics = "
+              f"{rec['atomics'] / rec['ms'] * 1e3:.3e}/s (pairs), "
+              f"{rec['atomics'] / rec['votes_ms'] * 1e3:.3e}/s (votes)"
               + (f"; window cull drops {rec['culled_share']:.3f} of the voting pairs"
                  if "culled_share" in rec else ""), flush=True)
     return records
@@ -758,7 +800,7 @@ def main():
     records = kernel_phase(inp, "bowl 64^3")
     kernel_phase(inp, "bowl 64^3", splat="nearest", timed=False)
     kernel_phase(main_path_inputs(runner, z["pc_0"], pcfg.grid_shape, adaptive=True),
-                 "bowl 64^3, adaptive rotations", timed=False)
+                 "bowl 64^3, adaptive rotations", timed=False, adaptive=True)
     kernel_phase(main_path_inputs(runner, z["pc_0"], (120, 120, 120)), "bottle pooled 120^3")
 
     # ---- 4. the main path on the card ----------------------------------------
@@ -772,8 +814,7 @@ def main():
     stage_bytes = torch.cuda.max_memory_allocated() - base
     vector_bytes = 4 * inp["votes"][0].shape[0]
     print(f"center-vote stage: peak device memory {stage_bytes / 2**20:.2f} MiB above its "
-          f"inputs (one [P, R] vote vector is {vector_bytes / 2**20:.2f} MiB; before the pairs "
-          f"front ends the stage held {EARLIER_STAGE_MIB:.1f} MiB)", flush=True)
+          f"inputs (one [P, R] vote vector is {vector_bytes / 2**20:.2f} MiB)", flush=True)
     check(stage_bytes < vector_bytes, "the center-vote stage made a [P, R] tensor")
     del inp
 
@@ -814,8 +855,7 @@ def main():
     runner.estimate(z["pc_0"])
     torch.cuda.synchronize()
     print(f"main path: peak device memory of one warm pose "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (before the pairs front ends "
-          f"{EARLIER_POSE_MIB:.1f} MiB)", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
     if args.profile:
         stage_times(runner, z["pc_0"])
         profile_pose(runner, z["pc_0"])
@@ -840,21 +880,21 @@ def main():
     records["dense_hist"] = dense["frame"]
     launches["dense_hist"] = zs_launches["dense_hist"]
 
-    # a redesigned kernel's launches are those of either front end: the main
-    # path takes the pairs one
+    # a peak kernel's record is that of its pairs front end, which the main
+    # path launches; its votes front end, launched by no path of this run
+    # but the comparisons, stands beside it under votes_ keys
     kernels = []
     for name, rec in records.items():
+        pairs = name + "_pairs" if name + "_pairs" in launches else name
         k = dict(name=name, route="cuda", source="cppf_tpu_torch/csrc/vote_hist.cu",
-                 replaces=TPU_KERNELS[name],
-                 launches=launches[name] + launches.get(name + "_pairs", 0),
+                 replaces=TPU_KERNELS[name], launches=launches[pairs],
                  max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
                  bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
                  library_ms=rec["library_ms"])
-        if "pairs_ms" in rec:
-            k.update({key: rec[key] for key in ("pairs_ms", "pairs_bound_ms", "pairs_bound_by",
-                                                "pairs_max_abs_err")},
-                     pairs_launches=launches[name + "_pairs"],
-                     earlier_ms=EARLIER_MS[(name, "bowl 64^3")])
+        if pairs != name:
+            k.update({key: rec[key] for key in ("votes_max_abs_err", "votes_ms", "votes_plain_ms",
+                                                "votes_bound_ms", "votes_bound_by")},
+                     votes_launches=launches[name])
         kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -39,14 +39,16 @@
 //
 // Lanes on one circle.  Neighbouring rotations of one pair land under two
 // voxels apart, so lanes that hold neighbouring votes hit the same cells.
-// The pairs front ends give a lane a pair (of `split` quarter circles, so
-// that 100 000 pairs fill the card), and a warp 32 different circles.  The
+// The pairs front ends give a lane a quarter of a pair's circle (kSplit
+// lanes a pair, so that 100 000 pairs fill the card; 1 and 8 lanes a pair
+// measured slower), and a warp 32 different circles.  The
 // votes front end of the bound pass gives a lane four consecutive votes
 // (16-byte loads), which puts a warp's lanes four rotations apart; merging
-// equal cells by __match_any_sync before the atomic is there to be timed and
-// loses.  The window's votes front end keeps one vote a lane: the few votes
-// that reach the window are runs of neighbouring rotations, and one vote a
-// lane packs a run into one warp pass of the splat.
+// equal cells by __match_any_sync before the atomic measured five times
+// slower than the plain atomics and is not kept.  The window's votes front
+// end keeps one vote a lane: the few votes that reach the window are runs of
+// neighbouring rotations, and one vote a lane packs a run into one warp pass
+// of the splat.
 //
 // Accumulation.  Each block keeps a private copy of the output in shared
 // memory.  A float atomicAdd there compiles to a compare-and-swap loop
@@ -60,12 +62,13 @@
 // depend on the order of the votes.
 //
 // Flush.  A block converts its non-zero cells to float and adds them to the
-// output with one global atomicAdd each.  Blocks of a thread-block cluster
-// can first sum their copies through distributed shared memory (flush), so
-// that one add a cell leaves a cluster; on the H100 this measured slower at
-// every cluster size (fewer resident blocks, two cluster barriers) than one
-// block a cluster, which is what ops/vote_hist.py launches.  The launch is
-// sized by cudaOccupancyMaxActiveClusters for the shape asked.
+// output with one global atomicAdd each.  Summing the copies of a
+// thread-block cluster through distributed shared memory first, so that one
+// add a cell leaves a cluster, measured slower on the H100 at every cluster
+// size (fewer resident blocks, two cluster barriers) and is not kept: the
+// flush was never the cost.  The launch is as many blocks as are resident at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the shared memory
+// asked), or fewer when the work needs fewer.
 //
 // Window cull (refine_pairs_kernel).  A pair's votes lie on an ellipse about
 // c with semi-axes |x| and |y|; a pair whose shell misses the ball around
@@ -78,34 +81,21 @@
 // cosf may differ from torch.cos in the last bit, which moves a trilinear
 // grid by rounding but can move one whole vote where the arithmetic has a
 // step (the validity tests g >= 0.01 and g < d - 1.01, nearest's r > 0.5).
-#include <cooperative_groups.h>
+// Most of that allowance is for the plain version's own float32 sums and for
+// a vote at a step.  Against the plain version summed in float64 on the same
+// votes the kernels are held closer: the window within 1e-5 of the largest
+// cell either way (2e-6 measured at the bowl workload), the bound pass, whose
+// n taps into a cell each round up by under one unit, between 0 (1e-6
+// allowed, for the flush's float adds) below and 1e-4 above (6e-5 measured:
+// some 10^5 taps into the largest cell at 2^-15 a unit).
 #include <cuda_runtime.h>
-
-#include <map>
-#include <mutex>
-#include <tuple>
-
-// The accumulate step of the peak kernels' splats: a native integer atomic on
-// a fixed-point value.  scripts/tune_vote_kernels.py rebuilds this file with
-// CPPF_SPLAT_PART set, to time the kernels' parts (the results are then
-// wrong): 1 accumulates nothing (the store never happens, but the compiler
-// cannot know), 2 takes the float atomic, which on shared memory is a
-// compare-and-swap loop.
-#if CPPF_SPLAT_PART == 1
-#define CPPF_SPLAT_ADD(addr, val, fixed) \
-  ((val) == -1.2345e-30f ? (void)(*(addr) = (fixed)) : (void)0)
-#elif CPPF_SPLAT_PART == 2
-#define CPPF_SPLAT_ADD(addr, val, fixed) atomicAdd((float*)(addr), val)
-#else
-#define CPPF_SPLAT_ADD(addr, val, fixed) atomicAdd(addr, fixed)
-#endif
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;       // dense_global_kernel: one vote a thread
-constexpr int kPeakThreads = 1024;  // most threads a block of the peak kernels may have
+constexpr int kPeakThreads = 1024;  // a block of the peak kernels, but for:
+constexpr int kBoundVotesThreads = 512;  // bound_votes_kernel (four votes a lane)
+constexpr int kSplit = 4;  // lanes that share a pair's rotations, a quarter circle each
 constexpr float kTwoPi = 6.2831855f;
 
 // One vote in registers: floors, fractions, weight.
@@ -157,35 +147,12 @@ __device__ __forceinline__ float block_sum(float v) {
   return total;
 }
 
-// Adds N tap values to base[cell[.]].  With kMerge every lane of the warp
-// calls it (dead lanes with live = false): lanes with the same key, hence the
-// same cells, sum their values by shuffle and the lowest of them adds.
-template <bool kMerge, int N>
+// Adds N tap values to base[cell[.]], each rounded up.
+template <int N>
 __device__ __forceinline__ void add_taps(int* base, float scale, const int* cell,
-                                         const float* val, int key, bool live) {
-  if (!kMerge) {
-    if (live) {
+                                         const float* val) {
 #pragma unroll
-      for (int j = 0; j < N; ++j)
-        CPPF_SPLAT_ADD(base + cell[j], val[j], to_fixed<true>(val[j], scale));
-    }
-    return;
-  }
-  const int lane = threadIdx.x & 31;
-  const unsigned peers = __match_any_sync(0xffffffffu, live ? key : -1 - lane);
-  float sum[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) sum[j] = 0.f;
-  for (unsigned rest = peers; rest; rest &= rest - 1) {
-    const int src = __ffs(rest) - 1;
-#pragma unroll
-    for (int j = 0; j < N; ++j) sum[j] += __shfl_sync(peers, val[j], src);
-  }
-  if (live && lane == __ffs(peers) - 1) {
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      CPPF_SPLAT_ADD(base + cell[j], sum[j], to_fixed<true>(sum[j], scale));
-  }
+  for (int j = 0; j < N; ++j) atomicAdd(base + cell[j], to_fixed<true>(val[j], scale));
 }
 
 // A block's copy of the projections: Mxy [gx, by_n] | Mxz [gx, bz_n] |
@@ -197,8 +164,8 @@ struct Proj {
   float scale;
 };
 
-template <bool kNearest, bool kMerge>
-__device__ __forceinline__ void splat_bound(const Proj& P, const Vote& v, bool live) {
+template <bool kNearest>
+__device__ __forceinline__ void splat_bound(const Proj& P, const Vote& v) {
   if (kNearest) {
     const int nx = v.ax > 0.5f ? v.x + 1 : v.x;
     const int ny = v.ay > 0.5f ? v.y + 1 : v.y;
@@ -206,9 +173,9 @@ __device__ __forceinline__ void splat_bound(const Proj& P, const Vote& v, bool l
     const int cxy = nx * P.by_n + ny / P.pfy;
     const int cxz = nx * P.bz_n + nz / P.pfz;
     const int cyz = ny * P.bz_n + nz / P.pfz;
-    add_taps<kMerge, 1>(P.xy, P.scale, &cxy, &v.w, cxy, live);
-    add_taps<kMerge, 1>(P.xz, P.scale, &cxz, &v.w, cxz, live);
-    add_taps<kMerge, 1>(P.yz, P.scale, &cyz, &v.w, cyz, live);
+    add_taps<1>(P.xy, P.scale, &cxy, &v.w);
+    add_taps<1>(P.xz, P.scale, &cxz, &v.w);
+    add_taps<1>(P.yz, P.scale, &cyz, &v.w);
     return;
   }
   const float hx0 = (1.f - v.ax) * v.w, hx1 = v.ax * v.w;
@@ -220,20 +187,20 @@ __device__ __forceinline__ void splat_bound(const Proj& P, const Vote& v, bool l
     const int r0 = v.x * P.by_n, r1 = r0 + P.by_n;
     const int cell[4] = {r0 + cy0, r0 + cy1, r1 + cy0, r1 + cy1};
     const float val[4] = {hx0 * hy0, hx0 * hy1, hx1 * hy0, hx1 * hy1};
-    add_taps<kMerge, 4>(P.xy, P.scale, cell, val, (v.x << 16) | v.y, live);
+    add_taps<4>(P.xy, P.scale, cell, val);
   }
   {
     const int r0 = v.x * P.bz_n, r1 = r0 + P.bz_n;
     const int cell[4] = {r0 + cz0, r0 + cz1, r1 + cz0, r1 + cz1};
     const float val[4] = {hx0 * hz0, hx0 * hz1, hx1 * hz0, hx1 * hz1};
-    add_taps<kMerge, 4>(P.xz, P.scale, cell, val, (v.x << 16) | v.z, live);
+    add_taps<4>(P.xz, P.scale, cell, val);
   }
   {
     const float wy0 = hy0 * v.w, wy1 = hy1 * v.w;
     const int r0 = v.y * P.bz_n, r1 = r0 + P.bz_n;
     const int cell[4] = {r0 + cz0, r0 + cz1, r1 + cz0, r1 + cz1};
     const float val[4] = {wy0 * hz0, wy0 * hz1, wy1 * hz0, wy1 * hz1};
-    add_taps<kMerge, 4>(P.yz, P.scale, cell, val, (v.y << 16) | v.z, live);
+    add_taps<4>(P.yz, P.scale, cell, val);
   }
 }
 
@@ -246,7 +213,7 @@ __device__ __forceinline__ void splat_window(int* win, float scale, int w8, cons
     const int ny = v.ay > 0.5f ? v.y + 1 : v.y;
     const int nz = v.az > 0.5f ? v.z + 1 : v.z;
     if (nx >= 0 && nx < w8 && ny >= 0 && ny < w8 && nz >= 0 && nz < w8)
-      CPPF_SPLAT_ADD(&win[(nx * w8 + ny) * w8 + nz], v.w, to_fixed<false>(v.w, scale));
+      atomicAdd(&win[(nx * w8 + ny) * w8 + nz], to_fixed<false>(v.w, scale));
     return;
   }
   const float hx[2] = {(1.f - v.ax) * v.w, v.ax * v.w};
@@ -264,41 +231,19 @@ __device__ __forceinline__ void splat_window(int* win, float scale, int w8, cons
       for (int dz = 0; dz < 2; ++dz) {
         const int Z = v.z + dz;
         if (Z < 0 || Z >= w8) continue;
-        const float val = hx[dx] * (hy[dy] * hz[dz]);
-        CPPF_SPLAT_ADD(&win[(X * w8 + Y) * w8 + Z], val, to_fixed<false>(val, scale));
+        atomicAdd(&win[(X * w8 + Y) * w8 + Z],
+                  to_fixed<false>(hx[dx] * (hy[dy] * hz[dz]), scale));
       }
     }
   }
 }
 
-// Adds a block's fixed-point copy into the float out; copy[n_cells] holds the
-// block's scale (float bits).  The blocks of a cluster first sum their
-// copies through distributed shared memory, each taking a slice of the cells,
-// so one global atomicAdd a non-zero cell leaves a cluster.
-__device__ __forceinline__ float unscaled(const int* copy, int n_cells, int i) {
-  return (float)copy[i] / __int_as_float(copy[n_cells]);
-}
-
-__device__ __forceinline__ void flush(const int* copy, int n_cells, float* out) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int n_blocks = (int)cluster.num_blocks();
-  if (n_blocks == 1) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < n_cells; i += blockDim.x)
-      if (copy[i] != 0) atomicAdd(out + i, unscaled(copy, n_cells, i));
-    return;
-  }
-  cluster.sync();
-  const int per = (n_cells + n_blocks - 1) / n_blocks;
-  const int lo = (int)cluster.block_rank() * per;
-  const int hi = min(n_cells, lo + per);
-  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    float s = 0.f;
-    for (int r = 0; r < n_blocks; ++r)
-      s += unscaled(cluster.map_shared_rank(copy, r), n_cells, i);
-    if (s != 0.f) atomicAdd(out + i, s);
-  }
-  cluster.sync();  // no block leaves while another still reads its copy
+// Adds a block's fixed-point copy into the float out, one global atomicAdd a
+// non-zero cell.
+__device__ __forceinline__ void flush(const int* copy, int n_cells, float scale, float* out) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_cells; i += blockDim.x)
+    if (copy[i] != 0) atomicAdd(out + i, (float)copy[i] / scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -345,7 +290,7 @@ __device__ __forceinline__ float votes_scale(const Streams& S, long long first, 
   return fixed_scale(mass, block_sum(n));
 }
 
-template <bool kNearest, bool kMerge>
+template <bool kNearest>
 __global__ void __launch_bounds__(kPeakThreads) bound_votes_kernel(
     Streams S, int gx, int gy, int by_n, int bz_n, int pfy, int pfz, float* __restrict__ out) {
   extern __shared__ int smem[];
@@ -353,33 +298,29 @@ __global__ void __launch_bounds__(kPeakThreads) bound_votes_kernel(
   const int n_all = n_xy + n_xz + gy * bz_n;
   for (int i = threadIdx.x; i < n_all; i += blockDim.x) smem[i] = 0;
 
-  // the trip count is the same for every thread of the block, so that with
-  // kMerge whole warps reach the warp votes
   const long long n_groups = (S.n + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const float scale = votes_scale(S, 4 * (long long)blockIdx.x * blockDim.x, 4 * stride, 4);
-  if (threadIdx.x == 0) smem[n_all] = __float_as_int(scale);
   const Proj P = {smem, smem + n_xy, smem + n_xy + n_xz, by_n, bz_n, pfy, pfz, scale};
   __syncthreads();
-  for (long long g0 = (long long)blockIdx.x * blockDim.x; g0 < n_groups; g0 += stride) {
-    const long long v0 = 4 * (g0 + threadIdx.x);
-    float w[4] = {0.f, 0.f, 0.f, 0.f}, ax[4] = {}, ay[4] = {}, az[4] = {};
-    int x[4] = {}, y[4] = {}, z[4] = {};
-    if (v0 < S.n) load4(S.w, v0, S.n, w);
-    const bool any = w[0] != 0.f || w[1] != 0.f || w[2] != 0.f || w[3] != 0.f;
-    if (any) {  // dead votes cost the weight load alone
-      load4(S.fx, v0, S.n, x), load4(S.fy, v0, S.n, y), load4(S.fz, v0, S.n, z);
-      load4(S.rx, v0, S.n, ax), load4(S.ry, v0, S.n, ay), load4(S.rz, v0, S.n, az);
-    } else if (!kMerge) {
-      continue;
-    }
+  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < n_groups;
+       g += stride) {
+    const long long v0 = 4 * g;
+    float w[4], ax[4], ay[4], az[4];
+    int x[4], y[4], z[4];
+    load4(S.w, v0, S.n, w);
+    if (w[0] == 0.f && w[1] == 0.f && w[2] == 0.f && w[3] == 0.f)
+      continue;  // dead votes cost the weight load alone
+    load4(S.fx, v0, S.n, x), load4(S.fy, v0, S.n, y), load4(S.fz, v0, S.n, z);
+    load4(S.rx, v0, S.n, ax), load4(S.ry, v0, S.n, ay), load4(S.rz, v0, S.n, az);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
+      if (w[j] == 0.f) continue;
       const Vote v = {x[j], y[j], z[j], ax[j], ay[j], az[j], w[j]};
-      splat_bound<kNearest, kMerge>(P, v, w[j] != 0.f);
+      splat_bound<kNearest>(P, v);
     }
   }
-  flush(smem, n_all, out);
+  flush(smem, n_all, scale, out);
 }
 
 // Exact fine splat mass in the w8^3 window at origin o (device int32[3],
@@ -393,7 +334,6 @@ __global__ void __launch_bounds__(kPeakThreads) refine_votes_kernel(
   const int ox = o[0], oy = o[1], oz = o[2];
   const long long stride = (long long)gridDim.x * blockDim.x;
   const float scale = votes_scale(S, (long long)blockIdx.x * blockDim.x, stride, 1);
-  if (threadIdx.x == 0) win[n_all] = __float_as_int(scale);
   __syncthreads();
 
   // One vote a lane, 4-byte loads: the votes that reach the window are runs
@@ -413,7 +353,7 @@ __global__ void __launch_bounds__(kPeakThreads) refine_votes_kernel(
     v.ax = S.rx[i], v.ay = S.ry[i], v.az = S.rz[i];
     splat_window<kNearest>(win, scale, w8, v);
   }
-  flush(win, n_all, out);
+  flush(win, n_all, scale, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -497,11 +437,11 @@ __device__ __forceinline__ bool vote_axis(const Pair& q, const Frame& F, int k, 
   return true;
 }
 
-// Work item t of n_pairs * split: pair t % n_pairs (a warp holds 32 different
+// Work item t of n_pairs * kSplit: pair t % n_pairs (a warp holds 32 different
 // circles) and the rotations [first, last) of chunk t / n_pairs.
-__device__ __forceinline__ void rotation_range(long long t, long long n_pairs, int n_rots,
-                                               int split, int m, int& first, int& last) {
-  const int per = (n_rots + split - 1) / split;
+__device__ __forceinline__ void rotation_range(long long t, long long n_pairs, int n_rots, int m,
+                                               int& first, int& last) {
+  const int per = (n_rots + kSplit - 1) / kSplit;
   first = (int)(t / n_pairs) * per;
   last = min(min(m, n_rots), first + per);
 }
@@ -509,14 +449,14 @@ __device__ __forceinline__ void rotation_range(long long t, long long n_pairs, i
 // The fixed-point scale of a block of a pairs kernel: a pass over the weight
 // and rotation count of its work items.
 __device__ __forceinline__ float pairs_scale(const float4* __restrict__ params,
-                                             long long n_pairs, int n_rots, int split) {
-  const long long work = n_pairs * split;
+                                             long long n_pairs, int n_rots) {
+  const long long work = n_pairs * kSplit;
   const long long stride = (long long)gridDim.x * blockDim.x;
   float mass = 0.f, n = 0.f;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work; t += stride) {
     const float4 a = params[3 * (t % n_pairs)];
     int first, last;
-    rotation_range(t, n_pairs, n_rots, split, __float_as_int(a.y), first, last);
+    rotation_range(t, n_pairs, n_rots, __float_as_int(a.y), first, last);
     if (a.x != 0.f && last > first) mass += fabsf(a.x) * (float)(last - first), n += last - first;
   }
   mass = block_sum(mass);
@@ -525,28 +465,27 @@ __device__ __forceinline__ float pairs_scale(const float4* __restrict__ params,
 
 template <bool kNearest>
 __global__ void __launch_bounds__(kPeakThreads) bound_pairs_kernel(
-    const float4* __restrict__ params, long long n_pairs, int n_rots, int split,
+    const float4* __restrict__ params, long long n_pairs, int n_rots,
     const float* __restrict__ frame, int gx, int gy, int gz, int by_n, int bz_n, int pfy,
     int pfz, float* __restrict__ out) {
   extern __shared__ int smem[];
   const int n_xy = gx * by_n, n_xz = gx * bz_n;
   const int n_all = n_xy + n_xz + gy * bz_n;
-  float* table = reinterpret_cast<float*>(smem + n_all + 1);
+  float* table = reinterpret_cast<float*>(smem + n_all);
   for (int i = threadIdx.x; i < n_all; i += blockDim.x) smem[i] = 0;
   fill_circle_table(table, n_rots);
   const Frame F = load_frame(frame, gx, gy, gz);
-  const float scale = pairs_scale(params, n_pairs, n_rots, split);
-  if (threadIdx.x == 0) smem[n_all] = __float_as_int(scale);
+  const float scale = pairs_scale(params, n_pairs, n_rots);
   const Proj P = {smem, smem + n_xy, smem + n_xy + n_xz, by_n, bz_n, pfy, pfz, scale};
   __syncthreads();
 
-  const long long work = n_pairs * split;
+  const long long work = n_pairs * kSplit;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work; t += stride) {
     Pair q;
     if (!load_pair(params, t % n_pairs, q)) continue;
     int first, last;
-    rotation_range(t, n_pairs, n_rots, split, q.m, first, last);
+    rotation_range(t, n_pairs, n_rots, q.m, first, last);
     const float step = __fdiv_rn(kTwoPi, (float)q.m);
     for (int i = first; i < last; ++i) {
       float cs, sn;
@@ -555,10 +494,10 @@ __global__ void __launch_bounds__(kPeakThreads) bound_pairs_kernel(
       v.w = q.w;
       if (vote_axis(q, F, 0, cs, sn, v.x, v.ax) && vote_axis(q, F, 1, cs, sn, v.y, v.ay) &&
           vote_axis(q, F, 2, cs, sn, v.z, v.az))
-        splat_bound<kNearest, false>(P, v, true);
+        splat_bound<kNearest>(P, v);
     }
   }
-  flush(smem, n_all, out);
+  flush(smem, n_all, scale, out);
 }
 
 // The window cull.  The votes of a pair lie on an ellipse about c with
@@ -582,16 +521,14 @@ __device__ __forceinline__ bool shell_reaches_window(const Pair& q, const float*
 template <bool kNearest>
 __global__ void __launch_bounds__(kPeakThreads) refine_pairs_kernel(
     const int* __restrict__ o, const float4* __restrict__ params, long long n_pairs, int n_rots,
-    int split, const float* __restrict__ frame, int gx, int gy, int gz, int w8,
-    float* __restrict__ out) {
+    const float* __restrict__ frame, int gx, int gy, int gz, int w8, float* __restrict__ out) {
   extern __shared__ int win[];
   const int n_all = w8 * w8 * w8;
-  float* table = reinterpret_cast<float*>(win + n_all + 1);
+  float* table = reinterpret_cast<float*>(win + n_all);
   for (int i = threadIdx.x; i < n_all; i += blockDim.x) win[i] = 0;
   fill_circle_table(table, n_rots);
   const Frame F = load_frame(frame, gx, gy, gz);
-  const float scale = pairs_scale(params, n_pairs, n_rots, split);
-  if (threadIdx.x == 0) win[n_all] = __float_as_int(scale);
+  const float scale = pairs_scale(params, n_pairs, n_rots);
   const int org[3] = {o[0], o[1], o[2]};
   float centre[3];
 #pragma unroll
@@ -600,14 +537,14 @@ __global__ void __launch_bounds__(kPeakThreads) refine_pairs_kernel(
   const float reach = (0.8660254f * (float)(w8 + 1) + 1.f) * F.res;
   __syncthreads();
 
-  const long long work = n_pairs * split;
+  const long long work = n_pairs * kSplit;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work; t += stride) {
     Pair q;
     if (!load_pair(params, t % n_pairs, q)) continue;
     if (!shell_reaches_window(q, centre, reach)) continue;
     int first, last;
-    rotation_range(t, n_pairs, n_rots, split, q.m, first, last);
+    rotation_range(t, n_pairs, n_rots, q.m, first, last);
     const float step = __fdiv_rn(kTwoPi, (float)q.m);
     for (int i = first; i < last; ++i) {
       float cs, sn;
@@ -627,82 +564,7 @@ __global__ void __launch_bounds__(kPeakThreads) refine_pairs_kernel(
       splat_window<kNearest>(win, scale, w8, v);
     }
   }
-  flush(win, n_all, out);
-}
-
-// Launches a peak kernel: `threads` a block, clusters of `cluster` blocks (or
-// the largest power-of-two fraction of it that the device will co-schedule
-// with this much shared memory), and as many clusters as are resident at
-// once by cudaOccupancyMaxActiveClusters, or fewer when `work` items need
-// fewer threads.  info, when not null, receives {blocks, cluster size}.
-template <typename... KArgs, typename... Args>
-cudaError_t launch_peak(void (*kernel)(KArgs...), long long work, int threads, size_t smem,
-                        int cluster, cudaStream_t stream, int* info, Args... args) {
-  if (threads < 32 || threads > kPeakThreads || threads % 32 || cluster < 1 || cluster > 16 ||
-      (cluster & (cluster - 1)))
-    return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-
-  // what the device grants this kernel at this shape is asked once
-  static std::mutex lock;
-  static std::map<std::tuple<const void*, int, int, size_t, int>, std::pair<int, int>> granted;
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return e;
-  const auto key = std::make_tuple((const void*)kernel, device, threads, smem, cluster);
-  int resident = 0;
-  {
-    std::lock_guard<std::mutex> guard(lock);
-    auto hit = granted.find(key);
-    if (hit == granted.end()) {
-      // the most a block may opt in to, so that no later shape finds it lower
-      int optin = 0;
-      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-      if (e != cudaSuccess) return e;
-      cudaFuncAttributes fixed;  // the kernel's static shared memory counts against it
-      e = cudaFuncGetAttributes(&fixed, (const void*)kernel);
-      if (e != cudaSuccess) return e;
-      optin -= (int)fixed.sharedSizeBytes;
-      if (smem > (size_t)optin) return cudaErrorInvalidValue;
-      e = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
-      if (e != cudaSuccess) return e;
-      if (cluster > 8) {
-        e = cudaFuncSetAttribute((const void*)kernel,
-                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-        if (e != cudaSuccess) return e;
-      }
-      int c = cluster;
-      for (;; c /= 2) {
-        attr.val.clusterDim.x = c;
-        cfg.gridDim = dim3(c);
-        e = cudaOccupancyMaxActiveClusters(&resident, (const void*)kernel, &cfg);
-        if (e == cudaSuccess && resident > 0) break;
-        if (c == 1) return e != cudaSuccess ? e : cudaErrorLaunchOutOfResources;
-        (void)cudaGetLastError();  // a cluster this large is refused: try half
-      }
-      hit = granted.emplace(key, std::make_pair(resident, c)).first;
-    }
-    resident = hit->second.first;
-    cluster = hit->second.second;
-  }
-  attr.val.clusterDim.x = cluster;
-  const long long per_cluster = (long long)threads * cluster;
-  long long clusters = (work + per_cluster - 1) / per_cluster;
-  if (clusters > resident) clusters = resident;
-  if (clusters < 1) clusters = 1;
-  cfg.gridDim = dim3((unsigned)(clusters * cluster));
-  if (info) info[0] = (int)(clusters * cluster), info[1] = cluster;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  flush(win, n_all, scale, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -859,66 +721,48 @@ cudaError_t launch_dense(const int* fx, const int* fy, const int* fz, const floa
   return cudaGetLastError();
 }
 
-template <bool kNearest>
-cudaError_t launch_bound_pairs(const float4* params, long long n_pairs, int n_rots,
-                               const float* frame, int gx, int gy, int gz, int by_n, int bz_n,
-                               int pfy, int pfz, int split, int threads, int cluster, float* out,
-                               cudaStream_t stream, int* info) {
-  const size_t smem = sizeof(float) * ((size_t)gx * by_n + (size_t)gx * bz_n +
-                                       (size_t)gy * bz_n + 1 + 2 * (size_t)n_rots);
-  return launch_peak(bound_pairs_kernel<kNearest>, n_pairs * split, threads, smem, cluster,
-                     stream, info, params, n_pairs, n_rots, split, frame, gx, gy, gz, by_n, bz_n,
-                     pfy, pfz, out);
-}
-
-template <bool kNearest>
-cudaError_t launch_refine_pairs(const int* o, const float4* params, long long n_pairs, int n_rots,
-                                const float* frame, int gx, int gy, int gz, int w8, int split,
-                                int threads, int cluster, float* out, cudaStream_t stream,
-                                int* info) {
-  const size_t smem = sizeof(float) * ((size_t)w8 * w8 * w8 + 1 + 2 * (size_t)n_rots);
-  return launch_peak(refine_pairs_kernel<kNearest>, n_pairs * split, threads, smem, cluster,
-                     stream, info, o, params, n_pairs, n_rots, split, frame, gx, gy, gz, w8, out);
+// Launches a peak kernel over `work` items: as many blocks as are resident
+// at once with this much shared memory, or fewer when the work needs fewer.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_peak(void (*kernel)(KArgs...), long long work, int threads, size_t smem,
+                        cudaStream_t stream, Args... args) {
+  int blocks = 0;
+  cudaError_t e = grid_size(kernel, smem, work, &blocks, threads);
+  if (e != cudaSuccess) return e;
+  kernel<<<blocks, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Every entry point returns a cudaError_t (0 on success) and takes the launch
-// shape from its caller: threads a block, blocks a cluster, and for the pairs
-// front ends the number of lanes that share a pair's rotations (split).
-// info: host int[2] or null, receives {blocks, cluster size} of the launch.
+// Every entry point returns a cudaError_t (0 on success).
 
 // out: zeroed f32 [gx*by_n + gx*bz_n + gy*bz_n] = Mxy | Mxz | Myz.
 int cppf_bound_projections(const void* fx, const void* fy, const void* fz, const void* rx,
                            const void* ry, const void* rz, const void* w, long long n_votes,
                            int gx, int gy, int by_n, int bz_n, int pfy, int pfz, int nearest,
-                           int merge, int threads, int cluster, void* out, void* stream,
-                           int* info) {
+                           void* out, void* stream) {
   const Streams S = {(const int*)fx,   (const int*)fy,   (const int*)fz,  (const float*)rx,
                      (const float*)ry, (const float*)rz, (const float*)w, n_votes};
-  const size_t smem =
-      sizeof(float) * ((size_t)gx * by_n + (size_t)gx * bz_n + (size_t)gy * bz_n + 1);
+  const size_t smem = sizeof(int) * ((size_t)gx * by_n + (size_t)gx * bz_n + (size_t)gy * bz_n);
   auto go = [&](auto kernel) {
-    return (int)launch_peak(kernel, (n_votes + 3) / 4, threads, smem, cluster,
-                            (cudaStream_t)stream, info, S, gx, gy, by_n, bz_n, pfy, pfz,
-                            (float*)out);
+    return (int)launch_peak(kernel, (n_votes + 3) / 4, kBoundVotesThreads, smem,
+                            (cudaStream_t)stream, S, gx, gy, by_n, bz_n, pfy, pfz, (float*)out);
   };
-  if (nearest) return merge ? go(bound_votes_kernel<true, true>) : go(bound_votes_kernel<true, false>);
-  return merge ? go(bound_votes_kernel<false, true>) : go(bound_votes_kernel<false, false>);
+  return nearest ? go(bound_votes_kernel<true>) : go(bound_votes_kernel<false>);
 }
 
 // out: zeroed f32 [w8 * w8 * w8]; o: device int32[3].
 int cppf_refine_window(const void* o, const void* fx, const void* fy, const void* fz,
                        const void* rx, const void* ry, const void* rz, const void* w,
-                       long long n_votes, int w8, int nearest, int threads, int cluster,
-                       void* out, void* stream, int* info) {
+                       long long n_votes, int w8, int nearest, void* out, void* stream) {
   const Streams S = {(const int*)fx,   (const int*)fy,   (const int*)fz,  (const float*)rx,
                      (const float*)ry, (const float*)rz, (const float*)w, n_votes};
-  const size_t smem = sizeof(float) * ((size_t)w8 * w8 * w8 + 1);
+  const size_t smem = sizeof(int) * (size_t)w8 * w8 * w8;
   auto go = [&](auto kernel) {
-    return (int)launch_peak(kernel, n_votes, threads, smem, cluster, (cudaStream_t)stream, info,
+    return (int)launch_peak(kernel, n_votes, kPeakThreads, smem, (cudaStream_t)stream,
                             (const int*)o, S, w8, (float*)out);
   };
   return nearest ? go(refine_votes_kernel<true>) : go(refine_votes_kernel<false>);
@@ -928,27 +772,28 @@ int cppf_refine_window(const void* o, const void* fx, const void* fy, const void
 // f32 [7] = corner | res | runtime grid dims; out as cppf_bound_projections.
 int cppf_bound_projections_pairs(const void* params, long long n_pairs, int n_rots,
                                  const void* frame, int gx, int gy, int gz, int by_n, int bz_n,
-                                 int pfy, int pfz, int nearest, int split, int threads,
-                                 int cluster, void* out, void* stream, int* info) {
-  auto go = [&](auto launch) {
-    return (int)launch((const float4*)params, n_pairs, n_rots, (const float*)frame, gx, gy, gz,
-                       by_n, bz_n, pfy, pfz, split, threads, cluster, (float*)out,
-                       (cudaStream_t)stream, info);
+                                 int pfy, int pfz, int nearest, void* out, void* stream) {
+  const size_t smem = sizeof(int) * ((size_t)gx * by_n + (size_t)gx * bz_n + (size_t)gy * bz_n +
+                                     2 * (size_t)n_rots);
+  auto go = [&](auto kernel) {
+    return (int)launch_peak(kernel, n_pairs * kSplit, kPeakThreads, smem, (cudaStream_t)stream,
+                            (const float4*)params, n_pairs, n_rots, (const float*)frame, gx, gy,
+                            gz, by_n, bz_n, pfy, pfz, (float*)out);
   };
-  return nearest ? go(launch_bound_pairs<true>) : go(launch_bound_pairs<false>);
+  return nearest ? go(bound_pairs_kernel<true>) : go(bound_pairs_kernel<false>);
 }
 
 // As cppf_refine_window, from pair parameters.
 int cppf_refine_window_pairs(const void* o, const void* params, long long n_pairs, int n_rots,
                              const void* frame, int gx, int gy, int gz, int w8, int nearest,
-                             int split, int threads, int cluster, void* out, void* stream,
-                             int* info) {
-  auto go = [&](auto launch) {
-    return (int)launch((const int*)o, (const float4*)params, n_pairs, n_rots,
-                       (const float*)frame, gx, gy, gz, w8, split, threads, cluster, (float*)out,
-                       (cudaStream_t)stream, info);
+                             void* out, void* stream) {
+  const size_t smem = sizeof(int) * ((size_t)w8 * w8 * w8 + 2 * (size_t)n_rots);
+  auto go = [&](auto kernel) {
+    return (int)launch_peak(kernel, n_pairs * kSplit, kPeakThreads, smem, (cudaStream_t)stream,
+                            (const int*)o, (const float4*)params, n_pairs, n_rots,
+                            (const float*)frame, gx, gy, gz, w8, (float*)out);
   };
-  return nearest ? go(launch_refine_pairs<true>) : go(launch_refine_pairs<false>);
+  return nearest ? go(refine_pairs_kernel<true>) : go(refine_pairs_kernel<false>);
 }
 
 // out: f32 [cx*cy*cz], zeroed or holding earlier chunks' sums (added to).

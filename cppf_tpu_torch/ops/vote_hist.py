@@ -38,20 +38,7 @@ from cppf_tpu_torch.ops import cuda_build
 LAUNCHES = {"bound_projections": 0, "refine_window": 0, "dense_hist": 0,
             "bound_projections_pairs": 0, "refine_window_pairs": 0}
 SMEM_MAX = 232448  # bytes of shared memory one H100 block may opt in to
-_SMEM_FIXED = 4 + 256  # a peak kernel's block scale and its reduction scratch
-# The launch shape of each peak kernel: threads a block, blocks a cluster
-# (the kernel halves it until the device grants it), for the pairs front
-# ends the lanes that share one pair's rotations, for the votes front end
-# of the bound pass whether lanes with the same cell merge before the
-# atomic.  Each dict is in the order of the C entry point's arguments.
-# Chosen by scripts/tune_vote_kernels.py, which times the others.
-LAUNCH_SHAPE = {
-    "bound_projections": dict(merge=0, threads=512, cluster=1),
-    "refine_window": dict(threads=1024, cluster=1),
-    "bound_projections_pairs": dict(split=4, threads=1024, cluster=1),
-    "refine_window_pairs": dict(split=4, threads=1024, cluster=1),
-}
-LAST_LAUNCH = {}  # wrapper name -> (blocks, cluster size) of its latest launch
+_SMEM_FIXED = 256  # a peak kernel's static shared memory (its reduction scratch), rounded up
 _SPLATS = ("trilinear", "nearest")
 _lib = None
 
@@ -75,8 +62,9 @@ def _mul(a, b):
 
 def bound_projections_plain(fx, fy, fz, rx, ry, rz, w, *, gx: int, gy: int, by_n: int,
                             bz_n: int, pfy: int, pfz: int, splat: str = "trilinear"):
-    """Plain version of :func:`bound_projections`."""
-    kw = dict(dtype=torch.float32, device=w.device)
+    """Plain version of :func:`bound_projections`.  Sums in the dtype of
+    ``w``: float64 fractions and weights give a float64 reference."""
+    kw = dict(dtype=w.dtype, device=w.device)
     mxy = torch.zeros(gx * by_n, **kw)
     mxz = torch.zeros(gx * bz_n, **kw)
     myz = torch.zeros(gy * bz_n, **kw)
@@ -96,8 +84,8 @@ def bound_projections_plain(fx, fy, fz, rx, ry, rz, w, *, gx: int, gy: int, by_n
 
 def refine_window_plain(o, fx, fy, fz, rx, ry, rz, w, *, w8: int = 16,
                         splat: str = "trilinear"):
-    """Plain version of :func:`refine_window`."""
-    win = torch.zeros(w8 * w8 * w8, dtype=torch.float32, device=w.device)
+    """Plain version of :func:`refine_window`; sums in the dtype of ``w``."""
+    win = torch.zeros(w8 * w8 * w8, dtype=w.dtype, device=w.device)
     o = o.long()
     taps = [[(i - o[k], h) for i, h in _taps(f, r, splat)]
             for k, (f, r) in enumerate(((fx, rx), (fy, ry), (fz, rz)))]
@@ -142,10 +130,10 @@ def dense_hist_plain(fx, fy, fz, rx, ry, rz, w, *, cx: int, cy: int, cz: int, px
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built ``csrc/vote_hist.cu``."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.cppf_bound_projections.argtypes = [p] * 7 + [ll] + [i] * 10 + [p, p, p]
-    lib.cppf_refine_window.argtypes = [p] * 8 + [ll] + [i] * 4 + [p, p, p]
-    lib.cppf_bound_projections_pairs.argtypes = [p, ll, i, p] + [i] * 11 + [p, p, p]
-    lib.cppf_refine_window_pairs.argtypes = [p, p, ll, i, p] + [i] * 8 + [p, p, p]
+    lib.cppf_bound_projections.argtypes = [p] * 7 + [ll] + [i] * 7 + [p, p]
+    lib.cppf_refine_window.argtypes = [p] * 8 + [ll, i, i, p, p]
+    lib.cppf_bound_projections_pairs.argtypes = [p, ll, i, p] + [i] * 8 + [p, p]
+    lib.cppf_refine_window_pairs.argtypes = [p, p, ll, i, p] + [i] * 5 + [p, p]
     lib.cppf_dense_hist.argtypes = [p] * 7 + [ll] + [i] * 7 + [p, p]
     for fn in (lib.cppf_bound_projections, lib.cppf_refine_window,
                lib.cppf_bound_projections_pairs, lib.cppf_refine_window_pairs,
@@ -186,19 +174,16 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(name: str, entry: str, *args) -> None:
-    """Call the C entry point ``entry`` with ``args``, the launch shape of
-    ``name``, the current stream and an info buffer; raise unless it
-    launched, else count it."""
+def _launch(name: str, *args) -> None:
+    """Call the C entry point ``cppf_<name>`` with ``args`` (the output tensor
+    last) and the current stream; raise unless it launched, else count it."""
     lib = _library()
-    info = (ctypes.c_int * 2)()
     *head, out = args
-    rc = getattr(lib, entry)(*head, *LAUNCH_SHAPE[name].values(), out.data_ptr(),
-                             torch.cuda.current_stream(out.device).cuda_stream, info)
+    rc = getattr(lib, "cppf_" + name)(*head, out.data_ptr(),
+                             torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {lib.cppf_error_string(rc).decode()}")
     LAUNCHES[name] += 1
-    LAST_LAUNCH[name] = tuple(info)
 
 
 def _projection_views(out, gx, gy, by_n, bz_n):
@@ -225,7 +210,7 @@ def bound_projections(fx, fy, fz, rx, ry, rz, w, *, gx: int, gy: int, by_n: int,
     out = _projection_buffer(gx, gy, by_n, bz_n, _SMEM_FIXED, w.device)
     if w.shape[0]:
         votes = [_aligned(t) for t in (fx, fy, fz, rx, ry, rz, w)]
-        _launch("bound_projections", "cppf_bound_projections", *(t.data_ptr() for t in votes),
+        _launch("bound_projections", *(t.data_ptr() for t in votes),
                 w.shape[0], gx, gy, by_n, bz_n, pfy, pfz, int(splat == "nearest"), out)
     return _projection_views(out, gx, gy, by_n, bz_n)
 
@@ -247,7 +232,7 @@ def refine_window(o, fx, fy, fz, rx, ry, rz, w, *, w8: int = 16, splat: str = "t
     out = torch.zeros(w8 * w8 * w8, dtype=torch.float32, device=w.device)
     if w.shape[0]:
         votes = [_aligned(t) for t in (fx, fy, fz, rx, ry, rz, w)]
-        _launch("refine_window", "cppf_refine_window", o.data_ptr(),
+        _launch("refine_window", o.data_ptr(),
                 *(t.data_ptr() for t in votes), w.shape[0], w8, int(splat == "nearest"), out)
     return out.view(w8, w8 * w8)
 
@@ -296,7 +281,7 @@ def bound_projections_pairs(params, frame, *, n_rots: int, grid_shape, by_n: int
     out = _projection_buffer(gx, gy, by_n, bz_n, _SMEM_FIXED + 8 * n_rots, params.device)
     if params.shape[0]:
         params = _aligned(params)
-        _launch("bound_projections_pairs", "cppf_bound_projections_pairs", params.data_ptr(),
+        _launch("bound_projections_pairs", params.data_ptr(),
                 params.shape[0], n_rots, frame.data_ptr(), gx, gy, gz, by_n, bz_n, pfy, pfz,
                 int(splat == "nearest"), out)
     return _projection_views(out, gx, gy, by_n, bz_n)
@@ -337,7 +322,7 @@ def refine_window_pairs(o, params, frame, *, n_rots: int, grid_shape, w8: int = 
     out = torch.zeros(w8 * w8 * w8, dtype=torch.float32, device=params.device)
     if params.shape[0]:
         params = _aligned(params)
-        _launch("refine_window_pairs", "cppf_refine_window_pairs", o.data_ptr(),
+        _launch("refine_window_pairs", o.data_ptr(),
                 params.data_ptr(), params.shape[0], n_rots, frame.data_ptr(), *grid_shape, w8,
                 int(splat == "nearest"), out)
     return out.view(w8, w8 * w8)
@@ -364,13 +349,7 @@ def dense_hist(fx, fy, fz, rx, ry, rz, w, *, cx: int, cy: int, cz: int, px: int 
         return dense_hist_plain(fx, fy, fz, rx, ry, rz, w, cx=cx, cy=cy, cz=cz, px=px, py=py,
                                 pz=pz, splat=splat, out=out)
     if w.shape[0]:
-        lib = _library()
-        rc = lib.cppf_dense_hist(
-            fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), rx.data_ptr(), ry.data_ptr(),
-            rz.data_ptr(), w.data_ptr(), w.shape[0], cx, cy, cz, px, py, pz,
-            int(splat == "nearest"), out.data_ptr(),
-            torch.cuda.current_stream(w.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"dense_hist launch failed: {lib.cppf_error_string(rc).decode()}")
-        LAUNCHES["dense_hist"] += 1
+        _launch("dense_hist", fx.data_ptr(), fy.data_ptr(), fz.data_ptr(),
+                rx.data_ptr(), ry.data_ptr(), rz.data_ptr(), w.data_ptr(), w.shape[0], cx, cy, cz,
+                px, py, pz, int(splat == "nearest"), out)
     return out

@@ -72,6 +72,24 @@ def test_refine_window_plain_matches_pallas(g, pf, splat, where):
     np.testing.assert_allclose(got.numpy(), np.asarray(expect), atol=1e-4)
 
 
+@pytest.mark.parametrize("splat", ["trilinear", "nearest"])
+def test_plain_versions_sum_in_the_weights_dtype(splat):
+    """Float64 fractions and weights give the float64 sums that the card's
+    tests hold the kernels to; they agree with the float32 sums."""
+    fx, fy, fz, rx, ry, rz, w = _torch(_votes(64, seed=2))
+    votes64 = [fx, fy, fz, rx.double(), ry.double(), rz.double(), w.double()]
+    kw = _bound_kw(64, 1)
+    o = torch.full((3,), 16, dtype=torch.int32)
+    exact = [*vote_hist.bound_projections_plain(*votes64, **kw, splat=splat),
+             vote_hist.refine_window_plain(o, *votes64, w8=W8, splat=splat)]
+    plain = [*vote_hist.bound_projections_plain(fx, fy, fz, rx, ry, rz, w, **kw, splat=splat),
+             vote_hist.refine_window_plain(o, fx, fy, fz, rx, ry, rz, w, w8=W8, splat=splat)]
+    for e, t in zip(exact, plain):
+        assert e.dtype == torch.float64 and t.dtype == torch.float32
+        assert float(e.max()) > 0
+        np.testing.assert_allclose(t.numpy(), e.numpy(), atol=1e-5)
+
+
 def test_wrappers_check_inputs():
     votes = _torch(_votes(64))
     with pytest.raises(ValueError):
