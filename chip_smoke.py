@@ -38,21 +38,27 @@ Phases:
 5. CPU against CUDA: one view with identical draws through the plain
    versions and through the kernels; fails unless the peak voxel and the up
    direction are the same;
-6. ``dense_hist`` against its plain version on the demo frame's own CUDA
-   votes at three shapes: one 2^20-pair chunk (75 M votes) on the unpooled
-   whole-frame grid, the same chunk on the pool-8 coarse grid of the sparse
-   route, and one 48³ window; fails beyond 1e-3 of the maximum; times as in
-   phase 3, and the vote atomics a second;
+6. both front ends of ``dense_hist`` (votes: the flat vote vectors; pairs,
+   which the zero-shot path takes: the pair parameters, the votes made in
+   the kernel) against the plain version on the demo frame's own CUDA
+   inputs at the path's shapes: the first 2^20 pairs on the unpooled
+   whole-frame grid and on the pool-8 coarse grid of the sparse route, one
+   48³ window, and every pair of the frame; with adaptive rotations as the
+   path votes (the pairs front end held to float64 sums within 1e-3 of the
+   maximum, the votes front end within ``EXACT_RTOL``), and but for the
+   whole frame once more without them (both within ``EXACT_RTOL``); times
+   as in phase 3, with both bounds and the pooled taps a second;
 7. the zero-shot path on the demo frame (launch counts reset just before):
-   fails unless ``dense_hist`` launched, there are exactly 2 detections,
-   each within 4 cm of the two real bowls, with bowl-sized scales, and
-   within 1 cm and 5° of the stored JAX detection; warm seconds a frame by
-   stage (median of 3) and the peak device memory; the ``sparse=True``
-   route at its defaults (its proposals and detections are printed beside
-   the dense route's) and without its pair budget, where every voxel it
-   writes must equal the dense grid's to 1e-3 of the maximum; and a
-   reduced run (200 000 pairs) on the CPU and on the card, which must give
-   the same detections to 1 mm.
+   fails unless ``dense_hist_pairs`` launched and ``dense_hist`` did not,
+   there are exactly 2 detections, each within 4 cm of the two real bowls,
+   with bowl-sized scales, and within 1 cm and 5° of the stored JAX
+   detection; warm seconds a frame by stage (median of 3) and the peak
+   device memory; the heatmap stage alone must allocate less than one
+   [2^20, 72] vote vector; the ``sparse=True`` route at its defaults (its
+   proposals and detections are printed beside the dense route's) and
+   without its pair budget, where every voxel it writes must equal the
+   dense grid's to 1e-3 of the maximum; and a reduced run (200 000 pairs) on
+   the CPU and on the card, which must give the same detections to 1 mm.
 
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose and of one zero-shot
@@ -250,14 +256,13 @@ def _exact_err(got, exact, name, under, over):
     return lo, hi
 
 
-def _pairs_work(inp, live_votes):
+def _pairs_work(params, n_rots, live_votes):
     """Bytes and operations the pairs front ends need on these inputs: the
     first 16 bytes of every pair and the other 32 of each that votes; per
     vote made (rotation i < m of a voting pair) one axis of 8 operations (2
     products, 2 sums, the corner, the division, 2 compares), and for a live
     vote the other two axes and 3 floors and 3 fractions.  A cosf or sinf
     counts as one operation, where a pair's m is not the table's."""
-    params, n_rots = inp["params"], inp["n_rots"]
     m = params[:, 1].view(torch.int32)
     voting = (params[:, 0] != 0) & (m > 0)
     made = torch.clamp(m, max=n_rots)[voting].sum().item()
@@ -349,7 +354,7 @@ def kernel_phase(inp, label, splat="trilinear", timed=True, adaptive=False):
 
     live = int((w != 0).sum())
     n_out = 3 * grid * bn
-    pair_bytes, pair_ops, voting = _pairs_work(inp, live)
+    pair_bytes, pair_ops, voting = _pairs_work(params, inp["n_rots"], live)
     rec = records["bound_projections"]
     ids, vals = _bound_taps(votes, grid, grid, bn, bn, pf, pf)
     out = torch.zeros(n_out, device=w.device)
@@ -531,9 +536,10 @@ def zero_shot_stages(encoders, cfg, z, n_pairs, device, prop_thresh=50.0, contri
 
 
 def _dense_taps(votes, c, pool):
-    """Flat pooled ids and values of the 8 trilinear taps of every vote,
+    """Flat pooled ids and values of the 8 trilinear taps of every live vote,
     for the one-call index_add_ yardstick."""
-    fx, fy, fz, rx, ry, rz, w = votes
+    live = votes[6] != 0
+    fx, fy, fz, rx, ry, rz, w = (t[live] for t in votes)
     ids, vals = [], []
     for dx in (0, 1):
         for dy in (0, 1):
@@ -545,85 +551,158 @@ def _dense_taps(votes, c, pool):
     return torch.cat(ids), torch.cat(vals)
 
 
-def dense_record(votes, c, pool, label):
-    """dense_hist against its plain version on one set of votes, timed."""
+DENSE_CHUNK = 1 << 20  # pairs a plain-version call: the zero-shot path's own chunk
+
+
+def _dense_plain(params, frame, grid_shape, kw, dtype=torch.float32, votes=None):
+    """dense_hist's plain version on the votes of ``params`` (or on
+    ``votes``), made and summed one pair chunk at a time, in ``dtype``."""
     from cppf_tpu_torch.ops import vote_hist as vh
 
+    out = torch.zeros((kw["cx"], kw["cy"], kw["cz"]), dtype=dtype, device=params.device)
+    n_rots = 72
+    for s in range(0, params.shape[0], DENSE_CHUNK):
+        if votes is None:
+            v = vh._plain_votes(params[s:s + DENSE_CHUNK], frame, grid_shape, n_rots)
+        else:
+            v = [t[s * n_rots:(s + DENSE_CHUNK) * n_rots] for t in votes]
+        vh.dense_hist_plain(*v[:3], *(t.to(dtype) for t in v[3:]), **kw, out=out)
+    return out
+
+
+def dense_record(params, frame, grid_shape, pool, label, adaptive=True, timed=True):
+    """Both front ends of dense_hist against the plain version on the votes
+    of ``params`` in one grid: the pairs front end (one launch over every
+    pair) and the votes front end (one launch over their flat votes), each
+    against the float32 plain version within 1e-3 of the maximum and against
+    the plain version summed in float64 within ``EXACT_RTOL`` (the pairs
+    front end under adaptive rotations: 1e-3).  When ``timed``, times both in
+    turns beside the plain version and one index_add_ of the live taps, with
+    both bounds.  Returns the record for the kernels line: unprefixed keys
+    for the pairs front end, which the zero-shot path launches, ``votes_``
+    keys for the votes front end."""
+    from cppf_tpu_torch.ops import vote_hist as vh
+
+    c = [-(-g // p) for g, p in zip(grid_shape, pool)]
+    kw = dict(cx=c[0], cy=c[1], cz=c[2], px=pool[0], py=pool[1], pz=pool[2])
+    pkw = dict(n_rots=72, grid_shape=grid_shape, **kw)
+    votes = [torch.cat(t) for t in zip(*(
+        [a.contiguous() for a in vh._plain_votes(params[s:s + DENSE_CHUNK], frame, grid_shape, 72)]
+        for s in range(0, params.shape[0], DENSE_CHUNK)))]
+    expect = _dense_plain(params, frame, grid_shape, kw, votes=votes)
+    exact = _dense_plain(params, frame, grid_shape, kw, torch.float64, votes=votes).float()
+    rec = {}
+    for prefix, fn, tight in (("", lambda: vh.dense_hist_pairs(params, frame, **pkw), not adaptive),
+                              ("votes_", lambda: vh.dense_hist(*votes, **kw), True)):
+        end = "votes front end" if prefix else "pairs front end"
+        got = fn()
+        err, rel = _max_err([got], [expect], f"dense_hist {label}, {end}")
+        rtol = EXACT_RTOL if tight else KERNEL_RTOL
+        lo, hi = _exact_err([got], [exact], f"dense_hist {label}, {end}", rtol, rtol)
+        rec.update({prefix + "max_abs_err": err, prefix + "rel_err": rel})
+        print(f"kernel dense_hist [{label}, grid {tuple(c)}, pool {pool}], {end}: max abs err "
+              f"{err:.3e} (rel {rel:.3e}); kernel minus float64 sums in [{lo:.3e}, {hi:.3e}] of "
+              f"the maximum", flush=True)
+        del got
+    del expect, exact
+    if not timed:
+        return rec
     w = votes[6]
     V = w.shape[0]
-    kw = dict(cx=c[0], cy=c[1], cz=c[2], px=pool[0], py=pool[1], pz=pool[2])
-    got = vh.dense_hist(*votes, **kw)
-    expect = vh.dense_hist_plain(*votes, **kw)
-    err, rel = _max_err([got], [expect], f"dense_hist {label}")
-    del got, expect
     live = w != 0
-    # distinct pooled taps of each live vote: the kernel's atomics
-    n_ax = [1 + ((f.long() + 1) // p != f.long() // p).long() for f, p in zip(votes[:3], pool)]
-    taps = (n_ax[0] * n_ax[1] * n_ax[2])[live]
-    atomics = int(taps.sum())
     n_live = int(live.sum())
-    ops = int((3 + n_ax[0][live] + (n_ax[0] * n_ax[1])[live] + 2 * taps).sum())
+    # distinct pooled taps of each live vote: the atomics of the votes front end
+    n_ax = [1 + ((f[live].long() + 1) // p != f[live].long() // p).long()
+            for f, p in zip(votes[:3], pool)]
+    taps = n_ax[0] * n_ax[1] * n_ax[2]
+    atomics = int(taps.sum())
+    splat_ops = int((3 + n_ax[0] + n_ax[0] * n_ax[1] + 2 * taps).sum())
+    del n_ax, taps
     cells = c[0] * c[1] * c[2]
     buf = torch.zeros(tuple(c), device=w.device)
-    rec = dict(max_abs_err=err, rel_err=rel,
-               ms=cuda_ms(lambda: vh.dense_hist(*votes, **kw, out=buf)),
-               plain_ms=cuda_ms(lambda: vh.dense_hist_plain(*votes, **kw, out=buf)),
-               bytes=4 * V + 6 * 4 * n_live + 4 * cells, ops=ops)
+    votes_ms, ms = cuda_ms_turns([lambda: vh.dense_hist(*votes, **kw, out=buf),
+                                  lambda: vh.dense_hist_pairs(params, frame, **pkw, out=buf)])
+    rec.update(ms=ms, votes_ms=votes_ms, atomics=atomics, live=n_live, V=V,
+               plain_ms=cuda_ms(lambda: _dense_plain(params, frame, grid_shape, kw)),
+               votes_plain_ms=cuda_ms(lambda: _dense_plain(params, frame, grid_shape, kw,
+                                                            votes=votes)))
     ids, vals = _dense_taps(votes, c, pool)
+    del votes
     flat = torch.zeros(cells, device=w.device)
     rec["library_ms"] = cuda_ms(lambda: flat.index_add_(0, ids, vals))
     del ids, vals
-    t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = rec["ops"] / FP32_OPS_PER_S * 1e3
-    rec["bound_ms"] = max(t_bytes, t_ops)
-    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"kernel dense_hist [{label}, grid {tuple(c)}, pool {pool}, V={V}, live={n_live}]: "
-          f"max abs err {err:.3e} (rel {rel:.3e}), kernel {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.4f} ms, index_add_ {rec['library_ms']:.4f} ms, bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), {atomics} vote atomics = "
-          f"{atomics / rec['ms'] * 1e3:.3e} atomics/s", flush=True)
+    pair_bytes, pair_ops, _ = _pairs_work(params, 72, n_live)
+    _set_bound(rec, "votes_", 4 * V + 6 * 4 * n_live + 4 * cells, splat_ops)
+    _set_bound(rec, "", pair_bytes + 4 * cells, pair_ops + splat_ops)
+    print(f"kernel dense_hist [{label}, grid {tuple(c)}, pool {pool}, {params.shape[0]} pairs, "
+          f"V={V}, live={n_live}]: pairs front end {ms:.4f} ms (bound {rec['bound_ms']:.5f} ms by "
+          f"{rec['bound_by']}: {rec['bound_terms']}; plain, votes made first, "
+          f"{rec['plain_ms']:.4f} ms), votes front end {votes_ms:.4f} ms (bound "
+          f"{rec['votes_bound_ms']:.5f} ms by {rec['votes_bound_by']}: "
+          f"{rec['votes_bound_terms']}; plain {rec['votes_plain_ms']:.4f} ms), index_add_ of the "
+          f"live taps {rec['library_ms']:.4f} ms; {atomics} pooled taps = "
+          f"{atomics / ms * 1e3:.3e}/s (pairs), {atomics / votes_ms * 1e3:.3e}/s (votes)",
+          flush=True)
     return rec
 
 
-def dense_phase(hm, res):
-    """Phase 6: dense_hist at the zero-shot path's three shapes, on the votes
-    of the frame's first 2^20 pairs."""
+def dense_shapes(hm, res):
+    """The zero-shot path's dense_hist inputs on the demo frame: (label, pair
+    parameters as a function of ``adaptive``, frame, fine grid, pool) for the
+    first 2^20 pairs on the unpooled whole-frame grid and on the sparse
+    route's pool-8 coarse grid, one 48³ window of the sparse route, and every
+    pair of the frame."""
     from cppf_tpu_torch.eval import zero_shot as zs
-    from cppf_tpu_torch.ops.voting import _vote_coords
+    from cppf_tpu_torch.ops import vote_hist as vh
+    from cppf_tpu_torch.ops.voting import pair_vote_params
 
     dev = hm.pc.device
     n = hm.pc.shape[0]
-    sel = slice(0, 1 << 20)
     preds_tr = hm.preds[:, :2].contiguous()
     dims = hm.dims
 
-    def votes(idxs, grid_shape, corner, gdims, comp=1.0):
-        f, r, w = _vote_coords(hm.pc, preds_tr[idxs], torch.full((n,), comp, device=dev),
-                               hm.point_idxs[idxs], torch.as_tensor(corner, device=dev), res,
-                               torch.as_tensor(gdims, device=dev).float(), grid_shape, 72, True,
-                               torch.ones(hm.point_idxs[idxs].shape[0], dtype=torch.bool,
-                                          device=dev))
-        return [a.reshape(-1).contiguous() for a in (*f, *r, w)]
+    def params(idxs, comp=1.0):
+        def make(adaptive):
+            return pair_vote_params(hm.pc, preds_tr[idxs], torch.full((n,), comp, device=dev),
+                                    hm.point_idxs[idxs], res, 72, adaptive,
+                                    torch.ones(hm.point_idxs[idxs].shape[0], dtype=torch.bool,
+                                               device=dev))
+        return make
 
+    def frame(corner, gdims):
+        return vh.vote_frame(torch.as_tensor(corner, device=dev), res,
+                             torch.as_tensor(gdims, device=dev).float())
+
+    sel = slice(0, DENSE_CHUNK)
     gshape = tuple(int(np.ceil(d / 8) * 8) for d in dims)
-    records = {"frame": dense_record(votes(sel, gshape, hm.corner, dims), gshape, (1, 1, 1),
-                                     "frame chunk, unpooled")}
     gshape_c = tuple(int(np.ceil(d / 64) * 64) for d in dims)
-    v = votes(sel, gshape_c, hm.corner, dims)
-    c = tuple(g // 8 for g in gshape_c)
-    records["coarse"] = dense_record(v, c, (8, 8, 8), "frame chunk, pool-8 coarse grid")
-    from cppf_tpu_torch.ops import vote_hist as vh
-
-    coarse = vh.dense_hist(*v, cx=c[0], cy=c[1], cz=c[2], px=8, py=8, pz=8)
-    del v
-    cell = np.array(np.unravel_index(int(torch.argmax(coarse)), c))
+    f_frame = frame(hm.corner, dims)
+    shapes = [("frame chunk, unpooled", params(sel), f_frame, gshape, (1, 1, 1)),
+              ("frame chunk, pool-8 coarse grid", params(sel), f_frame, gshape_c, (8, 8, 8))]
+    coarse = vh.dense_hist_pairs(shapes[1][1](True), f_frame, n_rots=72, grid_shape=gshape_c,
+                                 cx=gshape_c[0] // 8, cy=gshape_c[1] // 8, cz=gshape_c[2] // 8,
+                                 px=8, py=8, pz=8)
+    cell = np.array(np.unravel_index(int(torch.argmax(coarse)), coarse.shape))
     wo = zs._window_origin(cell, dims, 48, 8)
     keep, comp = zs._window_pairs(wo, zs._pair_circles(hm.pc, preds_tr, hm.point_idxs, res, 48),
                                   hm.corner, res, 48, 1 << 17)
-    records["window"] = dense_record(
-        votes(keep, (48, 48, 48), (hm.corner + wo * res).astype(np.float32),
-              np.minimum(dims - wo, 48), comp), (48, 48, 48), (1, 1, 1),
-        f"48^3 window at {tuple(int(x) for x in wo)}, {keep.numel()} pairs")
+    shapes.append((f"48^3 window at {tuple(int(x) for x in wo)}",
+                   params(keep, comp), frame((hm.corner + wo * res).astype(np.float32),
+                                             np.minimum(dims - wo, 48)), (48, 48, 48), (1, 1, 1)))
+    shapes.append(("whole frame, unpooled", params(slice(None)), f_frame, gshape, (1, 1, 1)))
+    return shapes
+
+
+def dense_phase(hm, res):
+    """Phase 6: both front ends of dense_hist at the zero-shot path's shapes
+    (timed, adaptive rotations as the path votes), and the first three again
+    without adaptive rotations (held to float64 within ``EXACT_RTOL``)."""
+    records = {}
+    for label, params, frame, grid_shape, pool in dense_shapes(hm, res):
+        records[label] = dense_record(params(True), frame, grid_shape, pool, label)
+        if not label.startswith("whole"):
+            dense_record(params(False), frame, grid_shape, pool, label + ", not adaptive",
+                         adaptive=False, timed=False)
     return records
 
 
@@ -687,7 +766,8 @@ def zero_shot_phase(z, device, profile=False):
     torch.cuda.synchronize()
     launches = dict(vh.LAUNCHES)
     print(f"zero-shot path launches over 1 frame: {launches}", flush=True)
-    check(launches["dense_hist"] > 0, "dense_hist never launched on the zero-shot path")
+    check(launches["dense_hist_pairs"] > 0, "dense_hist_pairs never launched on the zero-shot path")
+    check(launches["dense_hist"] == 0, "the zero-shot path built vote vectors for dense_hist")
     for d in dets:
         print(f"detection: T {np.round(d.T, 4)}, scale {np.round(d.scale, 4)}, "
               f"up {np.round(d.R[:, 1], 4)}, score {d.score:.1f}, mask {int(d.mask.sum())} points",
@@ -715,6 +795,18 @@ def zero_shot_phase(z, device, profile=False):
     for name in stage_runs[0]:
         print(f"  stage {name}: {statistics.median(t[name] for t in stage_runs):.4f} s",
               flush=True)
+    # the heatmap stage alone must allocate less than one [2^20, 72] vote vector
+    preds_tr = hm.preds[:, :2].contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zs.frame_heatmap(hm.pc, preds_tr, hm.point_idxs, cfg.res, 72)
+    torch.cuda.synchronize()
+    heat_bytes = torch.cuda.max_memory_allocated() - base
+    vector_bytes = 4 * DENSE_CHUNK * 72
+    print(f"heatmap stage: peak device memory {heat_bytes / 2**20:.2f} MiB above its inputs (one "
+          f"[2^20, 72] float32 vote vector is {vector_bytes / 2**20:.2f} MiB)", flush=True)
+    check(heat_bytes < vector_bytes, "the heatmap stage made a [P, R] vote vector")
     if profile:
         profile_frame(encoders, cfg, z, device)
 
@@ -877,12 +969,13 @@ def main():
     # ---- 6-7. dense_hist, the zero-shot path ------------------------------
     zs_z = np.load(os.path.join(ASSETS, "demo_frame.npz"))
     dense, zs_launches = zero_shot_phase(zs_z, runner.device, args.profile)
-    records["dense_hist"] = dense["frame"]
+    records["dense_hist"] = dense["frame chunk, unpooled"]
     launches["dense_hist"] = zs_launches["dense_hist"]
+    launches["dense_hist_pairs"] = zs_launches["dense_hist_pairs"]
 
-    # a peak kernel's record is that of its pairs front end, which the main
-    # path launches; its votes front end, launched by no path of this run
-    # but the comparisons, stands beside it under votes_ keys
+    # a kernel's record is that of its pairs front end, which its path
+    # launches; its votes front end, launched by no path of this run but the
+    # comparisons, stands beside it under votes_ keys
     kernels = []
     for name, rec in records.items():
         pairs = name + "_pairs" if name + "_pairs" in launches else name

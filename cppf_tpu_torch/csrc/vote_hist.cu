@@ -389,39 +389,53 @@ struct Pair {
   float c[3], x[3], y[3];
 };
 
-// False for a pair that casts no vote; then only its first 16 bytes are read.
-__device__ __forceinline__ bool load_pair(const float4* __restrict__ params, long long p,
-                                          Pair& q) {
-  const float4 a = params[3 * p];
+// A pair from its three 16-byte rows; its rotation count clipped to the
+// circle table's n_rots, as pair_vote_params clips it.
+__device__ __forceinline__ Pair unpack_pair(const float4& a, const float4& b, const float4& c,
+                                            int n_rots) {
+  Pair q;
   q.w = a.x;
-  q.m = __float_as_int(a.y);
-  if (q.w == 0.f || q.m <= 0) return false;
-  const float4 b = params[3 * p + 1], c = params[3 * p + 2];
+  q.m = min(__float_as_int(a.y), n_rots);
   q.c[0] = a.z, q.c[1] = a.w, q.c[2] = b.x;
   q.x[0] = b.y, q.x[1] = b.z, q.x[2] = b.w;
   q.y[0] = c.x, q.y[1] = c.y, q.y[2] = c.z;
+  return q;
+}
+
+// False for a pair that casts no vote; then only its first 16 bytes are read.
+__device__ __forceinline__ bool load_pair(const float4* __restrict__ params, long long p,
+                                          int n_rots, Pair& q) {
+  const float4 a = params[3 * p];
+  if (a.x == 0.f || __float_as_int(a.y) <= 0) return false;
+  q = unpack_pair(a, params[3 * p + 1], params[3 * p + 2], n_rots);
   return true;
 }
 
-// cos | sin of i 2pi/n_rots, the angles of every pair with m == n_rots (all
-// pairs unless voting is adaptive).
-__device__ __forceinline__ void fill_circle_table(float* table, int n_rots) {
-  const float step = __fdiv_rn(kTwoPi, (float)max(n_rots, 1));
-  for (int i = threadIdx.x; i < n_rots; i += blockDim.x) {
-    const float a = __fmul_rn((float)i, step);
-    table[i] = cosf(a);
-    table[n_rots + i] = sinf(a);
+// The circle table: (cos, sin) of a_i = i 2pi/m, as voting.py::_circle
+// rounds it, for every rotation count m in [1, n_rots] and i < m, at
+// m (m-1) / 2 + i: 2628 angles (21 KB) at 72 rotations.  Adaptive voting
+// gives each pair its own m, so a table of one m would leave most votes a
+// cosf and a sinf of their own; their slow path (a called reduction for
+// huge arguments) also made the callers save registers to the stack.
+// Pairs come from pair_vote_params, which clips m to n_rots.
+size_t circle_table_bytes(int n_rots) {
+  return sizeof(float2) * (size_t)n_rots * (n_rots + 1) / 2;
+}
+
+__device__ __forceinline__ void fill_circle_table(float2* table, int n_rots) {
+  const int n = n_rots * (n_rots + 1) / 2;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    int m = (int)((sqrtf(8.f * (float)k + 1.f) + 1.f) * 0.5f);  // entry k's row
+    while (m * (m - 1) / 2 > k) --m;
+    while (m * (m + 1) / 2 <= k) ++m;
+    const float a = __fmul_rn((float)(k - m * (m - 1) / 2), __fdiv_rn(kTwoPi, (float)m));
+    table[k] = make_float2(cosf(a), sinf(a));
   }
 }
 
-__device__ __forceinline__ void circle_sample(const float* table, int n_rots, int m, float step,
-                                              int i, float& cs, float& sn) {
-  if (m == n_rots) {
-    cs = table[i], sn = table[n_rots + i];
-  } else {
-    const float a = __fmul_rn((float)i, step);
-    cs = cosf(a), sn = sinf(a);
-  }
+// (cos, sin) of vote i of a pair of m <= n_rots rotations.
+__device__ __forceinline__ float2 circle_sample(const float2* table, int m, int i) {
+  return table[m * (m - 1) / 2 + i];
 }
 
 // Axis k of the vote at (cs, sn): false when it lies outside the grid's
@@ -437,13 +451,25 @@ __device__ __forceinline__ bool vote_axis(const Pair& q, const Frame& F, int k, 
   return true;
 }
 
+// Vote i of pair q, whose rotation count is m: false when it lies outside
+// the grid's valid range on some axis.
+__device__ __forceinline__ bool make_vote(const Pair& q, const Frame& F, const float2* table,
+                                          int m, int i, Vote& v) {
+  const float2 a = circle_sample(table, m, i);
+  v.w = q.w;
+  return vote_axis(q, F, 0, a.x, a.y, v.x, v.ax) && vote_axis(q, F, 1, a.x, a.y, v.y, v.ay) &&
+         vote_axis(q, F, 2, a.x, a.y, v.z, v.az);
+}
+
 // Work item t of n_pairs * kSplit: pair t % n_pairs (a warp holds 32 different
-// circles) and the rotations [first, last) of chunk t / n_pairs.
+// circles) and the rotations [first, last) of chunk t / n_pairs, a quarter of
+// the pair's own m votes.
 __device__ __forceinline__ void rotation_range(long long t, long long n_pairs, int n_rots, int m,
                                                int& first, int& last) {
-  const int per = (n_rots + kSplit - 1) / kSplit;
+  const int votes = max(min(m, n_rots), 0);
+  const int per = (votes + kSplit - 1) / kSplit;
   first = (int)(t / n_pairs) * per;
-  last = min(min(m, n_rots), first + per);
+  last = min(votes, first + per);
 }
 
 // The fixed-point scale of a block of a pairs kernel: a pass over the weight
@@ -468,36 +494,30 @@ __global__ void __launch_bounds__(kPeakThreads) bound_pairs_kernel(
     const float4* __restrict__ params, long long n_pairs, int n_rots,
     const float* __restrict__ frame, int gx, int gy, int gz, int by_n, int bz_n, int pfy,
     int pfz, float* __restrict__ out) {
-  extern __shared__ int smem[];
+  extern __shared__ float2 table[];  // the circle table, then the projections
+  int* proj = reinterpret_cast<int*>(table + n_rots * (n_rots + 1) / 2);
   const int n_xy = gx * by_n, n_xz = gx * bz_n;
   const int n_all = n_xy + n_xz + gy * bz_n;
-  float* table = reinterpret_cast<float*>(smem + n_all);
-  for (int i = threadIdx.x; i < n_all; i += blockDim.x) smem[i] = 0;
+  for (int i = threadIdx.x; i < n_all; i += blockDim.x) proj[i] = 0;
   fill_circle_table(table, n_rots);
   const Frame F = load_frame(frame, gx, gy, gz);
   const float scale = pairs_scale(params, n_pairs, n_rots);
-  const Proj P = {smem, smem + n_xy, smem + n_xy + n_xz, by_n, bz_n, pfy, pfz, scale};
+  const Proj P = {proj, proj + n_xy, proj + n_xy + n_xz, by_n, bz_n, pfy, pfz, scale};
   __syncthreads();
 
   const long long work = n_pairs * kSplit;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work; t += stride) {
     Pair q;
-    if (!load_pair(params, t % n_pairs, q)) continue;
+    if (!load_pair(params, t % n_pairs, n_rots, q)) continue;
     int first, last;
     rotation_range(t, n_pairs, n_rots, q.m, first, last);
-    const float step = __fdiv_rn(kTwoPi, (float)q.m);
     for (int i = first; i < last; ++i) {
-      float cs, sn;
-      circle_sample(table, n_rots, q.m, step, i, cs, sn);
       Vote v;
-      v.w = q.w;
-      if (vote_axis(q, F, 0, cs, sn, v.x, v.ax) && vote_axis(q, F, 1, cs, sn, v.y, v.ay) &&
-          vote_axis(q, F, 2, cs, sn, v.z, v.az))
-        splat_bound<kNearest>(P, v);
+      if (make_vote(q, F, table, q.m, i, v)) splat_bound<kNearest>(P, v);
     }
   }
-  flush(smem, n_all, scale, out);
+  flush(proj, n_all, scale, out);
 }
 
 // The window cull.  The votes of a pair lie on an ellipse about c with
@@ -522,9 +542,9 @@ template <bool kNearest>
 __global__ void __launch_bounds__(kPeakThreads) refine_pairs_kernel(
     const int* __restrict__ o, const float4* __restrict__ params, long long n_pairs, int n_rots,
     const float* __restrict__ frame, int gx, int gy, int gz, int w8, float* __restrict__ out) {
-  extern __shared__ int win[];
+  extern __shared__ float2 table[];  // the circle table, then the window
+  int* win = reinterpret_cast<int*>(table + n_rots * (n_rots + 1) / 2);
   const int n_all = w8 * w8 * w8;
-  float* table = reinterpret_cast<float*>(win + n_all);
   for (int i = threadIdx.x; i < n_all; i += blockDim.x) win[i] = 0;
   fill_circle_table(table, n_rots);
   const Frame F = load_frame(frame, gx, gy, gz);
@@ -541,14 +561,13 @@ __global__ void __launch_bounds__(kPeakThreads) refine_pairs_kernel(
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work; t += stride) {
     Pair q;
-    if (!load_pair(params, t % n_pairs, q)) continue;
+    if (!load_pair(params, t % n_pairs, n_rots, q)) continue;
     if (!shell_reaches_window(q, centre, reach)) continue;
     int first, last;
     rotation_range(t, n_pairs, n_rots, q.m, first, last);
-    const float step = __fdiv_rn(kTwoPi, (float)q.m);
     for (int i = first; i < last; ++i) {
-      float cs, sn;
-      circle_sample(table, n_rots, q.m, step, i, cs, sn);
+      const float2 a = circle_sample(table, q.m, i);
+      const float cs = a.x, sn = a.y;
       Vote v;
       v.w = q.w;
       // an axis that is invalid or misses the window ends the vote
@@ -570,115 +589,326 @@ __global__ void __launch_bounds__(kPeakThreads) refine_pairs_kernel(
 // ---------------------------------------------------------------------------
 // dense_hist: the dense vote histogram [cx, cy, cz], axis k pooled by p_k.
 //
-// Bound on an H100 SXM (3.35 TB/s): the weight of every vote and the other
-// six vectors of every live vote are read once (up to 28 B a vote: 2.1 GB
-// for the zero-shot frame's 2^20-pair chunk of 75 M votes, >= 0.63 ms), the
-// grid written once (48 MB at 320x224x168).  The arithmetic is ~30 flops a
-// vote, far below the operation bound.  What the bytes bound hides is the
-// scatter: up to 8 atomic adds a vote, so the kernel is bound in practice
-// by the atomic throughput of L2 (global grids) or shared memory.
-//
-// Design.  The TPU kernel contracts an x one-hot [cx, C] with a (y, z)
-// one-hot [cy*cz, C] on the MXU per chunk of C votes, at O(V * cy * cz)
-// compares, which caps its (y, z) plane (65 536 cells, a VMEM limit).  On
-// Hopper the natural form is a scatter at O(V) cost, with no such cap:
-//   * a grid that fits one block's shared memory (4*cells <= the opt-in
-//     limit, 227 KB: the pooled coarse grid of the sparse route, 123 KB) is
-//     kept as a private copy per block, splatted with shared atomics over a
-//     grid-strided range of votes and flushed with one global atomicAdd per
-//     non-zero cell, as bound_kernel does;
-//   * a larger grid (the whole frame, 48 MB, which the 50 MB L2 holds; a
-//     48^3 window, 442 KB) takes one thread per vote and a global atomicAdd
-//     per pooled tap.
 // Each axis has its taps (f, 1-r) and (f+1, r), pooled to cells f/p and
 // (f+1)/p; when both land in one cell they merge into one tap of weight
-// (1-r)+r, so a pool-8 vote costs ~1.4 atomics instead of 8.  Nearest
-// splats one tap f+(r>0.5).  Masked votes (w == 0) leave after the weight
-// load.  The limit is the device's memory: cell indices are 64-bit, and
-// the caller guarantees (f+1)/p < c on every axis (floors clipped to g-2,
-// c = ceil(g/p)).
-constexpr int kDenseThreads = 1024;
+// (1-r)+r, so a pool-8 vote costs ~1.4 adds instead of 8.  Nearest splats
+// one tap f+(r>0.5).  The caller guarantees (f+1)/p < c on every axis
+// (floors clipped to g-2, c >= ceil(g/p)); cell indices of the global grid
+// are 64-bit.
+//
+// The TPU kernel contracts an x one-hot [cx, C] with a (y, z) one-hot
+// [cy*cz, C] on the MXU per chunk of C votes, at O(V * cy * cz) compares,
+// which caps its (y, z) plane.  On Hopper the natural form is a scatter at
+// O(V), with no such cap, over the same splat core as the peak kernels'
+// (one vote's pooled taps in registers, pooled_taps) and the same two front
+// ends:
+//   * votes (dense_votes_kernel): the seven flat [V] vectors, one vote a
+//     thread.  Bound: the weight of every vote and the other 24 bytes of
+//     every live one (2.1 GB for the zero-shot frame's 2^20-pair chunk of
+//     75.5 M votes, 8.7 M live: >= 0.17 ms at 3.35 TB/s).
+//   * pairs (dense_pairs_kernel): the 48 bytes of a voting pair and 16 of
+//     a dead one, votes made in registers as in the peak kernels (the
+//     grid's frame is the vote frame; the cells are its pooling).  The
+//     zero-shot path votes adaptively: a pair casts m < 72 votes (25 on
+//     average over the third of the frame's pairs that vote at all, 5 to
+//     65 between the 10th and 99th percentile), each with its own cosf and
+//     sinf.  A lane a pair would leave a warp waiting on its longest
+//     circle (16 % of its lanes busy on the demo frame), so a warp takes 32
+//     pairs at a time, cuts each into runs of kRun consecutive rotations,
+//     and its lanes take the runs in turn (a prefix sum over the warp finds
+//     a run's pair; the 32 pairs wait in shared memory).  Bound: 4.8 MB a
+//     2^20-pair chunk of parameters and ~60 operations a vote: some
+//     microseconds; what holds the kernel is the accumulation.
+//
+// Accumulation, chosen by the grid's size:
+//   * a grid that fits one block's shared memory (the sparse route's pooled
+//     coarse grid, 40x32x24: 123 KB) is a private int32 fixed-point copy a
+//     block, added to with the native ATOMS.ADD (fixed_scale: the largest
+//     power of two that cannot overflow the block's vote mass; taps round
+//     to nearest) and flushed with one global float atomicAdd a non-zero
+//     cell;
+//   * a larger grid (the whole frame, 48 MB, which the 50 MB L2 holds; a 48^3
+//     window, 442 KB) takes one global atomicAdd a pooled tap.
+//
+// Tolerance.  Against the plain version summed in float64 on the same votes
+// the kernels stay within 1e-5 of the largest cell (float atomics in any
+// order, a fixed-point unit of rounding a tap).  The pairs front end makes
+// its own votes: with every pair at the table's rotation count they equal
+// PyTorch's on the card; under adaptive voting a last-bit cosf can move a
+// vote across a validity step, hence 1e-3 there.
+constexpr int kDenseThreads = 1024;  // a block of the shared-memory route
+constexpr int kStageBytes = 32 * (3 * 16 + 4);  // a warp's 32 pairs and run starts
+
+// The pooled taps of one vote: first cell b on each axis and the values of
+// cells b + (a, b, c), a, b, c in {0, 1}, at h[(a*2+b)*2+c]; 0 where no tap
+// lands.
+struct Taps {
+  int b[3];
+  float h[8];
+};
 
 template <bool kNearest>
-__device__ __forceinline__ int axis_taps(int f, float r, int p, int* c, float* h) {
+__device__ __forceinline__ void axis_cells(int f, float r, int p, int& b, float* h) {
   if (kNearest) {
-    c[0] = (r > 0.5f ? f + 1 : f) / p;
-    h[0] = 1.f;
-    return 1;
+    b = (r > 0.5f ? f + 1 : f) / p;
+    h[0] = 1.f, h[1] = 0.f;
+    return;
   }
-  c[0] = f / p;
-  c[1] = (f + 1) / p;
-  h[0] = 1.f - r;
-  h[1] = r;
-  if (c[1] == c[0]) {
-    h[0] += h[1];
-    return 1;
-  }
-  return 2;
+  b = f / p;
+  h[0] = 1.f - r, h[1] = r;
+  if ((f + 1) / p == b) h[0] += h[1], h[1] = 0.f;
 }
 
-// Adds the pooled taps of vote v to hist (global or shared).
+// Products in the plain version's order: ((w * hx) * hy) * hz.
 template <bool kNearest>
-__device__ __forceinline__ void splat_dense(
-    long long v, float wv, const int* __restrict__ fx, const int* __restrict__ fy,
-    const int* __restrict__ fz, const float* __restrict__ rx, const float* __restrict__ ry,
-    const float* __restrict__ rz, int cy, int cz, int px, int py, int pz, float* hist) {
-  int ix[2], iy[2], iz[2];
+__device__ __forceinline__ Taps pooled_taps(const Vote& v, int px, int py, int pz) {
+  Taps t;
   float hx[2], hy[2], hz[2];
-  const int nx = axis_taps<kNearest>(fx[v], rx[v], px, ix, hx);
-  const int ny = axis_taps<kNearest>(fy[v], ry[v], py, iy, hy);
-  const int nz = axis_taps<kNearest>(fz[v], rz[v], pz, iz, hz);
-  for (int a = 0; a < nx; ++a) {
-    const float wx = hx[a] * wv;
-    const long long row = (long long)ix[a] * cy;
-    for (int b = 0; b < ny; ++b) {
-      const float wxy = wx * hy[b];
-      float* line = hist + (row + iy[b]) * cz;
-      for (int c = 0; c < nz; ++c) atomicAdd(line + iz[c], wxy * hz[c]);
+  axis_cells<kNearest>(v.x, v.ax, px, t.b[0], hx);
+  axis_cells<kNearest>(v.y, v.ay, py, t.b[1], hy);
+  axis_cells<kNearest>(v.z, v.az, pz, t.b[2], hz);
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) t.h[(a * 2 + b) * 2 + c] = v.w * hx[a] * hy[b] * hz[c];
+  return t;
+}
+
+// The values of held's taps that t's cells share move into t (consecutive
+// votes of a run lie about a cell apart, so their boxes overlap).  All
+// indices are static: a shift by d along one axis, axis by axis.
+template <int kStride>
+__device__ __forceinline__ void shift_taps(float* g, int d) {
+  float s[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int bit = (k / kStride) & 1;  // t's tap index on this axis takes held's bit + d
+    s[k] = d == 0 ? g[k] : (bit + d == 1 - bit ? g[k ^ kStride] : 0.f);
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) g[k] = s[k];
+}
+
+__device__ __forceinline__ bool covered(int bit, int d) { return d == 0 || bit - d == 0 || bit - d == 1; }
+
+__device__ __forceinline__ void absorb(Taps& t, Taps& held) {
+  const int d0 = t.b[0] - held.b[0], d1 = t.b[1] - held.b[1], d2 = t.b[2] - held.b[2];
+  if (d0 < -1 || d0 > 1 || d1 < -1 || d1 > 1 || d2 < -1 || d2 > 1) return;
+  float g[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) g[k] = held.h[k];
+  shift_taps<4>(g, d0), shift_taps<2>(g, d1), shift_taps<1>(g, d2);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    t.h[k] += g[k];
+    if (covered(k >> 2, d0) && covered((k >> 1) & 1, d1) && covered(k & 1, d2)) held.h[k] = 0.f;
+  }
+}
+
+// Where the taps go: a block's fixed-point copy in shared memory ...
+struct SharedSink {
+  int* hist;
+  float scale;
+  int cy, cz;
+  __device__ __forceinline__ void line(long long row, int z, float v0, float v1) const {
+    int* p = hist + (int)row * cz + z;
+    if (v0 != 0.f) atomicAdd(p, to_fixed<false>(v0, scale));
+    if (v1 != 0.f) atomicAdd(p + 1, to_fixed<false>(v1, scale));
+  }
+};
+
+// ... or the float grid in device memory, two neighbouring z taps in one
+// vector atomic (kVec 2: float2 at an even cell; 4: float4 around them)
+// where they can share one.
+template <int kVec>
+struct GlobalSink {
+  float* out;
+  long long n_cells;
+  int cy, cz;
+  __device__ __forceinline__ void line(long long row, int z, float v0, float v1) const {
+    const long long i = row * cz + z;
+    if (v0 == 0.f || v1 == 0.f) {
+      if (v0 != 0.f) atomicAdd(out + i, v0);
+      if (v1 != 0.f) atomicAdd(out + i + 1, v1);
+      return;
     }
+    if (kVec == 2 && !(i & 1)) {
+      atomicAdd(reinterpret_cast<float2*>(out + i), make_float2(v0, v1));
+      return;
+    }
+    if (kVec == 4 && (i & 3) != 3 && (i | 3) < n_cells) {
+      const int k = (int)(i & 3);
+      const float4 q = make_float4(k == 0 ? v0 : 0.f, k == 0 ? v1 : (k == 1 ? v0 : 0.f),
+                                   k == 1 ? v1 : (k == 2 ? v0 : 0.f), k == 2 ? v1 : 0.f);
+      atomicAdd(reinterpret_cast<float4*>(out + (i & ~3LL)), q);
+      return;
+    }
+    atomicAdd(out + i, v0);
+    atomicAdd(out + i + 1, v1);
   }
+};
+
+template <bool kNearest, class Sink>
+__device__ __forceinline__ void emit(const Taps& t, const Sink& s) {
+  constexpr int n = kNearest ? 1 : 2;
+#pragma unroll
+  for (int a = 0; a < n; ++a)
+#pragma unroll
+    for (int b = 0; b < n; ++b)
+      s.line((long long)(t.b[0] + a) * s.cy + t.b[1] + b, t.b[2], t.h[(a * 2 + b) * 2],
+             kNearest ? 0.f : t.h[(a * 2 + b) * 2 + 1]);
 }
 
-template <bool kNearest>
-__global__ void __launch_bounds__(kThreads) dense_global_kernel(
-    const int* __restrict__ fx, const int* __restrict__ fy, const int* __restrict__ fz,
-    const float* __restrict__ rx, const float* __restrict__ ry, const float* __restrict__ rz,
-    const float* __restrict__ w, long long n_votes, int cy, int cz, int px, int py, int pz,
-    float* __restrict__ out) {
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= n_votes) return;
-  const float wv = w[v];
-  if (wv == 0.f) return;
-  splat_dense<kNearest>(v, wv, fx, fy, fz, rx, ry, rz, cy, cz, px, py, pz, out);
+template <bool kNearest, bool kShared, int kVec>
+__global__ void __launch_bounds__(kShared ? kDenseThreads : kThreads) dense_votes_kernel(
+    Streams S, long long n_cells, int cy, int cz, int px, int py, int pz, float* __restrict__ out) {
+  extern __shared__ int hist[];
+  const long long stride = kShared ? (long long)gridDim.x * blockDim.x : 0;
+  float scale = 1.f;
+  if (kShared) {
+    for (int i = threadIdx.x; i < n_cells; i += blockDim.x) hist[i] = 0;
+    scale = votes_scale(S, (long long)blockIdx.x * blockDim.x, stride, 1);
+    __syncthreads();
+  }
+  const SharedSink shared = {hist, scale, cy, cz};
+  const GlobalSink<kVec> global = {out, n_cells, cy, cz};
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < S.n;
+       v += kShared ? stride : S.n) {
+    const float w = S.w[v];
+    if (w == 0.f) continue;  // dead votes cost the weight load alone
+    const Vote vote = {S.fx[v], S.fy[v], S.fz[v], S.rx[v], S.ry[v], S.rz[v], w};
+    const Taps t = pooled_taps<kNearest>(vote, px, py, pz);
+    if (kShared)
+      emit<kNearest>(t, shared);
+    else
+      emit<kNearest>(t, global);
+  }
+  if (kShared) flush(hist, (int)n_cells, scale, out);
 }
 
-template <bool kNearest>
-__global__ void __launch_bounds__(kDenseThreads) dense_shared_kernel(
-    const int* __restrict__ fx, const int* __restrict__ fy, const int* __restrict__ fz,
-    const float* __restrict__ rx, const float* __restrict__ ry, const float* __restrict__ rz,
-    const float* __restrict__ w, long long n_votes, int n_cells, int cy, int cz, int px,
-    int py, int pz, float* __restrict__ out) {
-  extern __shared__ float hist[];
-  for (int i = threadIdx.x; i < n_cells; i += blockDim.x) hist[i] = 0.f;
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < n_votes;
-       v += stride) {
-    const float wv = w[v];
-    if (wv == 0.f) continue;
-    splat_dense<kNearest>(v, wv, fx, fy, fz, rx, ry, rz, cy, cz, px, py, pz, hist);
+// The votes of rotations [first, last) of pair q, made in registers and
+// splatted; with kMerge (trilinear only) a vote's taps that the next vote
+// shares are added to it in registers instead of to the sink.
+template <bool kNearest, bool kMerge, class Sink>
+__device__ __forceinline__ void cast_run(const Pair& q, int first, int last, const float2* table,
+                                         const Frame& F, int px, int py, int pz,
+                                         const Sink& sink) {
+  constexpr bool merge = kMerge && !kNearest;
+  Taps held;
+  bool holding = false;
+  for (int i = first; i < last; ++i) {
+    Vote v;
+    if (!make_vote(q, F, table, q.m, i, v)) continue;
+    Taps t = pooled_taps<kNearest>(v, px, py, pz);
+    if (!merge) {
+      emit<kNearest>(t, sink);
+      continue;
+    }
+    if (holding) {
+      absorb(t, held);
+      emit<kNearest>(held, sink);
+    }
+    held = t;
+    holding = true;
+  }
+  if (merge && holding) emit<kNearest>(held, sink);
+}
+
+// The pairs of warp-batch `base` on: lanes of every warp of the grid take 32
+// pairs at a time, warp w of block b at ((b * warps + w) + k * all warps) * 32.
+__device__ __forceinline__ long long first_batch() {
+  return ((long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 32;
+}
+
+__device__ __forceinline__ long long batch_step() {
+  return (long long)gridDim.x * (blockDim.x >> 5) * 32;
+}
+
+// The fixed-point scale of a block of dense_pairs_kernel: a pass over the
+// weight and rotation count of its pairs.
+__device__ __forceinline__ float dense_pairs_scale(const float4* __restrict__ params,
+                                                   long long n_pairs, int n_rots) {
+  float mass = 0.f, n = 0.f;
+  for (long long p = first_batch() + (threadIdx.x & 31); p < n_pairs; p += batch_step()) {
+    const float4 a = params[3 * p];
+    const int m = min(__float_as_int(a.y), n_rots);
+    if (a.x != 0.f && m > 0) mass += fabsf(a.x) * (float)m, n += m;
+  }
+  mass = block_sum(mass);
+  return fixed_scale(mass, block_sum(n));
+}
+
+// Shared memory: per warp its 32 pairs (float4 x 3 each) and run starts,
+// then the circle table, then (kShared) the block's fixed-point grid.
+template <bool kNearest, bool kShared, bool kMerge, int kVec>
+__global__ void __launch_bounds__(kShared ? kDenseThreads : kThreads) dense_pairs_kernel(
+    const float4* __restrict__ params, long long n_pairs, int n_rots,
+    const float* __restrict__ frame, int gx, int gy, int gz, long long n_cells, int cy, int cz,
+    int px, int py, int pz, int run, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4* stage = smem4 + warp * 96;
+  int* const all_starts = reinterpret_cast<int*>(smem4 + warps * 96);
+  int* starts = all_starts + warp * 32;
+  float2* table = reinterpret_cast<float2*>(all_starts + warps * 32);
+  int* hist = reinterpret_cast<int*>(table + n_rots * (n_rots + 1) / 2);
+  fill_circle_table(table, n_rots);
+  const Frame F = load_frame(frame, gx, gy, gz);
+  float scale = 1.f;
+  if (kShared) {
+    for (int i = threadIdx.x; i < n_cells; i += blockDim.x) hist[i] = 0;
+    scale = dense_pairs_scale(params, n_pairs, n_rots);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n_cells; i += blockDim.x) {
-    const float s = hist[i];
-    if (s != 0.f) atomicAdd(out + i, s);
+  const SharedSink shared = {hist, scale, cy, cz};
+  const GlobalSink<kVec> global = {out, n_cells, cy, cz};
+
+  for (long long base = first_batch(); base < n_pairs; base += batch_step()) {
+    const long long p = base + lane;
+    int runs = 0;
+    if (p < n_pairs) {
+      const float4 a = params[3 * p];
+      const int m = min(__float_as_int(a.y), n_rots);
+      if (a.x != 0.f && m > 0) {  // a dead pair costs its first 16 bytes alone
+        runs = (m + run - 1) / run;
+        stage[3 * lane] = a;
+        stage[3 * lane + 1] = params[3 * p + 1];
+        stage[3 * lane + 2] = params[3 * p + 2];
+      }
+    }
+    int end = runs;  // inclusive prefix sum of the runs over the warp
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, end, d);
+      if (lane >= d) end += y;
+    }
+    starts[lane] = end - runs;
+    const int total = __shfl_sync(0xffffffffu, end, 31);
+    __syncwarp();
+    for (int r = lane; r < total; r += 32) {
+      int o = 0;  // the run's pair: the last lane whose runs start at or before r
+#pragma unroll
+      for (int s = 16; s; s >>= 1)
+        if (starts[o + s] <= r) o += s;
+      const Pair q = unpack_pair(stage[3 * o], stage[3 * o + 1], stage[3 * o + 2], n_rots);
+      const int first = (r - starts[o]) * run;
+      const int last = min(q.m, first + run);
+      if (kShared)
+        cast_run<kNearest, kMerge>(q, first, last, table, F, px, py, pz, shared);
+      else
+        cast_run<kNearest, kMerge>(q, first, last, table, F, px, py, pz, global);
+    }
+    __syncwarp();
   }
+  if (kShared) flush(hist, (int)n_cells, scale, out);
 }
 
 // Enough blocks to fill every SM at the occupancy the shared memory allows,
-// and no more than the votes need.
+// and no more than the work items (one a thread) need.
 template <typename Kernel>
-cudaError_t grid_size(Kernel kernel, size_t smem, long long n_votes, int* blocks,
+cudaError_t grid_size(Kernel kernel, size_t smem, long long n_items, int* blocks,
                       int threads = kThreads) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -689,34 +919,64 @@ cudaError_t grid_size(Kernel kernel, size_t smem, long long n_votes, int* blocks
     return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return e;
-  const long long need = (n_votes + threads - 1) / threads;
+  const long long need = (n_items + threads - 1) / threads;
   const long long fill = (long long)sms * (per_sm > 0 ? per_sm : 1);
   *blocks = (int)(need < fill ? need : fill);
   return cudaSuccess;
 }
 
-template <bool kNearest>
-cudaError_t launch_dense(const int* fx, const int* fy, const int* fz, const float* rx,
-                         const float* ry, const float* rz, const float* w, long long n_votes,
-                         int cx, int cy, int cz, int px, int py, int pz, float* out,
-                         cudaStream_t stream) {
-  const long long n_cells = (long long)cx * cy * cz;
-  int dev = 0, smem_max = 0;
+// The opt-in shared memory of a block on this device.
+cudaError_t smem_limit(int* bytes) {
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+template <bool kNearest, int kVec>
+cudaError_t launch_dense_votes(const Streams& S, int cx, int cy, int cz, int px, int py, int pz,
+                               float* out, cudaStream_t stream) {
+  const long long n_cells = (long long)cx * cy * cz;
+  int smem_max = 0;
+  cudaError_t e = smem_limit(&smem_max);
   if (e != cudaSuccess) return e;
-  if (n_cells * (long long)sizeof(float) <= smem_max) {
-    const size_t smem = sizeof(float) * (size_t)n_cells;
+  if (n_cells * (long long)sizeof(int) + 256 <= smem_max) {
+    const size_t smem = sizeof(int) * (size_t)n_cells;
     int blocks = 0;
-    e = grid_size(dense_shared_kernel<kNearest>, smem, n_votes, &blocks, kDenseThreads);
+    e = grid_size(dense_votes_kernel<kNearest, true, kVec>, smem, S.n, &blocks, kDenseThreads);
     if (e != cudaSuccess) return e;
-    dense_shared_kernel<kNearest><<<blocks, kDenseThreads, smem, stream>>>(
-        fx, fy, fz, rx, ry, rz, w, n_votes, (int)n_cells, cy, cz, px, py, pz, out);
+    dense_votes_kernel<kNearest, true, kVec><<<blocks, kDenseThreads, smem, stream>>>(
+        S, n_cells, cy, cz, px, py, pz, out);
   } else {
-    const long long blocks = (n_votes + kThreads - 1) / kThreads;
-    dense_global_kernel<kNearest><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        fx, fy, fz, rx, ry, rz, w, n_votes, cy, cz, px, py, pz, out);
+    const long long blocks = (S.n + kThreads - 1) / kThreads;
+    dense_votes_kernel<kNearest, false, kVec><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        S, n_cells, cy, cz, px, py, pz, out);
+  }
+  return cudaGetLastError();
+}
+
+template <bool kNearest, bool kMerge, int kVec>
+cudaError_t launch_dense_pairs(const float4* params, long long n_pairs, int n_rots,
+                               const float* frame, int gx, int gy, int gz, int cx, int cy, int cz,
+                               int px, int py, int pz, int run, float* out, cudaStream_t stream) {
+  const long long n_cells = (long long)cx * cy * cz;
+  int smem_max = 0;
+  cudaError_t e = smem_limit(&smem_max);
+  if (e != cudaSuccess) return e;
+  const size_t fixed = circle_table_bytes(n_rots);
+  const size_t shared = (kDenseThreads / 32) * (size_t)kStageBytes + fixed + 4 * n_cells;
+  int blocks = 0;
+  if (shared + 256 <= (size_t)smem_max) {
+    auto kernel = dense_pairs_kernel<kNearest, true, kMerge, kVec>;
+    if ((e = grid_size(kernel, shared, n_pairs, &blocks, kDenseThreads)) != cudaSuccess) return e;
+    kernel<<<blocks, kDenseThreads, shared, stream>>>(params, n_pairs, n_rots, frame, gx, gy, gz,
+                                                      n_cells, cy, cz, px, py, pz, run, out);
+  } else {
+    auto kernel = dense_pairs_kernel<kNearest, false, kMerge, kVec>;
+    const size_t smem = (kThreads / 32) * (size_t)kStageBytes + fixed;
+    if ((e = grid_size(kernel, smem, n_pairs, &blocks, kThreads)) != cudaSuccess) return e;
+    kernel<<<blocks, kThreads, smem, stream>>>(params, n_pairs, n_rots, frame, gx, gy, gz, n_cells,
+                                               cy, cz, px, py, pz, run, out);
   }
   return cudaGetLastError();
 }
@@ -773,8 +1033,8 @@ int cppf_refine_window(const void* o, const void* fx, const void* fy, const void
 int cppf_bound_projections_pairs(const void* params, long long n_pairs, int n_rots,
                                  const void* frame, int gx, int gy, int gz, int by_n, int bz_n,
                                  int pfy, int pfz, int nearest, void* out, void* stream) {
-  const size_t smem = sizeof(int) * ((size_t)gx * by_n + (size_t)gx * bz_n + (size_t)gy * bz_n +
-                                     2 * (size_t)n_rots);
+  const size_t smem = sizeof(int) * ((size_t)gx * by_n + (size_t)gx * bz_n + (size_t)gy * bz_n) +
+                      circle_table_bytes(n_rots);
   auto go = [&](auto kernel) {
     return (int)launch_peak(kernel, n_pairs * kSplit, kPeakThreads, smem, (cudaStream_t)stream,
                             (const float4*)params, n_pairs, n_rots, (const float*)frame, gx, gy,
@@ -787,7 +1047,7 @@ int cppf_bound_projections_pairs(const void* params, long long n_pairs, int n_ro
 int cppf_refine_window_pairs(const void* o, const void* params, long long n_pairs, int n_rots,
                              const void* frame, int gx, int gy, int gz, int w8, int nearest,
                              void* out, void* stream) {
-  const size_t smem = sizeof(int) * ((size_t)w8 * w8 * w8 + 2 * (size_t)n_rots);
+  const size_t smem = sizeof(int) * (size_t)w8 * w8 * w8 + circle_table_bytes(n_rots);
   auto go = [&](auto kernel) {
     return (int)launch_peak(kernel, n_pairs * kSplit, kPeakThreads, smem, (cudaStream_t)stream,
                             (const int*)o, (const float4*)params, n_pairs, n_rots,
@@ -796,17 +1056,57 @@ int cppf_refine_window_pairs(const void* o, const void* params, long long n_pair
   return nearest ? go(refine_pairs_kernel<true>) : go(refine_pairs_kernel<false>);
 }
 
+// Measurement only: the global route's ways of issuing its atomics (vec 1:
+// one a tap, 2: float2, 4: float4 for neighbouring z taps; merge: taps that
+// consecutive votes share added in registers first) and the run length.
+int cppf_dense_hist_variant(const void* fx, const void* fy, const void* fz, const void* rx,
+                            const void* ry, const void* rz, const void* w, long long n_votes,
+                            int cx, int cy, int cz, int px, int py, int pz, int nearest, int vec,
+                            void* out, void* stream) {
+  const Streams S = {(const int*)fx,   (const int*)fy,   (const int*)fz,  (const float*)rx,
+                     (const float*)ry, (const float*)rz, (const float*)w, n_votes};
+  auto go = [&](auto launch) {
+    return (int)launch(S, cx, cy, cz, px, py, pz, (float*)out, (cudaStream_t)stream);
+  };
+  if (nearest) return vec == 4 ? go(launch_dense_votes<true, 4>)
+                    : vec == 2 ? go(launch_dense_votes<true, 2>) : go(launch_dense_votes<true, 1>);
+  return vec == 4 ? go(launch_dense_votes<false, 4>)
+         : vec == 2 ? go(launch_dense_votes<false, 2>) : go(launch_dense_votes<false, 1>);
+}
+
+int cppf_dense_hist_pairs_variant(const void* params, long long n_pairs, int n_rots,
+                                  const void* frame, int gx, int gy, int gz, int cx, int cy, int cz,
+                                  int px, int py, int pz, int nearest, int merge, int vec, int run,
+                                  void* out, void* stream) {
+  auto go = [&](auto launch) {
+    return (int)launch((const float4*)params, n_pairs, n_rots, (const float*)frame, gx, gy, gz,
+                       cx, cy, cz, px, py, pz, run, (float*)out, (cudaStream_t)stream);
+  };
+#define CPPF_VEC(N, M)                                                    \
+  (vec == 4 ? go(launch_dense_pairs<N, M, 4>)                             \
+            : vec == 2 ? go(launch_dense_pairs<N, M, 2>) : go(launch_dense_pairs<N, M, 1>))
+  if (nearest) return CPPF_VEC(true, false);
+  return merge ? CPPF_VEC(false, true) : CPPF_VEC(false, false);
+#undef CPPF_VEC
+}
+
 // out: f32 [cx*cy*cz], zeroed or holding earlier chunks' sums (added to).
 int cppf_dense_hist(const void* fx, const void* fy, const void* fz, const void* rx,
                     const void* ry, const void* rz, const void* w, long long n_votes, int cx,
                     int cy, int cz, int px, int py, int pz, int nearest, void* out,
                     void* stream) {
-  auto args = [&](auto launch) {
-    return launch((const int*)fx, (const int*)fy, (const int*)fz, (const float*)rx,
-                  (const float*)ry, (const float*)rz, (const float*)w, n_votes, cx, cy, cz, px,
-                  py, pz, (float*)out, (cudaStream_t)stream);
-  };
-  return (int)(nearest ? args(launch_dense<true>) : args(launch_dense<false>));
+  return cppf_dense_hist_variant(fx, fy, fz, rx, ry, rz, w, n_votes, cx, cy, cz, px, py, pz,
+                                 nearest, 1, out, stream);
+}
+
+// params: f32 [n_pairs, 12] of voting.py::pair_vote_params; frame: device
+// f32 [7] = corner | res | runtime grid dims of the fine grid [gx, gy, gz];
+// out as cppf_dense_hist, its cells c_k >= ceil(g_k / p_k).
+int cppf_dense_hist_pairs(const void* params, long long n_pairs, int n_rots, const void* frame,
+                          int gx, int gy, int gz, int cx, int cy, int cz, int px, int py, int pz,
+                          int nearest, void* out, void* stream) {
+  return cppf_dense_hist_pairs_variant(params, n_pairs, n_rots, frame, gx, gy, gz, cx, cy, cz,
+                                       px, py, pz, nearest, 0, 1, 8, out, stream);
 }
 
 const char* cppf_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -12,7 +12,8 @@ center-vote heatmap.  The stages, each a function so a caller can time it:
 2. network: :func:`frame_predictions` (SPRIN features, PPF head over the
    pairs in chunks);
 3. heatmap: :func:`frame_heatmap`, the adaptive center-vote grid of the
-   whole frame through ``ppf_vote_dense`` and its ``dense_hist`` kernel;
+   whole frame through ``ppf_vote_dense`` and its ``dense_hist_pairs``
+   kernel, which makes the votes from the pair parameters;
 4. detect: :func:`detect_from_heatmap` (smoothed peak proposals, evidence
    re-rank with NMS and the support-plane veto, then per proposal the
    back-vote mask, the axis vote, the aux sign, the scale and the box
@@ -48,7 +49,7 @@ from cppf_tpu_torch.ops.voting import (backvote, circle_support, ppf_vote_dense,
 log = logging.getLogger("cppf_tpu_torch.zero_shot")
 
 DEMO_INTRINSICS = np.array([[591.0125, 0, 322.525], [0, 590.16775, 244.11084], [0, 0, 1]])
-PAIR_CHUNK = 1 << 20   # pairs a chunk: 75 M votes at 72 rotations, ~2 GB of vote vectors
+PAIR_CHUNK = 1 << 20   # pairs a chunk: 48 MiB of pair parameters, one dense_hist_pairs launch
 PLANE_ITERS = 200
 
 
@@ -303,7 +304,7 @@ def _sparse_frame_grid(pc, preds_tr, point_idxs, corner, dims, res, num_rots: in
                        pair_budget: int = 1 << 17, keep_mass: float = 50.0, halo: int = 13,
                        pair_chunk: int = PAIR_CHUNK) -> np.ndarray:
     """Whole-frame heatmap from a pooled pass and exact windows (cppf_tpu
-    eval/zero_shot.py:225-339), both through ``dense_hist``:
+    eval/zero_shot.py:225-339), both through ``ppf_vote_dense``:
 
     1. the grid pooled by ``coarse_pool`` on every axis ranks candidate
        cells (a cell's mass bounds every voxel inside it);
@@ -368,8 +369,8 @@ def frame_heatmap(pc: torch.Tensor, preds_tr: torch.Tensor, point_idxs: torch.Te
 
     The default (``sparse=False``) is the dense route on every device: one
     ``ppf_vote_dense`` pass, pool (1,1,1), over the whole frame's grid
-    (``dims`` rounded up to multiples of 8), one ``dense_hist`` launch a
-    pair chunk.  It computes the grid of the JAX package's ``ppf_vote``
+    (``dims`` rounded up to multiples of 8), one ``dense_hist_pairs``
+    launch a pair chunk.  It computes the grid of the JAX package's ``ppf_vote``
     route, which JAX takes everywhere but on a TPU (a TPU serialises the
     scatter).  ``sparse=True`` takes :func:`_sparse_frame_grid`."""
     pc_np = pc.cpu().numpy()

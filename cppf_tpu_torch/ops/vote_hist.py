@@ -15,12 +15,13 @@ for ``"trilinear"``; one, ``f + (r > 0.5)``, for ``"nearest"``.
 - :func:`dense_hist`: the dense splat histogram [cx, cy, cz], each axis
   pooled by an integer factor with exact mass pooling.
 
-The two peak kernels have a second front end that takes pairs instead of
-votes (:func:`bound_projections_pairs`, :func:`refine_window_pairs`): a
-``voting.pair_vote_params`` block [P, 12] and the grid's frame
-(:func:`vote_frame`), from which the kernel makes each vote in registers,
-so that no [P, R] vote vector exists.  Their plain version is
-``voting.votes_from_pair_params`` followed by the votes' plain version.
+Each kernel has a second front end that takes pairs instead of votes
+(:func:`bound_projections_pairs`, :func:`refine_window_pairs`,
+:func:`dense_hist_pairs`): a ``voting.pair_vote_params`` block [P, 12] and
+the grid's frame (:func:`vote_frame`), from which the kernel makes each
+vote in registers, so that no [P, R] vote vector exists.  Their plain
+version is ``voting.votes_from_pair_params`` followed by the votes' plain
+version.
 
 Each wrapper takes the plain PyTorch version (``*_plain``, an
 ``index_add_`` over the splat taps) for CPU tensors, and launches the CUDA
@@ -36,9 +37,10 @@ import torch
 from cppf_tpu_torch.ops import cuda_build
 
 LAUNCHES = {"bound_projections": 0, "refine_window": 0, "dense_hist": 0,
-            "bound_projections_pairs": 0, "refine_window_pairs": 0}
+            "bound_projections_pairs": 0, "refine_window_pairs": 0, "dense_hist_pairs": 0}
 SMEM_MAX = 232448  # bytes of shared memory one H100 block may opt in to
 _SMEM_FIXED = 256  # a peak kernel's static shared memory (its reduction scratch), rounded up
+_STAGE_BYTES = 32 * 52 * 32  # dense_hist_pairs: 32 pairs and their run starts a warp, 32 warps
 _SPLATS = ("trilinear", "nearest")
 _lib = None
 
@@ -101,20 +103,25 @@ def refine_window_plain(o, fx, fy, fz, rx, ry, rz, w, *, w8: int = 16,
     return win.view(w8, w8 * w8)
 
 
-def _dense_out(out, cx: int, cy: int, cz: int, device):
+def _dense_out(out, cx: int, cy: int, cz: int, device, dtype=torch.float32):
     if out is None:
-        return torch.zeros((cx, cy, cz), dtype=torch.float32, device=device)
-    if (out.device != device or out.dtype != torch.float32 or out.shape != (cx, cy, cz)
-            or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous float32 [{cx}, {cy}, {cz}] tensor on "
-                         f"{device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
+        return torch.zeros((cx, cy, cz), dtype=dtype, device=device)
+    if (out.device != device or out.dtype != dtype or out.shape != (cx, cy, cz)
+            or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"out must be a contiguous, 16-byte aligned {dtype} [{cx}, {cy}, {cz}] "
+                         f"tensor on {device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
     return out
+
+
+def _check_pools(px: int, py: int, pz: int) -> None:
+    if min(px, py, pz) < 1:
+        raise ValueError(f"pool factors must be >= 1, got {(px, py, pz)}")
 
 
 def dense_hist_plain(fx, fy, fz, rx, ry, rz, w, *, cx: int, cy: int, cz: int, px: int = 1,
                      py: int = 1, pz: int = 1, splat: str = "trilinear", out=None):
-    """Plain version of :func:`dense_hist`."""
-    out = _dense_out(out, cx, cy, cz, w.device)
+    """Plain version of :func:`dense_hist`; sums in the dtype of ``w``."""
+    out = _dense_out(out, cx, cy, cz, w.device, w.dtype)
     flat = out.view(-1)
     tx, ty, tz = _taps(fx, rx, splat), _taps(fy, ry, splat), _taps(fz, rz, splat)
     for ix, hx in tx:
@@ -135,9 +142,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cppf_bound_projections_pairs.argtypes = [p, ll, i, p] + [i] * 8 + [p, p]
     lib.cppf_refine_window_pairs.argtypes = [p, p, ll, i, p] + [i] * 5 + [p, p]
     lib.cppf_dense_hist.argtypes = [p] * 7 + [ll] + [i] * 7 + [p, p]
+    lib.cppf_dense_hist_pairs.argtypes = [p, ll, i, p] + [i] * 10 + [p, p]
     for fn in (lib.cppf_bound_projections, lib.cppf_refine_window,
                lib.cppf_bound_projections_pairs, lib.cppf_refine_window_pairs,
-               lib.cppf_dense_hist):
+               lib.cppf_dense_hist, lib.cppf_dense_hist_pairs):
         fn.restype = i
     lib.cppf_error_string.argtypes = [i]
     lib.cppf_error_string.restype = ctypes.c_char_p
@@ -245,6 +253,12 @@ def vote_frame(corner, res, dims_f) -> torch.Tensor:
     return torch.cat([corner.reshape(3).float(), res.reshape(1), dims_f.reshape(3).float()])
 
 
+def _table_bytes(n_rots: int) -> int:
+    """Shared memory of the pairs kernels' circle table: (cos, sin) of every
+    angle i·2π/m, m ≤ n_rots, i < m."""
+    return 4 * n_rots * (n_rots + 1)
+
+
 def _check_pairs(params, frame, grid_shape, n_rots, splat):
     if splat not in _SPLATS:
         raise ValueError(f"splat must be one of {_SPLATS}, got {splat!r}")
@@ -259,6 +273,9 @@ def _check_pairs(params, frame, grid_shape, n_rots, splat):
         raise ValueError(f"unsupported device {params.device}")
     if len(grid_shape) != 3 or min(grid_shape) < 2 or n_rots < 1:
         raise ValueError(f"bad grid shape {grid_shape} or rotation count {n_rots}")
+    if _table_bytes(n_rots) + _STAGE_BYTES + _SMEM_FIXED > SMEM_MAX:
+        raise ValueError(f"the circle table of {n_rots} rotations does not fit one block's "
+                         f"shared memory")
 
 
 def _plain_votes(params, frame, grid_shape, n_rots):
@@ -278,7 +295,8 @@ def bound_projections_pairs(params, frame, *, n_rots: int, grid_shape, by_n: int
     kw = dict(gx=gx, gy=gy, by_n=by_n, bz_n=bz_n, pfy=pfy, pfz=pfz, splat=splat)
     if params.device.type == "cpu":
         return bound_projections_plain(*_plain_votes(params, frame, grid_shape, n_rots), **kw)
-    out = _projection_buffer(gx, gy, by_n, bz_n, _SMEM_FIXED + 8 * n_rots, params.device)
+    out = _projection_buffer(gx, gy, by_n, bz_n, _SMEM_FIXED + _table_bytes(n_rots),
+                             params.device)
     if params.shape[0]:
         params = _aligned(params)
         _launch("bound_projections_pairs", params.data_ptr(),
@@ -316,7 +334,7 @@ def refine_window_pairs(o, params, frame, *, n_rots: int, grid_shape, w8: int = 
         culled[:, 0] = torch.where(window_cull_plain(params, frame, o, w8), params[:, 0], 0.0)
         return refine_window_plain(o, *_plain_votes(culled, frame, grid_shape, n_rots), w8=w8,
                                    splat=splat)
-    if 4 * w8 ** 3 + _SMEM_FIXED + 8 * n_rots > SMEM_MAX:
+    if 4 * w8 ** 3 + _SMEM_FIXED + _table_bytes(n_rots) > SMEM_MAX:
         raise ValueError(f"a {w8}^3 window does not fit one block's shared memory")
     o = o.contiguous()
     out = torch.zeros(w8 * w8 * w8, dtype=torch.float32, device=params.device)
@@ -342,8 +360,7 @@ def dense_hist(fx, fy, fz, rx, ry, rz, w, *, cx: int, cy: int, cz: int, px: int 
     cap on the (y, z) plane: the grid only has to fit device memory.
     """
     _check_votes(fx, fy, fz, rx, ry, rz, w, splat)
-    if min(px, py, pz) < 1:
-        raise ValueError(f"pool factors must be >= 1, got {(px, py, pz)}")
+    _check_pools(px, py, pz)
     out = _dense_out(out, cx, cy, cz, w.device)
     if w.device.type == "cpu":
         return dense_hist_plain(fx, fy, fz, rx, ry, rz, w, cx=cx, cy=cy, cz=cz, px=px, py=py,
@@ -352,4 +369,27 @@ def dense_hist(fx, fy, fz, rx, ry, rz, w, *, cx: int, cy: int, cz: int, px: int 
         _launch("dense_hist", fx.data_ptr(), fy.data_ptr(), fz.data_ptr(),
                 rx.data_ptr(), ry.data_ptr(), rz.data_ptr(), w.data_ptr(), w.shape[0], cx, cy, cz,
                 px, py, pz, int(splat == "nearest"), out)
+    return out
+
+
+def dense_hist_pairs(params, frame, *, n_rots: int, grid_shape, cx: int, cy: int, cz: int,
+                     px: int = 1, py: int = 1, pz: int = 1, splat: str = "trilinear", out=None):
+    """:func:`dense_hist` of the votes of a ``pair_vote_params`` block in the
+    fine grid ``grid_shape`` with frame ``frame`` (:func:`vote_frame`),
+    without the votes: the kernel makes them in registers.  The cells must
+    cover the pooled fine grid, ``c_k >= ceil(g_k / p_k)``; the sums are
+    added into ``out`` as :func:`dense_hist` adds them."""
+    _check_pairs(params, frame, grid_shape, n_rots, splat)
+    _check_pools(px, py, pz)
+    if any(c < -(-g // p) for c, g, p in zip((cx, cy, cz), grid_shape, (px, py, pz))):
+        raise ValueError(f"cells {(cx, cy, cz)} do not cover the grid {tuple(grid_shape)} "
+                         f"pooled by {(px, py, pz)}")
+    out = _dense_out(out, cx, cy, cz, params.device)
+    if params.device.type == "cpu":
+        return dense_hist_plain(*_plain_votes(params, frame, grid_shape, n_rots), cx=cx, cy=cy,
+                                cz=cz, px=px, py=py, pz=pz, splat=splat, out=out)
+    if params.shape[0]:
+        params = _aligned(params)
+        _launch("dense_hist_pairs", params.data_ptr(), params.shape[0], n_rots,
+                frame.data_ptr(), *grid_shape, cx, cy, cz, px, py, pz, int(splat == "nearest"), out)
     return out

@@ -20,7 +20,7 @@ import torch
 
 from cppf_tpu_torch.core.geometry import cross
 from cppf_tpu_torch.ops.vote_hist import (bound_projections, bound_projections_pairs,
-                                          dense_hist, refine_window, refine_window_pairs,
+                                          dense_hist_pairs, refine_window, refine_window_pairs,
                                           vote_frame)
 
 TWO_PI = 6.283185307179586
@@ -187,26 +187,25 @@ def ppf_vote_dense(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
                    pool: Tuple[int, int, int] = (1, 1, 1),
                    pair_chunk: int = 1 << 20) -> torch.Tensor:
     """Dense vote histogram [ceil(gx/px), ceil(gy/py), ceil(gz/pz)] through
-    :func:`dense_hist` (cppf_tpu ops/voting.py:527-585): with ``pool`` (1,1,1)
-    it is :func:`ppf_vote`'s grid, else that grid pool-summed exactly.
+    :func:`dense_hist_pairs` (cppf_tpu ops/voting.py:527-585): with ``pool``
+    (1,1,1) it is :func:`ppf_vote`'s grid, else that grid pool-summed exactly.
 
-    Unlike the JAX function, pairs go ``pair_chunk`` at a time, each chunk's
-    votes accumulating into one grid (one ``dense_hist`` launch a chunk): at
-    2^20 pairs and 72 rotations a chunk's seven vote vectors take ~2 GB,
-    where a 5 M-pair frame at once would take 10 GB and its [P, R]
-    temporaries several times that."""
+    Unlike the JAX function, pairs go ``pair_chunk`` at a time: each chunk's
+    :func:`pair_vote_params` block (48 bytes a pair) is added into one grid
+    by one ``dense_hist_pairs`` launch, which makes the votes in registers,
+    so no [P, R] vote vector exists on the card.  On the CPU the plain
+    version makes them (``votes_from_pair_params``) a chunk at a time."""
     cx, cy, cz = (-(-g // p) for g, p in zip(grid_shape, pool))
     out = torch.zeros((cx, cy, cz), dtype=torch.float32, device=pc.device)
-    dims_f = grid_dims.to(pc.dtype)
+    frame = vote_frame(corner, res, grid_dims.to(pc.dtype))
     for s in range(0, point_idxs.shape[0], pair_chunk):
         sl = slice(s, s + pair_chunk)
         mask = (torch.ones(point_idxs[sl].shape[0], dtype=torch.bool, device=pc.device)
                 if pair_mask is None else pair_mask[sl])
-        (fx, fy, fz), (rx, ry, rz), wv = _vote_coords(
-            pc, preds_tr[sl], probs, point_idxs[sl], corner, res, dims_f, grid_shape, n_rots,
-            adaptive, mask)
-        dense_hist(*(a.reshape(-1) for a in (fx, fy, fz, rx, ry, rz, wv)), cx=cx, cy=cy, cz=cz,
-                   px=pool[0], py=pool[1], pz=pool[2], splat=splat, out=out)
+        dense_hist_pairs(pair_vote_params(pc, preds_tr[sl], probs, point_idxs[sl], res, n_rots,
+                                          adaptive, mask),
+                         frame, n_rots=n_rots, grid_shape=grid_shape, cx=cx, cy=cy, cz=cz,
+                         px=pool[0], py=pool[1], pz=pool[2], splat=splat, out=out)
     return out
 
 

@@ -2,9 +2,10 @@
 
 Both front ends (votes, pairs) of ``bound_projections`` and ``refine_window``
 of ``cppf_tpu_torch`` run on the bowl main path's own inputs (100 000 pairs,
-72 rotations, 64³) and on the same pairs in bottle's pooled 120³ grid.  With
-``--earlier DIR`` the votes kernels of ``DIR/cppf_tpu_torch/csrc/vote_hist.cu``
-(another checkout, whose two entry points take the same arguments) join them.
+72 rotations, 64³), on the same pairs with adaptive rotations, and on the
+same pairs in bottle's pooled 120³ grid.  With ``--earlier DIR`` both front
+ends of ``DIR/cppf_tpu_torch/csrc/vote_hist.cu`` (another checkout, whose
+four entry points take the same arguments) join them.
 Every kernel is first held against the plain version (1e-3 of the maximum),
 then all are timed in turns (a, b, c, a, b, c, ...) by CUDA events, device
 time only, median of 25, so that clocks and neighbours treat them alike.
@@ -44,6 +45,8 @@ def earlier_library(tree: str) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.cppf_bound_projections.argtypes = [p] * 7 + [ll] + [i] * 7 + [p, p]
     lib.cppf_refine_window.argtypes = [p] * 8 + [ll, i, i, p, p]
+    lib.cppf_bound_projections_pairs.argtypes = [p, ll, i, p] + [i] * 8 + [p, p]
+    lib.cppf_refine_window_pairs.argtypes = [p, p, ll, i, p] + [i] * 5 + [p, p]
     return lib
 
 
@@ -82,8 +85,26 @@ def kernels(inp, earlier):
             cs.check(rc == 0, f"earlier refine_window: error {rc}")
             return [buf]
 
-        out += [("bound_projections, earlier checkout", "bound", old_bound),
-                ("refine_window, earlier checkout", "refine", old_refine)]
+        def old_bound_pairs():
+            buf = torch.zeros(3 * g * bn, device=o.device)
+            rc = earlier.cppf_bound_projections_pairs(
+                params.data_ptr(), params.shape[0], inp["n_rots"], frame.data_ptr(),
+                *inp["grid_shape"], bn, bn, pf, pf, 0, buf.data_ptr(), stream)
+            cs.check(rc == 0, f"earlier bound_projections_pairs: error {rc}")
+            return [buf[:g * bn], buf[g * bn:2 * g * bn], buf[2 * g * bn:]]
+
+        def old_refine_pairs():
+            buf = torch.zeros(W8 ** 3, device=o.device)
+            rc = earlier.cppf_refine_window_pairs(
+                o.data_ptr(), params.data_ptr(), params.shape[0], inp["n_rots"],
+                frame.data_ptr(), *inp["grid_shape"], W8, 0, buf.data_ptr(), stream)
+            cs.check(rc == 0, f"earlier refine_window_pairs: error {rc}")
+            return [buf]
+
+        out += [("bound_projections, votes, earlier checkout", "bound", old_bound),
+                ("bound_projections, pairs, earlier checkout", "bound", old_bound_pairs),
+                ("refine_window, votes, earlier checkout", "refine", old_refine),
+                ("refine_window, pairs, earlier checkout", "refine", old_refine_pairs)]
     return out
 
 
@@ -99,9 +120,10 @@ def main():
     earlier = earlier_library(args.earlier) if args.earlier else None
     runner = CategoryRunner("bowl")
     pc = np.load(os.path.join(ASSETS, "bowl_views.npz"))["pc_0"]
-    for label, grid_shape in (("bowl 64^3", (64, 64, 64)),
-                              ("bottle pooled 120^3", (120, 120, 120))):
-        inp = cs.main_path_inputs(runner, pc, grid_shape)
+    for label, grid_shape, adaptive in (("bowl 64^3", (64, 64, 64), False),
+                                        ("bowl 64^3, adaptive rotations", (64, 64, 64), True),
+                                        ("bottle pooled 120^3", (120, 120, 120), False)):
+        inp = cs.main_path_inputs(runner, pc, grid_shape, adaptive)
         votes, o = inp["votes"], inp["o"]
         g = grid_shape[0]
         pf = _poolf(g)

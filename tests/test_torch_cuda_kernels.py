@@ -10,7 +10,9 @@ of thousands of terms, the plain version's float32 ``index_add_`` is itself
 off by ~1e-4, so there the peak kernels, which sum in fixed point inside a
 block, are held to the plain version summed in float64: both front ends,
 both splats.  The window kernels round a tap to the nearest fixed-point
-unit: 1e-5 either way.  The bound kernels round every tap up, so that their
+unit: 1e-5 either way, as are both front ends of ``dense_hist`` on every
+route (fixed point in shared memory, float atomics in device memory).  The
+bound kernels round every tap up, so that their
 sums stay upper bounds: a cell of n taps lies above the exact sum by up to
 n units (1.4e-5 of the maximum was measured at these sizes: up to 1e-4),
 and below it by no more than the float rounding of the blocks' flush
@@ -246,3 +248,83 @@ def test_dense_hist_matches_plain(cuda, g, pool, splat):
     _close([vote_hist.dense_hist(*votes, **kw, out=got)],
            [2 * vote_hist.dense_hist_plain(*votes, **kw)])
     assert vote_hist.LAUNCHES["dense_hist"] == before + 2
+
+
+# dense_hist's three routes on pairs whose votes spread over the grid:
+# (fine grid, pool, res, pairs).  The sparse route's pool-8 coarse grid
+# (shared memory, fixed point), a 48³ window and the zero-shot frame's
+# unpooled 320×224×168 grid (global float atomics).
+DENSE_PAIRS = [((320, 256, 192), (8, 8, 8), 1e-3, 50_003), ((48, 48, 48), (1, 1, 1), 6e-3, 5_003),
+               ((320, 224, 168), (1, 1, 1), 1e-3, 20_003)]
+
+
+def _dense_pairs(g, res, device, adaptive, p=50_003, gain=1.0, keep=0.9):
+    """A pair block whose circles cover most of a g grid at ``res``, its
+    frame, and its votes (plain votes_from_pair_params)."""
+    pc, preds_tr, probs, idxs, _, _, mask = _pair_inputs(64, device, adaptive, p=p, keep=keep)
+    s = 0.8 * max(g) * res / 0.25  # the cloud, ~0.25 m across, to 80 % of the grid
+    pc, preds_tr = pc * s, preds_tr * s
+    # circles through one center would pile ~1e4 terms into a cell, where
+    # float32 sums in any order stray ~1e-5 from float64: spread the centers
+    shift = np.random.default_rng(3).normal(0, 0.1 * max(g) * res, p).astype(np.float32)
+    preds_tr[:, 0] += torch.from_numpy(shift).to(device)
+    corner = pc.min(0).values
+    dims = torch.tensor(g, dtype=torch.float32, device=device) - 1
+    params = voting.pair_vote_params(pc, preds_tr, probs, idxs, res, 72, adaptive,
+                                     mask.float() * gain)
+    frame = vote_hist.vote_frame(corner, res, dims)
+    f, r, w = voting.votes_from_pair_params(params, corner, res, dims, g, 72)
+    return params, frame, [t.reshape(-1).contiguous() for t in (*f, *r, w)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("splat", ["trilinear", "nearest"])
+@pytest.mark.parametrize("g,pool,res,p", DENSE_PAIRS)
+def test_dense_front_ends_match_plain(cuda, g, pool, res, p, splat, adaptive):
+    """Both front ends of dense_hist against the plain version summed in
+    float64 on the same votes, once into a zeroed grid and once added into
+    that grid."""
+    params, frame, votes = _dense_pairs(g, res, cuda, adaptive, p=p)
+    kw = dict(cx=-(-g[0] // pool[0]), cy=-(-g[1] // pool[1]), cz=-(-g[2] // pool[2]),
+              px=pool[0], py=pool[1], pz=pool[2], splat=splat)
+    exact = vote_hist.dense_hist_plain(*_double(votes), **kw).float()
+    assert float((votes[6] != 0).sum()) > 10 * p
+    before = dict(vote_hist.LAUNCHES)
+    got = vote_hist.dense_hist(*votes, **kw)
+    _close([got], [exact])
+    _close([vote_hist.dense_hist(*votes, **kw, out=got)], [2 * exact])
+    pairs_rel = 1e-3 if adaptive else 1e-5
+    got = vote_hist.dense_hist_pairs(params, frame, n_rots=72, grid_shape=g, **kw)
+    _close([got], [exact], rel=pairs_rel)
+    _close([vote_hist.dense_hist_pairs(params, frame, n_rots=72, grid_shape=g, **kw, out=got)],
+           [2 * exact], rel=pairs_rel)
+    assert vote_hist.LAUNCHES["dense_hist"] == before["dense_hist"] + 2
+    assert vote_hist.LAUNCHES["dense_hist_pairs"] == before["dense_hist_pairs"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gain", [1e-20, 1e-6, 1e4])
+@pytest.mark.parametrize("g,pool,res,p", DENSE_PAIRS[:2])
+def test_dense_fixed_point_scale_follows_the_weights(cuda, g, pool, res, p, gain):
+    """The shared route's fixed-point scale comes from each block's vote
+    mass, so weights of any magnitude keep both front ends within 1e-5; the
+    global route beside it."""
+    params, frame, votes = _dense_pairs(g, res, cuda, False, p=p, gain=gain)
+    kw = dict(cx=-(-g[0] // pool[0]), cy=-(-g[1] // pool[1]), cz=-(-g[2] // pool[2]),
+              px=pool[0], py=pool[1], pz=pool[2])
+    exact = [vote_hist.dense_hist_plain(*_double(votes), **kw).float()]
+    _close([vote_hist.dense_hist(*votes, **kw)], exact)
+    _close([vote_hist.dense_hist_pairs(params, frame, n_rots=72, grid_shape=g, **kw)], exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,pool,res,p", DENSE_PAIRS)
+def test_dense_all_masked_gives_zeros(cuda, g, pool, res, p):
+    params, frame, votes = _dense_pairs(g, res, cuda, True, p=5001, keep=0.0)
+    assert float(votes[6].abs().max()) == 0
+    kw = dict(cx=-(-g[0] // pool[0]), cy=-(-g[1] // pool[1]), cz=-(-g[2] // pool[2]),
+              px=pool[0], py=pool[1], pz=pool[2])
+    assert float(vote_hist.dense_hist(*votes, **kw).abs().max()) == 0
+    assert float(vote_hist.dense_hist_pairs(params, frame, n_rots=72, grid_shape=g,
+                                            **kw).abs().max()) == 0
