@@ -261,14 +261,13 @@ def _pairs_work(params, n_rots, live_votes):
     first 16 bytes of every pair and the other 32 of each that votes; per
     vote made (rotation i < m of a voting pair) one axis of 8 operations (2
     products, 2 sums, the corner, the division, 2 compares), and for a live
-    vote the other two axes and 3 floors and 3 fractions.  A cosf or sinf
-    counts as one operation, where a pair's m is not the table's."""
+    vote the other two axes and 3 floors and 3 fractions (the angles come
+    from a table)."""
     m = params[:, 1].view(torch.int32)
     voting = (params[:, 0] != 0) & (m > 0)
     made = torch.clamp(m, max=n_rots)[voting].sum().item()
-    off_table = torch.clamp(m, max=n_rots)[voting & (m != n_rots)].sum().item()
     bytes_ = 16 * params.shape[0] + 32 * int(voting.sum()) + 4 * 7
-    ops = 8 * made + (16 + 6) * live_votes + 2 * off_table
+    ops = 8 * made + (16 + 6) * live_votes
     return bytes_, ops, voting
 
 

@@ -30,10 +30,10 @@
 //     corner_k) / res with a_i = i 2pi/m, then the validity tests, floor,
 //     clip and fraction of voting.py::votes_from_pair_params in that
 //     operation order, each step rounded on its own (__fmul_rn, __fadd_rn,
-//     __fsub_rn, __fdiv_rn: no fused multiply-add, IEEE division, cosf and
-//     sinf at full precision; a table in shared memory when m is the
-//     rotation count of the call, which it is for every pair unless voting
-//     is adaptive).  No [P, R] vector exists.  Bound: 4.8 MB of parameters
+//     __fsub_rn, __fdiv_rn: no fused multiply-add, IEEE division; cos and
+//     sin of a_i from a table in shared memory, cosf and sinf at full
+//     precision of every angle a pair of m <= n_rots rotations can take).
+//     No [P, R] vector exists.  Bound: 4.8 MB of parameters
 //     and ~60 operations a vote, some microseconds either way; what holds
 //     the kernel is instruction issue for making and addressing the votes.
 //
@@ -41,7 +41,8 @@
 // voxels apart, so lanes that hold neighbouring votes hit the same cells.
 // The pairs front ends give a lane a quarter of a pair's circle (kSplit
 // lanes a pair, so that 100 000 pairs fill the card; 1 and 8 lanes a pair
-// measured slower), and a warp 32 different circles.  The
+// measured slower), and a warp 32 different circles.  (dense_hist, whose
+// adaptive pairs cast 0 to 72 votes each, hands out runs instead.)  The
 // votes front end of the bound pass gives a lane four consecutive votes
 // (16-byte loads), which puts a warp's lanes four rotations apart; merging
 // equal cells by __match_any_sync before the atomic measured five times
@@ -78,9 +79,10 @@
 // Tolerance.  Kernel and plain version agree to 1e-3 of the largest cell,
 // not bit for bit: blocks' sums are added by float atomics in any order;
 // fixed point rounds each tap by at most one unit; in the pairs front ends
-// cosf may differ from torch.cos in the last bit, which moves a trilinear
-// grid by rounding but can move one whole vote where the arithmetic has a
-// step (the validity tests g >= 0.01 and g < d - 1.01, nearest's r > 0.5).
+// cosf may differ from torch.cos in the last bit (where the card's torch.cos
+// is not cosf), which moves a trilinear grid by rounding but can move one
+// whole vote where the arithmetic has a step (the validity tests g >= 0.01
+// and g < d - 1.01, nearest's r > 0.5).
 // Most of that allowance is for the plain version's own float32 sums and for
 // a vote at a step.  Against the plain version summed in float64 on the same
 // votes the kernels are held closer: the window within 1e-5 of the largest
@@ -92,7 +94,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // dense_global_kernel: one vote a thread
+constexpr int kThreads = 256;       // a block of dense_hist's global route
 constexpr int kPeakThreads = 1024;  // a block of the peak kernels, but for:
 constexpr int kBoundVotesThreads = 512;  // bound_votes_kernel (four votes a lane)
 constexpr int kSplit = 4;  // lanes that share a pair's rotations, a quarter circle each
@@ -609,16 +611,16 @@ __global__ void __launch_bounds__(kPeakThreads) refine_pairs_kernel(
 //   * pairs (dense_pairs_kernel): the 48 bytes of a voting pair and 16 of
 //     a dead one, votes made in registers as in the peak kernels (the
 //     grid's frame is the vote frame; the cells are its pooling).  The
-//     zero-shot path votes adaptively: a pair casts m < 72 votes (25 on
+//     zero-shot path votes adaptively: a pair casts m <= 72 votes (25 on
 //     average over the third of the frame's pairs that vote at all, 5 to
-//     65 between the 10th and 99th percentile), each with its own cosf and
-//     sinf.  A lane a pair would leave a warp waiting on its longest
+//     65 between the 10th and 99th percentile), each angle from the circle
+//     table.  A lane a pair would leave a warp waiting on its longest
 //     circle (16 % of its lanes busy on the demo frame), so a warp takes 32
 //     pairs at a time, cuts each into runs of kRun consecutive rotations,
 //     and its lanes take the runs in turn (a prefix sum over the warp finds
-//     a run's pair; the 32 pairs wait in shared memory).  Bound: 4.8 MB a
-//     2^20-pair chunk of parameters and ~60 operations a vote: some
-//     microseconds; what holds the kernel is the accumulation.
+//     a run's pair; the 32 pairs wait in shared memory).  Bound: ~27 MB of
+//     parameters for the frame's 2^20-pair chunk and ~60 operations a vote,
+//     ~10 us; what holds the kernel is the accumulation.
 //
 // Accumulation, chosen by the grid's size:
 //   * a grid that fits one block's shared memory (the sparse route's pooled
@@ -628,16 +630,27 @@ __global__ void __launch_bounds__(kPeakThreads) refine_pairs_kernel(
 //     to nearest) and flushed with one global float atomicAdd a non-zero
 //     cell;
 //   * a larger grid (the whole frame, 48 MB, which the 50 MB L2 holds; a 48^3
-//     window, 442 KB) takes one global atomicAdd a pooled tap.
+//     window, 442 KB) takes global float atomics, the bound of the route:
+//     a lane keeps its last vote's taps in registers and adds into them the
+//     taps the next vote of its run shares (absorb), and neighbouring z taps
+//     leave as one float4 atomic.
 //
 // Tolerance.  Against the plain version summed in float64 on the same votes
-// the kernels stay within 1e-5 of the largest cell (float atomics in any
-// order, a fixed-point unit of rounding a tap).  The pairs front end makes
-// its own votes: with every pair at the table's rotation count they equal
-// PyTorch's on the card; under adaptive voting a last-bit cosf can move a
-// vote across a validity step, hence 1e-3 there.
+// the shared route stays within 1e-5 of the largest cell (a fixed-point unit
+// of rounding a tap, then the blocks' float flush).  The global route sums
+// in float32 like the plain version, in another order: a cell of n taps
+// strays by ~sqrt(n) roundings, ~1e-5 of it at n ~ 10^4.  The pairs front
+// end makes its own votes: they equal PyTorch's on the card wherever
+// torch.cos and torch.sin round as cosf and sinf; a last-bit difference can
+// move a vote across a validity step, hence 1e-3 under adaptive voting.
 constexpr int kDenseThreads = 1024;  // a block of the shared-memory route
 constexpr int kStageBytes = 32 * (3 * 16 + 4);  // a warp's 32 pairs and run starts
+// Rotations a lane takes at a time (dense_pairs_kernel): in turns on the demo
+// frame's chunk, 4 beat 8 and 16 in shared memory (0.187, 0.215, 0.251 ms),
+// 8 held its own against 4 and 16 in device memory, where longer runs merge
+// more taps but balance the lanes less.
+constexpr int kRunShared = 4;
+constexpr int kRunGlobal = 8;
 
 // The pooled taps of one vote: first cell b on each axis and the values of
 // cells b + (a, b, c), a, b, c in {0, 1}, at h[(a*2+b)*2+c]; 0 where no tap
@@ -719,10 +732,11 @@ struct SharedSink {
   }
 };
 
-// ... or the float grid in device memory, two neighbouring z taps in one
-// vector atomic (kVec 2: float2 at an even cell; 4: float4 around them)
-// where they can share one.
-template <int kVec>
+// ... or the float grid in device memory (16-byte aligned), two neighbouring
+// z taps in one float4 vector atomic (RED.E.ADD.F32x4) wherever one aligned
+// float4 holds both: three times in four.  In turns on the demo frame's
+// chunk, float4 took 0.573 ms against 0.670 (float2 at even cells) and 0.929
+// (one atomic a tap).
 struct GlobalSink {
   float* out;
   long long n_cells;
@@ -734,11 +748,7 @@ struct GlobalSink {
       if (v1 != 0.f) atomicAdd(out + i + 1, v1);
       return;
     }
-    if (kVec == 2 && !(i & 1)) {
-      atomicAdd(reinterpret_cast<float2*>(out + i), make_float2(v0, v1));
-      return;
-    }
-    if (kVec == 4 && (i & 3) != 3 && (i | 3) < n_cells) {
+    if ((i & 3) != 3 && (i | 3) < n_cells) {
       const int k = (int)(i & 3);
       const float4 q = make_float4(k == 0 ? v0 : 0.f, k == 0 ? v1 : (k == 1 ? v0 : 0.f),
                                    k == 1 ? v1 : (k == 2 ? v0 : 0.f), k == 2 ? v1 : 0.f);
@@ -761,7 +771,7 @@ __device__ __forceinline__ void emit(const Taps& t, const Sink& s) {
              kNearest ? 0.f : t.h[(a * 2 + b) * 2 + 1]);
 }
 
-template <bool kNearest, bool kShared, int kVec>
+template <bool kNearest, bool kShared>
 __global__ void __launch_bounds__(kShared ? kDenseThreads : kThreads) dense_votes_kernel(
     Streams S, long long n_cells, int cy, int cz, int px, int py, int pz, float* __restrict__ out) {
   extern __shared__ int hist[];
@@ -773,7 +783,7 @@ __global__ void __launch_bounds__(kShared ? kDenseThreads : kThreads) dense_vote
     __syncthreads();
   }
   const SharedSink shared = {hist, scale, cy, cz};
-  const GlobalSink<kVec> global = {out, n_cells, cy, cz};
+  const GlobalSink global = {out, n_cells, cy, cz};
   for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < S.n;
        v += kShared ? stride : S.n) {
     const float w = S.w[v];
@@ -790,7 +800,11 @@ __global__ void __launch_bounds__(kShared ? kDenseThreads : kThreads) dense_vote
 
 // The votes of rotations [first, last) of pair q, made in registers and
 // splatted; with kMerge (trilinear only) a vote's taps that the next vote
-// shares are added to it in registers instead of to the sink.
+// shares are added to it in registers instead of to the sink.  The global
+// route merges (0.486 against 0.573 ms in turns on the demo frame's chunk,
+// both with float4 atomics; 2.03 against 2.41 ms on the whole frame; a 48^3
+// window, where most votes miss, lost: 0.058 against 0.042); the shared
+// route, whose atomics are cheap, does not (0.30 against 0.22 ms).
 template <bool kNearest, bool kMerge, class Sink>
 __device__ __forceinline__ void cast_run(const Pair& q, int first, int last, const float2* table,
                                          const Frame& F, int px, int py, int pz,
@@ -842,11 +856,12 @@ __device__ __forceinline__ float dense_pairs_scale(const float4* __restrict__ pa
 
 // Shared memory: per warp its 32 pairs (float4 x 3 each) and run starts,
 // then the circle table, then (kShared) the block's fixed-point grid.
-template <bool kNearest, bool kShared, bool kMerge, int kVec>
+template <bool kNearest, bool kShared>
 __global__ void __launch_bounds__(kShared ? kDenseThreads : kThreads) dense_pairs_kernel(
     const float4* __restrict__ params, long long n_pairs, int n_rots,
     const float* __restrict__ frame, int gx, int gy, int gz, long long n_cells, int cy, int cz,
-    int px, int py, int pz, int run, float* __restrict__ out) {
+    int px, int py, int pz, float* __restrict__ out) {
+  constexpr int run = kShared ? kRunShared : kRunGlobal;
   extern __shared__ float4 smem4[];
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float4* stage = smem4 + warp * 96;
@@ -863,7 +878,7 @@ __global__ void __launch_bounds__(kShared ? kDenseThreads : kThreads) dense_pair
   }
   __syncthreads();
   const SharedSink shared = {hist, scale, cy, cz};
-  const GlobalSink<kVec> global = {out, n_cells, cy, cz};
+  const GlobalSink global = {out, n_cells, cy, cz};
 
   for (long long base = first_batch(); base < n_pairs; base += batch_step()) {
     const long long p = base + lane;
@@ -896,9 +911,9 @@ __global__ void __launch_bounds__(kShared ? kDenseThreads : kThreads) dense_pair
       const int first = (r - starts[o]) * run;
       const int last = min(q.m, first + run);
       if (kShared)
-        cast_run<kNearest, kMerge>(q, first, last, table, F, px, py, pz, shared);
+        cast_run<kNearest, false>(q, first, last, table, F, px, py, pz, shared);
       else
-        cast_run<kNearest, kMerge>(q, first, last, table, F, px, py, pz, global);
+        cast_run<kNearest, true>(q, first, last, table, F, px, py, pz, global);
     }
     __syncwarp();
   }
@@ -933,7 +948,7 @@ cudaError_t smem_limit(int* bytes) {
   return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
-template <bool kNearest, int kVec>
+template <bool kNearest>
 cudaError_t launch_dense_votes(const Streams& S, int cx, int cy, int cz, int px, int py, int pz,
                                float* out, cudaStream_t stream) {
   const long long n_cells = (long long)cx * cy * cz;
@@ -943,22 +958,22 @@ cudaError_t launch_dense_votes(const Streams& S, int cx, int cy, int cz, int px,
   if (n_cells * (long long)sizeof(int) + 256 <= smem_max) {
     const size_t smem = sizeof(int) * (size_t)n_cells;
     int blocks = 0;
-    e = grid_size(dense_votes_kernel<kNearest, true, kVec>, smem, S.n, &blocks, kDenseThreads);
+    e = grid_size(dense_votes_kernel<kNearest, true>, smem, S.n, &blocks, kDenseThreads);
     if (e != cudaSuccess) return e;
-    dense_votes_kernel<kNearest, true, kVec><<<blocks, kDenseThreads, smem, stream>>>(
+    dense_votes_kernel<kNearest, true><<<blocks, kDenseThreads, smem, stream>>>(
         S, n_cells, cy, cz, px, py, pz, out);
   } else {
     const long long blocks = (S.n + kThreads - 1) / kThreads;
-    dense_votes_kernel<kNearest, false, kVec><<<(unsigned)blocks, kThreads, 0, stream>>>(
+    dense_votes_kernel<kNearest, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
         S, n_cells, cy, cz, px, py, pz, out);
   }
   return cudaGetLastError();
 }
 
-template <bool kNearest, bool kMerge, int kVec>
+template <bool kNearest>
 cudaError_t launch_dense_pairs(const float4* params, long long n_pairs, int n_rots,
                                const float* frame, int gx, int gy, int gz, int cx, int cy, int cz,
-                               int px, int py, int pz, int run, float* out, cudaStream_t stream) {
+                               int px, int py, int pz, float* out, cudaStream_t stream) {
   const long long n_cells = (long long)cx * cy * cz;
   int smem_max = 0;
   cudaError_t e = smem_limit(&smem_max);
@@ -967,16 +982,16 @@ cudaError_t launch_dense_pairs(const float4* params, long long n_pairs, int n_ro
   const size_t shared = (kDenseThreads / 32) * (size_t)kStageBytes + fixed + 4 * n_cells;
   int blocks = 0;
   if (shared + 256 <= (size_t)smem_max) {
-    auto kernel = dense_pairs_kernel<kNearest, true, kMerge, kVec>;
+    auto kernel = dense_pairs_kernel<kNearest, true>;
     if ((e = grid_size(kernel, shared, n_pairs, &blocks, kDenseThreads)) != cudaSuccess) return e;
     kernel<<<blocks, kDenseThreads, shared, stream>>>(params, n_pairs, n_rots, frame, gx, gy, gz,
-                                                      n_cells, cy, cz, px, py, pz, run, out);
+                                                      n_cells, cy, cz, px, py, pz, out);
   } else {
-    auto kernel = dense_pairs_kernel<kNearest, false, kMerge, kVec>;
+    auto kernel = dense_pairs_kernel<kNearest, false>;
     const size_t smem = (kThreads / 32) * (size_t)kStageBytes + fixed;
     if ((e = grid_size(kernel, smem, n_pairs, &blocks, kThreads)) != cudaSuccess) return e;
     kernel<<<blocks, kThreads, smem, stream>>>(params, n_pairs, n_rots, frame, gx, gy, gz, n_cells,
-                                               cy, cz, px, py, pz, run, out);
+                                               cy, cz, px, py, pz, out);
   }
   return cudaGetLastError();
 }
@@ -1056,47 +1071,18 @@ int cppf_refine_window_pairs(const void* o, const void* params, long long n_pair
   return nearest ? go(refine_pairs_kernel<true>) : go(refine_pairs_kernel<false>);
 }
 
-// Measurement only: the global route's ways of issuing its atomics (vec 1:
-// one a tap, 2: float2, 4: float4 for neighbouring z taps; merge: taps that
-// consecutive votes share added in registers first) and the run length.
-int cppf_dense_hist_variant(const void* fx, const void* fy, const void* fz, const void* rx,
-                            const void* ry, const void* rz, const void* w, long long n_votes,
-                            int cx, int cy, int cz, int px, int py, int pz, int nearest, int vec,
-                            void* out, void* stream) {
+// out: f32 [cx*cy*cz], 16-byte aligned, zeroed or holding earlier chunks'
+// sums (added to).
+int cppf_dense_hist(const void* fx, const void* fy, const void* fz, const void* rx,
+                    const void* ry, const void* rz, const void* w, long long n_votes, int cx,
+                    int cy, int cz, int px, int py, int pz, int nearest, void* out,
+                    void* stream) {
   const Streams S = {(const int*)fx,   (const int*)fy,   (const int*)fz,  (const float*)rx,
                      (const float*)ry, (const float*)rz, (const float*)w, n_votes};
   auto go = [&](auto launch) {
     return (int)launch(S, cx, cy, cz, px, py, pz, (float*)out, (cudaStream_t)stream);
   };
-  if (nearest) return vec == 4 ? go(launch_dense_votes<true, 4>)
-                    : vec == 2 ? go(launch_dense_votes<true, 2>) : go(launch_dense_votes<true, 1>);
-  return vec == 4 ? go(launch_dense_votes<false, 4>)
-         : vec == 2 ? go(launch_dense_votes<false, 2>) : go(launch_dense_votes<false, 1>);
-}
-
-int cppf_dense_hist_pairs_variant(const void* params, long long n_pairs, int n_rots,
-                                  const void* frame, int gx, int gy, int gz, int cx, int cy, int cz,
-                                  int px, int py, int pz, int nearest, int merge, int vec, int run,
-                                  void* out, void* stream) {
-  auto go = [&](auto launch) {
-    return (int)launch((const float4*)params, n_pairs, n_rots, (const float*)frame, gx, gy, gz,
-                       cx, cy, cz, px, py, pz, run, (float*)out, (cudaStream_t)stream);
-  };
-#define CPPF_VEC(N, M)                                                    \
-  (vec == 4 ? go(launch_dense_pairs<N, M, 4>)                             \
-            : vec == 2 ? go(launch_dense_pairs<N, M, 2>) : go(launch_dense_pairs<N, M, 1>))
-  if (nearest) return CPPF_VEC(true, false);
-  return merge ? CPPF_VEC(false, true) : CPPF_VEC(false, false);
-#undef CPPF_VEC
-}
-
-// out: f32 [cx*cy*cz], zeroed or holding earlier chunks' sums (added to).
-int cppf_dense_hist(const void* fx, const void* fy, const void* fz, const void* rx,
-                    const void* ry, const void* rz, const void* w, long long n_votes, int cx,
-                    int cy, int cz, int px, int py, int pz, int nearest, void* out,
-                    void* stream) {
-  return cppf_dense_hist_variant(fx, fy, fz, rx, ry, rz, w, n_votes, cx, cy, cz, px, py, pz,
-                                 nearest, 1, out, stream);
+  return nearest ? go(launch_dense_votes<true>) : go(launch_dense_votes<false>);
 }
 
 // params: f32 [n_pairs, 12] of voting.py::pair_vote_params; frame: device
@@ -1105,8 +1091,11 @@ int cppf_dense_hist(const void* fx, const void* fy, const void* fz, const void* 
 int cppf_dense_hist_pairs(const void* params, long long n_pairs, int n_rots, const void* frame,
                           int gx, int gy, int gz, int cx, int cy, int cz, int px, int py, int pz,
                           int nearest, void* out, void* stream) {
-  return cppf_dense_hist_pairs_variant(params, n_pairs, n_rots, frame, gx, gy, gz, cx, cy, cz,
-                                       px, py, pz, nearest, 0, 1, 8, out, stream);
+  auto go = [&](auto launch) {
+    return (int)launch((const float4*)params, n_pairs, n_rots, (const float*)frame, gx, gy, gz,
+                       cx, cy, cz, px, py, pz, (float*)out, (cudaStream_t)stream);
+  };
+  return nearest ? go(launch_dense_pairs<true>) : go(launch_dense_pairs<false>);
 }
 
 const char* cppf_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -17,8 +17,9 @@ sums stay upper bounds: a cell of n taps lies above the exact sum by up to
 n units (1.4e-5 of the maximum was measured at these sizes: up to 1e-4),
 and below it by no more than the float rounding of the blocks' flush
 (1e-6).  Only the pairs front ends under adaptive rotations are held to 1e-3
-instead: each vote then takes its own cosf, and a last-bit difference from
-torch.cos can move one vote across a validity or nearest-tap step.
+instead: their angles i·2π/m come from a table of cosf and sinf, and a
+last-bit difference from torch.cos can move one vote across a validity or
+nearest-tap step.
 """
 import numpy as np
 import pytest
