@@ -385,8 +385,20 @@ def frame_heatmap(pc: torch.Tensor, preds_tr: torch.Tensor, point_idxs: torch.Te
             pc, preds_tr, torch.ones(pc.shape[0], device=pc.device), point_idxs,
             _center(corner, pc), res, torch.from_numpy(dims).to(pc.device), gshape,
             n_rots=num_rots, adaptive=True, pair_chunk=pair_chunk)
-        grid = grid[: dims[0], : dims[1], : dims[2]].contiguous().cpu().numpy()
+        grid = _to_host(grid[: dims[0], : dims[1], : dims[2]])
     return grid, corner, dims
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host array.  From the card it goes through page-locked
+    memory, which the copy engine fills several times faster than pageable
+    memory: the frame's 46 MB heatmap took 19 ms of a 36 ms heatmap stage
+    through pageable memory on an H100 (``scripts/pose_stages.py --frame``)."""
+    if t.device.type != "cuda":
+        return t.contiguous().numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
 
 
 def _encoders(encoders_or_params, device):
