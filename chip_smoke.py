@@ -4,9 +4,11 @@ Drives the port's two paths and holds every CUDA kernel of them against its
 plain PyTorch version: the main path, ``CategoryRunner("bowl").estimate``
 (single-instance 9D pose at bowl's full width: 4096 points, knn 60,
 100 000 pairs, 72 rotations = 7.2 M center votes, 64³ grid) on the
-committed rendered views, and the zero-shot path, ``zero_shot_detect`` (the
-whole demo frame at the width of ``checkpoints/bowl_reg``: res 4 mm, knn
-60, 5 M pairs, 72 rotations, adaptive voting, a 320×218×164 heatmap).
+committed rendered views, then ``CategoryRunner(cat).estimate`` of every
+other category at its own full width and grid, and the zero-shot path,
+``zero_shot_detect`` (the whole demo frame at the width of
+``checkpoints/bowl_reg``: res 4 mm, knn 60, 5 M pairs, 72 rotations,
+adaptive voting, a 320×218×164 heatmap).
 Phases:
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -28,6 +30,10 @@ Phases:
    spinning kernel, so that the host's launch time stays out), the bytes
    and operations bound of each front end with both terms, the shared
    atomics a second, and one ``index_add_`` call as the library yardstick;
+   then, timed the same way, at the other categories' shapes on their own
+   pairs (``KERNEL_SHAPES``: can 56³, camera 72³, bathtub 88³ and
+   bookshelf's pooled 152³ at 3 cm, mug 56³ with the point weights of its
+   second center pass, table 128³ with its coplanar pair mask);
 4. main path: the center-vote stage alone must allocate less than one
    [P, R] vote vector; then the 4 views on the card, launch counts (reset
    just before), errors against ground truth and against the stored JAX
@@ -63,8 +69,8 @@ Phases:
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose and of one zero-shot
 frame (``scripts/pose_stages.py`` runs the pose half for several checkouts
-in turns).  Prints the
-kernels JSON line, the ``nvidia-smi`` line, and last the result line.
+in turns).  Prints the categories JSON line of phase 8, the kernels JSON
+line, the ``nvidia-smi`` line, and last the result line.
 Usage: python3 chip_smoke.py [--profile]
 """
 from __future__ import annotations
@@ -153,17 +159,22 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False):
+def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False, second_pass=False):
     """What ppf_vote_peak is given for one view, on the card: its arguments
     (``peak_args``), the pair-parameter block and grid frame that the pairs
     front ends read, the flat vote vectors that the votes front ends read
     (made from the same block by the plain votes_from_pair_params), and the
-    origin of the first refine window."""
+    origin of the first refine window.  The pair mask is the category's
+    center mask (``filter_coplanar``'s, else every pair); with
+    ``second_pass`` the point weights are those of ``asym_center_refine``'s
+    second center pass, 0.05 + 0.95 · the radial asymmetry about the first
+    pass's center and up axis."""
+    from cppf_tpu_torch.core.targets import radial_asymmetry_about
     from cppf_tpu_torch.ops.vote_hist import vote_frame
-    from cppf_tpu_torch.ops.voting import (pair_vote_params, ppf_vote_peak,
+    from cppf_tpu_torch.ops.voting import (backvote, pair_vote_params, ppf_vote_peak,
                                            votes_from_pair_params)
-    from cppf_tpu_torch.pipeline.pose import (PoseDraws, decode_translation, grid_frame,
-                                              pair_predictions)
+    from cppf_tpu_torch.pipeline.pose import (PoseDraws, _vote_axis, coplanar_center_mask,
+                                              decode_translation, grid_frame, pair_predictions)
     from cppf_tpu_torch.pipeline.preprocess import preprocess_cloud
 
     pcfg, cfg, dev = runner.pcfg, runner.cfg, runner.device
@@ -181,14 +192,26 @@ def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False):
         preds_tr = decode_translation(preds, draws.tr_gumbel, pcfg)
         corner, dims = grid_frame(pre.pc, pre.valid_mask, pcfg)
         probs = torch.ones(pre.pc.shape[0], device=dev)
-        mask = torch.ones(idxs.shape[0], dtype=torch.bool, device=dev)
+        mask = (coplanar_center_mask(pre.pc, pre.normals, idxs) if pcfg.filter_coplanar
+                else torch.ones(idxs.shape[0], dtype=torch.bool, device=dev))
+        if second_pass:
+            peak, _ = ppf_vote_peak(pre.pc, preds_tr, probs, idxs, corner, pcfg.res, dims,
+                                    grid_shape, n_rots=pcfg.num_rots, pair_mask=mask,
+                                    max_rounds=pcfg.peak_rounds)
+            T = corner + peak.float() * pcfg.res
+            alive = backvote(pre.pc, preds_tr, idxs, corner, pcfg.res, dims, T, 3.0 * pcfg.res,
+                             n_rots=pcfg.num_rots)[1]
+            B, R = pcfg.tr_num_bins, pcfg.rot_num_bins
+            up = _vote_axis(pre.pc, pre.normals, idxs, alive, preds[:, 2 * B: 2 * B + R],
+                            preds[:, -5], runner.sphere, pcfg, draws.up)
+            probs = 0.05 + 0.95 * radial_asymmetry_about(pre.pc, T, up, pre.n_valid)
         params = pair_vote_params(pre.pc, preds_tr, probs, idxs, pcfg.res, pcfg.num_rots,
                                   adaptive, mask)
         f, r, w = votes_from_pair_params(params, corner, pcfg.res, dims.float(), grid_shape,
                                          pcfg.num_rots)
         peak_args = (pre.pc, preds_tr, probs, idxs, corner, pcfg.res, dims, grid_shape)
         peak, _ = ppf_vote_peak(*peak_args, n_rots=pcfg.num_rots, adaptive=adaptive,
-                                max_rounds=1)
+                                pair_mask=mask, max_rounds=1)
     return dict(peak_args=peak_args, params=params, n_rots=pcfg.num_rots,
                 frame=vote_frame(corner, pcfg.res, dims.float()), grid_shape=grid_shape,
                 votes=[a.reshape(-1).contiguous() for a in (*f, *r, w)],
@@ -417,6 +440,178 @@ def errors(out, z, i):
     t_jax = float(np.linalg.norm(out.T.cpu().numpy() - z[f"jax_T_{i}"]))
     up_jax = float(np.degrees(np.arccos(np.clip(up @ z[f"jax_up_{i}"], -1, 1))))
     return t_err, up_err, s_err, t_jax, up_jax
+
+
+def _angle(a, b, fold=False):
+    c = float(np.dot(a, b))
+    return float(np.degrees(np.arccos(np.clip(abs(c) if fold else c, -1, 1))))
+
+
+def category_errors(T, up, right, scale, z, i, cfg):
+    """(T, up, right, scale) errors of one pose against view ``i``'s GT,
+    scored as scripts/eval_checkpoints.py:112-140 scores them: the right
+    axis against +x (+z under ``z_right``), sign folded for ``right_sym``;
+    right is None where the category does not regress it."""
+    R, bound = z[f"R_{i}"], z[f"bound_{i}"]
+    t_err = float(np.linalg.norm(T - z[f"T_{i}"]))
+    r_err = None
+    if cfg.regress_right:
+        r_err = _angle(right, R[:, 2] if cfg.z_right else R[:, 0], cfg.right_sym)
+    s_err = float(abs(np.linalg.norm(scale) - np.linalg.norm(bound)) / np.linalg.norm(bound))
+    return t_err, _angle(up, R[:, 1]), r_err, s_err
+
+
+def _median(xs):
+    xs = [x for x in xs if x is not None]
+    return float(np.median(xs)) if xs else float("nan")
+
+
+# the categories of phase 8, each at its own grid, and phase 3's kernel shapes
+# on their pairs: (category, label, second center pass)
+OTHER_CATEGORIES = ("bottle", "can", "camera", "mug", "laptop", "sofa", "chair", "bed",
+                    "bathtub", "bookshelf", "table")
+KERNEL_SHAPES = (("can", "can 56^3", False), ("camera", "camera 72^3", False),
+                 ("bathtub", "bathtub 88^3, 3 cm", False),
+                 ("bookshelf", "bookshelf 152^3, pool 4, 3 cm", False),
+                 ("mug", "mug 56^3, second center pass", True),
+                 ("table", "table 128^3, coplanar mask", False))
+PHASE9_PAIRS = 20_000
+
+
+def category_phase(runners):
+    """Phase 8: every other category on its 4 committed views at full width
+    (laptop with its plane override), launch counts reset just before and
+    read just after; fails past the error limits or if a votes front end
+    launched.  Returns {category: summary}."""
+    from cppf_tpu_torch.models.convert import ASSETS
+    from cppf_tpu_torch.ops import vote_hist as vh
+    from cppf_tpu_torch.ops.voting import _poolf
+    from cppf_tpu_torch.pipeline.pose import PoseDraws
+
+    summary = {}
+    for cat, runner in runners.items():
+        pcfg, cfg = runner.pcfg, runner.cfg
+        g = cfg.resolved_grid_edge()
+        check(pcfg.n_pairs == 100000 and pcfg.num_rots == 72 and pcfg.knn == 60
+              and pcfg.grid_shape == (g, g, g), f"{cat}: not full width: {pcfg}")
+        z = np.load(os.path.join(ASSETS, f"{cat}_views.npz"))
+        n_views = int(z["n_views"])
+        ov = cat == "laptop"
+        jax = "jax_ov_" if ov else "jax_"
+
+        def run(i, draws=None):
+            return runner.estimate(z[f"pc_{i}"], draws=draws,
+                                   laptop_up=z[f"laptop_up_{i}"] if ov else None)[0]
+
+        # the JAX run's own draws, remade from its key: the port then meets
+        # the same sign coin flips as JAX on near-symmetric views
+        draws = [PoseDraws.from_jax_key(pcfg, z[f"jax_key_{i}"], runner.device, cfg.npoint_max)
+                 for i in range(n_views)]
+        torch.cuda.synchronize()
+        vh.reset_launches()
+        outs = [run(i, d) for i, d in enumerate(draws)]
+        torch.cuda.synchronize()
+        launches = dict(vh.LAUNCHES)
+        passes = 2 if pcfg.asym_center_refine else 1
+        print(f"{cat}: launches over {n_views} poses: {launches}", flush=True)
+        check(launches["bound_projections_pairs"] == passes * n_views,
+              f"{cat}: bound_projections_pairs launched {launches['bound_projections_pairs']} "
+              f"times over {n_views} poses, not {passes} a pose")
+        check(passes * n_views <= launches["refine_window_pairs"] <= 2 * passes * n_views,
+              f"{cat}: refine_window_pairs launched {launches['refine_window_pairs']} times")
+        check(launches["bound_projections"] == 0 and launches["refine_window"] == 0,
+              f"{cat}: the path built vote vectors for the votes front ends")
+        errs, jerrs, vs_jax = [], [], []
+        for i, out in enumerate(outs):
+            T, up, right = (getattr(out, k).cpu().numpy() for k in ("T", "up", "right"))
+            e = category_errors(T, up, right, out.scale.cpu().numpy(), z, i, cfg)
+            jr = z[f"{jax}right_{i}"] if cfg.regress_right else None
+            je = category_errors(z[f"{jax}T_{i}"], z[f"{jax}up_{i}"], jr, z[f"{jax}scale_{i}"],
+                                 z, i, cfg)
+            d = (float(np.linalg.norm(T - z[f"{jax}T_{i}"])), _angle(up, z[f"{jax}up_{i}"]),
+                 None if jr is None else _angle(right, jr))
+            errs.append(e), jerrs.append(je), vs_jax.append(d)
+            print(f"  {cat} view {i}: T {e[0] * 1e3:.2f} mm, up {e[1]:.2f} deg, right "
+                  f"{e[2] if e[2] is None else round(e[2], 2)} deg, scale {e[3] * 100:.2f} %; "
+                  f"JAX CPU: T {je[0] * 1e3:.2f} mm, up {je[1]:.2f} deg; port minus JAX: "
+                  f"T {d[0] * 1e3:.3f} mm, up {d[1]:.3f} deg, right "
+                  f"{d[2] if d[2] is None else round(d[2], 3)} deg; survivors "
+                  f"{int(out.n_filtered)}", flush=True)
+        del draws  # ~27-52 MB a view, not to be counted in a pose's peak memory
+        med = [_median([e[k] for e in errs]) for k in range(4)]
+        jmed = [_median([e[k] for e in jerrs]) for k in range(4)]
+        times = []
+        for _ in range(3):
+            for i in range(n_views):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(i)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.reset_peak_memory_stats()
+        run(0)
+        torch.cuda.synchronize()
+        rec = dict(grid=g, pool=_poolf(g), res=cfg.res, launches=launches,
+                   T_mm=med[0] * 1e3, up_deg=med[1], right_deg=med[2], scale_pct=med[3] * 100,
+                   jax_T_mm=jmed[0] * 1e3, jax_up_deg=jmed[1], jax_right_deg=jmed[2],
+                   jax_scale_pct=jmed[3] * 100,
+                   vs_jax_T_mm=_median([d[0] for d in vs_jax]) * 1e3,
+                   vs_jax_up_deg=_median([d[1] for d in vs_jax]),
+                   vs_jax_right_deg=_median([d[2] for d in vs_jax]),
+                   ms=statistics.median(times), ms_min=min(times),
+                   peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        summary[cat] = rec
+        print(f"{cat} ({g}^3, pool {rec['pool']}, res {cfg.res}"
+              f"{', plane override' if ov else ''}): "
+              f"median T {rec['T_mm']:.2f} mm, up {rec['up_deg']:.2f} deg, right "
+              f"{rec['right_deg']:.2f} deg, scale {rec['scale_pct']:.2f} % (JAX CPU on the same "
+              f"views: {rec['jax_T_mm']:.2f} mm, {rec['jax_up_deg']:.2f}, "
+              f"{rec['jax_right_deg']:.2f} deg, {rec['jax_scale_pct']:.2f} %); warm "
+              f"{rec['ms']:.2f} ms/pose (median of {len(times)}, min {rec['ms_min']:.2f}); peak "
+              f"device memory {rec['peak_mib']:.1f} MiB", flush=True)
+        check(med[0] <= 2 * jmed[0] + 5 * cfg.res,
+              f"{cat}: median T error {med[0] * 1e3:.1f} mm > twice JAX's {jmed[0] * 1e3:.1f} mm "
+              f"+ 5 voxels")
+        check(med[1] <= jmed[1] + 15.0,
+              f"{cat}: median up error {med[1]:.1f} deg > JAX's {jmed[1]:.1f} + 15 deg")
+        if cfg.regress_right:
+            check(med[2] <= jmed[2] + 15.0,
+                  f"{cat}: median right error {med[2]:.1f} deg > JAX's {jmed[2]:.1f} + 15 deg")
+    return summary
+
+
+def cpu_cuda_phase(runners):
+    """Phase 9: one view of each category at PHASE9_PAIRS pairs on the CPU
+    (plain versions) and on the card (kernels), identical draws; fails
+    unless the center, up and right agree to 1e-6."""
+    import dataclasses
+
+    from cppf_tpu_torch.eval.nocs_inference import CategoryRunner
+    from cppf_tpu_torch.models.convert import ASSETS
+    from cppf_tpu_torch.pipeline.pose import PoseDraws
+
+    for cat, runner in runners.items():
+        z = np.load(os.path.join(ASSETS, f"{cat}_views.npz"))
+        lup = z["laptop_up_1"] if cat == "laptop" else None
+        cpu = CategoryRunner(cat, device="cpu")
+        pcfg = dataclasses.replace(runner.pcfg, n_pairs=PHASE9_PAIRS)
+        gpu_pcfg, cpu.pcfg, runner.pcfg = runner.pcfg, pcfg, pcfg
+        try:
+            draws = PoseDraws.sample(pcfg, torch.Generator().manual_seed(9), "cpu",
+                                     n_raw=runner.cfg.npoint_max)
+            t0 = time.perf_counter()
+            out_cpu = cpu.estimate(z["pc_1"], draws=draws, laptop_up=lup)[0]
+            t_cpu = time.perf_counter() - t0
+            out_gpu = runner.estimate(z["pc_1"], draws=draws.to("cuda"), laptop_up=lup)[0]
+        finally:
+            runner.pcfg = gpu_pcfg
+        d = {k: float((getattr(out_cpu, k) - getattr(out_gpu, k).cpu()).abs().max())
+             for k in ("T", "up", "right")}
+        print(f"cpu vs cuda, {cat}, {PHASE9_PAIRS} pairs, identical draws: |dT| {d['T']:.2e}, "
+              f"|d up| {d['up']:.2e}, |d right| {d['right']:.2e}, survivors "
+              f"{int(out_cpu.n_filtered)} vs {int(out_gpu.n_filtered)} (cpu {t_cpu:.1f} s)",
+              flush=True)
+        check(max(d.values()) < 1e-6, f"{cat}: CPU and CUDA poses differ: {d}")
 
 
 def stage_times(runner, pc_raw, reps: int = 5):
@@ -893,6 +1088,14 @@ def main():
     kernel_phase(main_path_inputs(runner, z["pc_0"], pcfg.grid_shape, adaptive=True),
                  "bowl 64^3, adaptive rotations", timed=False, adaptive=True)
     kernel_phase(main_path_inputs(runner, z["pc_0"], (120, 120, 120)), "bottle pooled 120^3")
+    # the other categories' shapes, on their own pairs and weights
+    runners = {cat: CategoryRunner(cat) for cat in OTHER_CATEGORIES}
+    for cat, label, second_pass in KERNEL_SHAPES:
+        other = runners[cat]
+        with np.load(os.path.join(ASSETS, f"{cat}_views.npz")) as zc:
+            pc0 = zc["pc_0"]
+        kernel_phase(main_path_inputs(other, pc0, other.pcfg.grid_shape,
+                                      second_pass=second_pass), label)
 
     # ---- 4. the main path on the card ----------------------------------------
     # the center-vote stage alone must allocate less than one [P, R] vector
@@ -971,6 +1174,11 @@ def main():
     records["dense_hist"] = dense["frame chunk, unpooled"]
     launches["dense_hist"] = zs_launches["dense_hist"]
     launches["dense_hist_pairs"] = zs_launches["dense_hist_pairs"]
+
+    # ---- 8-9. every other category; CPU against CUDA on each ----------------
+    summary = category_phase(runners)
+    print(json.dumps({"categories": summary}), flush=True)
+    cpu_cuda_phase(runners)
 
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the

@@ -36,7 +36,7 @@ class Config:
     vote_range: Tuple[float, float] = (0.12, 0.12)
     scale_mean: Tuple[float, float, float] = (0.07, 0.03, 0.07)
     # inference-side flags (see cppf_tpu.pipeline.pose.PoseConfig); the port
-    # runs only their off settings and raises on the others
+    # raises on those in pipeline/pose.py::UNPORTED_FLAGS unless they are off
     sharp_axis_votes: bool = False
     aux_align_weight: bool = False
     asym_right_votes: bool = False

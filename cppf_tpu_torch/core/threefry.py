@@ -1,0 +1,109 @@
+"""JAX's default random numbers, reproduced in torch.
+
+``jax.random`` with its default generator (threefry2x32, with the
+partitionable bit layout of ``jax_threefry_partitionable``, the default
+since JAX 0.5): element ``i`` of a draw of shape ``s`` from key ``(k1, k2)``
+is the xor of the two words of threefry2x32((k1, k2), (i >> 32, i & 0xffffffff)),
+i the row-major index; ``split`` hashes the counters 0..n-1 the same way
+and keeps both words.  Uniform floats take the top 23 bits as a mantissa in
+[1, 2), minus 1.  The bits and uniforms are exact on every device; the
+gumbel transform goes through torch's ``log`` and the normal one through
+XLA's float32 polynomial for erfinv (:func:`erfinv`), each of which can
+differ from XLA's in the last bit.
+
+A key is a pair of Python ints.  This lets the port consume the very draws
+that a JAX run consumed from the same key (``PoseDraws.from_jax_key``).
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+Key = Tuple[int, int]
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def key(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)`` for a seed in [0, 2^32) (JAX's default
+    32-bit mode)."""
+    return 0, seed & _MASK
+
+
+def threefry2x32(k: Key, x0: torch.Tensor, x1: torch.Tensor):
+    """The Threefry-2x32 hash (20 rounds) of the counter words ``x0``,
+    ``x1`` (int64 tensors holding uint32 values) under key ``k``."""
+    ks = (k[0], k[1], k[0] ^ k[1] ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for r in range(5):
+        for rot in _ROTATIONS[r % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = ((x1 << rot) | (x1 >> (32 - rot))) & _MASK
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(r + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(r + 2) % 3] + r + 1) & _MASK
+    return x0, x1
+
+
+def _counters(n: int, device):
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return i >> 32, i & _MASK
+
+
+def split(k: Key, num: int = 2) -> List[Key]:
+    """``jax.random.split(key, num)``."""
+    b0, b1 = threefry2x32(k, *_counters(num, "cpu"))
+    return list(zip(b0.tolist(), b1.tolist()))
+
+
+def random_bits(k: Key, shape, device) -> torch.Tensor:
+    """32 random bits an element, as int64 values in [0, 2^32)."""
+    b0, b1 = threefry2x32(k, *_counters(math.prod(shape), device))
+    return (b0 ^ b1).reshape(shape)
+
+
+def uniform(k: Key, shape, device, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32."""
+    mant = ((random_bits(k, shape, device) >> 9) | 0x3F800000).to(torch.int32)
+    floats = mant.view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def gumbel(k: Key, shape, device) -> torch.Tensor:
+    """``jax.random.gumbel`` (its default "low" mode) in float32."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(uniform(k, shape, device, tiny, 1.0)))
+
+
+# XLA's float32 ErfInv: Giles' single-precision approximation, a degree-8
+# polynomial in w - 2.5 (w = -log(1 - x²) < 5) or in sqrt(w) - 3
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+               -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+               -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """Inverse error function of float32 ``x`` in (-1, 1), as XLA computes
+    it (torch.erfinv is another approximation, ~1e-5 apart)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.full_like(x, _ERFINV_GE5[0]).masked_fill_(lt, _ERFINV_LT5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, a, b) + p * w
+    return p * x
+
+
+def normal(k: Key, shape, device) -> torch.Tensor:
+    """``jax.random.normal`` in float32: √2 · erfinv(u), u uniform on
+    (-1, 1)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(k, shape, device, lo, 1.0)
+    return torch.tensor(math.sqrt(2), dtype=torch.float32, device=device) * erfinv(u)

@@ -58,7 +58,8 @@
 // the native ATOMS.ADD.  A block scales by the largest power of two that
 // cannot overflow whatever cells its votes hit (a pass over its weights
 // first: fixed_scale), which at bowl's shapes is 2^15 (pairs) or 2^16 (votes)
-// a unit of weight.  The bound pass rounds each tap up, so its sums stay upper
+// a unit of weight for the bound pass; the window kernels count only the
+// votes in the window's x slab, which no cell of the window can exceed.  The bound pass rounds each tap up, so its sums stay upper
 // bounds; the window rounds to nearest.  Sums inside a block no longer
 // depend on the order of the votes.
 //
@@ -74,7 +75,9 @@
 // Window cull (refine_pairs_kernel).  A pair's votes lie on an ellipse about
 // c with semi-axes |x| and |y|; a pair whose shell misses the ball around
 // the window (plus one voxel) is skipped before any vote is made.  The
-// window origin is read from device memory: no host read.
+// window origin is read from device memory: no host read.  The window's
+// fixed-point scale comes from the mass of the votes in its x slab
+// (window_scale), not from every vote of the block.
 //
 // Tolerance.  Kernel and plain version agree to 1e-3 of the largest cell,
 // not bit for bit: blocks' sums are added by float atomics in any order;
@@ -335,7 +338,15 @@ __global__ void __launch_bounds__(kPeakThreads) refine_votes_kernel(
   for (int i = threadIdx.x; i < n_all; i += blockDim.x) win[i] = 0;
   const int ox = o[0], oy = o[1], oz = o[2];
   const long long stride = (long long)gridDim.x * blockDim.x;
-  const float scale = votes_scale(S, (long long)blockIdx.x * blockDim.x, stride, 1);
+  // the scale from the mass of the votes in the window's x slab, as
+  // refine_pairs_kernel's (window_scale)
+  float mass = 0.f, n = 0.f;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < S.n; i += stride) {
+    const int x = S.fx[i] - ox;
+    if (x >= -1 && x < w8 && S.w[i] != 0.f) mass += fabsf(S.w[i]), n += 1.f;
+  }
+  mass = block_sum(mass);
+  const float scale = fixed_scale(mass, block_sum(n));
   __syncthreads();
 
   // One vote a lane, 4-byte loads: the votes that reach the window are runs
@@ -540,6 +551,37 @@ __device__ __forceinline__ bool shell_reaches_window(const Pair& q, const float*
   return d - reach <= fmaxf(rx, ry) && d + reach >= fminf(rx, ry);
 }
 
+// The fixed-point scale of a block of refine_pairs_kernel: from the mass of
+// the votes of its work items whose x reaches the window's slab [o-1, o+w8),
+// a pass that makes one axis of each vote of a pair the cull keeps.  No cell
+// of the window can hold more.  At 3 cm a window holds a small share of the
+// votes (bookshelf's pooled 152^3), and a scale from every vote's mass left
+// a unit of 1e-5 of the largest cell.
+__device__ __forceinline__ float window_scale(const float4* __restrict__ params,
+                                              long long n_pairs, int n_rots, const Frame& F,
+                                              const float2* table, const float* centre,
+                                              float reach, int ox, int w8) {
+  const long long work = n_pairs * kSplit;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  float mass = 0.f, n = 0.f;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work; t += stride) {
+    Pair q;
+    if (!load_pair(params, t % n_pairs, n_rots, q)) continue;
+    if (!shell_reaches_window(q, centre, reach)) continue;
+    int first, last;
+    rotation_range(t, n_pairs, n_rots, q.m, first, last);
+    for (int i = first; i < last; ++i) {
+      const float2 a = circle_sample(table, q.m, i);
+      int f;
+      float r;
+      if (vote_axis(q, F, 0, a.x, a.y, f, r) && f - ox >= -1 && f - ox < w8)
+        mass += fabsf(q.w), n += 1.f;
+    }
+  }
+  mass = block_sum(mass);
+  return fixed_scale(mass, block_sum(n));
+}
+
 template <bool kNearest>
 __global__ void __launch_bounds__(kPeakThreads) refine_pairs_kernel(
     const int* __restrict__ o, const float4* __restrict__ params, long long n_pairs, int n_rots,
@@ -550,7 +592,6 @@ __global__ void __launch_bounds__(kPeakThreads) refine_pairs_kernel(
   for (int i = threadIdx.x; i < n_all; i += blockDim.x) win[i] = 0;
   fill_circle_table(table, n_rots);
   const Frame F = load_frame(frame, gx, gy, gz);
-  const float scale = pairs_scale(params, n_pairs, n_rots);
   const int org[3] = {o[0], o[1], o[2]};
   float centre[3];
 #pragma unroll
@@ -558,6 +599,7 @@ __global__ void __launch_bounds__(kPeakThreads) refine_pairs_kernel(
     centre[k] = F.corner[k] + ((float)org[k] + 0.5f * (float)(w8 - 1)) * F.res;
   const float reach = (0.8660254f * (float)(w8 + 1) + 1.f) * F.res;
   __syncthreads();
+  const float scale = window_scale(params, n_pairs, n_rots, F, table, centre, reach, org[0], w8);
 
   const long long work = n_pairs * kSplit;
   const long long stride = (long long)gridDim.x * blockDim.x;

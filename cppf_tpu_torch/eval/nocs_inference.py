@@ -55,10 +55,12 @@ class CategoryRunner:
 
     @torch.no_grad()
     def estimate(self, pc_raw: np.ndarray, generator: Optional[torch.Generator] = None,
-                 draws: Optional[PoseDraws] = None):
+                 draws: Optional[PoseDraws] = None, laptop_up=None):
         """Pose of one raw cloud [M, 3].  Draws come from ``draws`` (which
         must then carry ``jitter`` [npoint_max, 3]) or from ``generator``
         (default: the runner's own, seeded with 0 at construction).
+        ``laptop_up`` [3], the base-plane normal oriented toward the camera,
+        turns on the laptop plane override.
         Returns (PoseResult, PreprocessedCloud)."""
         cfg = self.cfg
         n_raw_pad = cfg.npoint_max
@@ -76,7 +78,9 @@ class CategoryRunner:
         pre = preprocess_cloud(torch.from_numpy(pad).to(self.device), n_raw, cfg.res,
                                npoint_pad=cfg.npoint_pad, knn=cfg.knn, noise=draws.jitter,
                                generator=generator or self.generator)
+        if laptop_up is not None:
+            laptop_up = torch.as_tensor(np.asarray(laptop_up, np.float32), device=self.device)
         out = estimate_pose(self.point_encoder, self.ppf_encoder, pre.pc, pre.normals,
                             pre.n_valid, self.sphere, self.pcfg, nbr_idx=pre.nbr_idx,
-                            draws=draws)
+                            draws=draws, laptop_up=laptop_up)
         return out, pre

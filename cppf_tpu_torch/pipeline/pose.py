@@ -4,9 +4,13 @@
     → center-vote peak → back-vote filter → axis vote on the sphere
     → aux-bit sign → R/T/S assembly
 
-Ported branches: ``axis_topk = 1``, the fixed right-axis formula (no
-``regress_right``), no category flags.  :meth:`PoseConfig.from_config`
-raises ``NotImplementedError`` on any flag that is not ported.
+Ported branches: every one that a category config turns on — the regressed
+right axis (``regress_right``, with ``asym_right_votes`` and
+``geo_right_sign``), the second center pass ``asym_center_refine``, the
+coplanar center filter ``filter_coplanar``, the top-K axis decode
+``axis_topk`` and the laptop plane override.  :meth:`PoseConfig.from_config`
+raises ``NotImplementedError`` on the flags that no config turns on
+(``UNPORTED_FLAGS``).
 
 Random draws are injectable (:class:`PoseDraws`): JAX and torch give
 different numbers from one seed, so a test hands both the same uniforms and
@@ -21,17 +25,18 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from cppf_tpu_torch.core.geometry import assemble_rotation, fibonacci_sphere, orthonormal_right
+from cppf_tpu_torch.core import threefry
+from cppf_tpu_torch.core.geometry import (assemble_rotation, cross, fibonacci_sphere,
+                                          orthonormal_right)
+from cppf_tpu_torch.core.targets import radial_asymmetry_about
 from cppf_tpu_torch.ops.knn import knn_indices
 from cppf_tpu_torch.ops.voting import backvote, ppf_vote_peak, rot_vote_sphere_count
 
 # Config flags of the JAX pipeline that this port does not run yet, with
 # the value that means "off".
 UNPORTED_FLAGS = {
-    "regress_right": False, "axis_topk": 1, "filter_coplanar": False,
     "coplanar_halfspace": False, "pair_balance": 0.0, "pair_sep_power": 0.0,
-    "sharp_axis_votes": False, "aux_align_weight": False, "asym_right_votes": False,
-    "asym_center_refine": False, "subvoxel_refine": False, "geo_right_sign": False,
+    "sharp_axis_votes": False, "aux_align_weight": False, "subvoxel_refine": False,
 }
 
 
@@ -45,6 +50,7 @@ class PoseConfig:
     scale_mean: Tuple[float, float, float] = (0.07, 0.03, 0.07)
     res: float = 4e-3
     knn: int = 60
+    regress_right: bool = False
     z_right: bool = False
     num_rots: int = 72
     n_pairs: int = 100000
@@ -55,6 +61,13 @@ class PoseConfig:
     splat: str = "trilinear"
     peak_rounds: int = 2
     scale_multiplier: float = 2.0
+    filter_coplanar: bool = False
+    asym_right_votes: bool = False
+    asym_center_refine: bool = False
+    geo_right_sign: bool = False
+    geo_right_dir: str = "cross"
+    axis_topk: int = 1
+    axis_topk_min_frac: float = 0.2
 
     @classmethod
     def from_config(cls, cfg, n_pairs: Optional[int] = None, scale_multiplier: float = 2.0):
@@ -65,10 +78,13 @@ class PoseConfig:
         return cls(
             tr_num_bins=cfg.tr_num_bins, rot_num_bins=cfg.rot_num_bins,
             vote_range=tuple(cfg.vote_range), scale_mean=tuple(cfg.scale_mean),
-            res=cfg.res, knn=cfg.knn, z_right=cfg.z_right, num_rots=cfg.num_rots,
-            n_pairs=n_pairs or cfg.infer_pairs, angle_prec=cfg.angle_prec,
-            adaptive_voting=cfg.adaptive_voting, grid_shape=(g, g, g),
-            scale_multiplier=scale_multiplier,
+            res=cfg.res, knn=cfg.knn, regress_right=cfg.regress_right, z_right=cfg.z_right,
+            num_rots=cfg.num_rots, n_pairs=n_pairs or cfg.infer_pairs,
+            angle_prec=cfg.angle_prec, adaptive_voting=cfg.adaptive_voting,
+            grid_shape=(g, g, g), scale_multiplier=scale_multiplier,
+            filter_coplanar=cfg.filter_coplanar, asym_right_votes=cfg.asym_right_votes,
+            asym_center_refine=cfg.asym_center_refine, geo_right_sign=cfg.geo_right_sign,
+            geo_right_dir=cfg.geo_right_dir, axis_topk=cfg.axis_topk,
         )
 
     def sphere_points(self) -> np.ndarray:
@@ -89,16 +105,22 @@ class PoseDraws(NamedTuple):
     up: AxisDraws                  # the up-axis vote
     fallback_normal: torch.Tensor  # [3] degenerate-right fallback (pose.py:743)
     jitter: Optional[torch.Tensor] = None  # [N_raw, 3] preprocess jitter, standard normal
+    right: Optional[AxisDraws] = None      # the right-axis vote, with ``regress_right``
 
     def to(self, device) -> "PoseDraws":
-        return PoseDraws(self.pair_u.to(device), self.tr_gumbel.to(device),
-                         AxisDraws(*(t.to(device) for t in self.up)),
+        def axis(d):
+            return None if d is None else AxisDraws(*(t.to(device) for t in d))
+
+        return PoseDraws(self.pair_u.to(device), self.tr_gumbel.to(device), axis(self.up),
                          self.fallback_normal.to(device),
-                         None if self.jitter is None else self.jitter.to(device))
+                         None if self.jitter is None else self.jitter.to(device),
+                         axis(self.right))
 
     @classmethod
     def sample(cls, pcfg: PoseConfig, generator: torch.Generator, device,
                n_raw: Optional[int] = None) -> "PoseDraws":
+        """Draws in the order of JAX's key splits: pairs, translation, up,
+        right (only with ``regress_right``), fallback."""
         def rand(*shape):
             return torch.rand(shape, generator=generator, device=device)
 
@@ -107,12 +129,40 @@ class PoseDraws(NamedTuple):
             u = torch.clamp(rand(*shape), min=torch.finfo(torch.float32).tiny)
             return -torch.log(-torch.log(u))
 
+        def axis():
+            return AxisDraws(rand(s), gumbel(s, pcfg.rot_num_bins))
+
         p, s = pcfg.n_pairs, pcfg.rot_subsample
         jitter = (None if n_raw is None else
                   torch.randn((n_raw, 3), generator=generator, device=device))
-        return cls(rand(p, 2), gumbel(2, p, pcfg.tr_num_bins),
-                   AxisDraws(rand(s), gumbel(s, pcfg.rot_num_bins)),
-                   torch.randn(3, generator=generator, device=device), jitter)
+        pair_u, tr_gumbel, up = rand(p, 2), gumbel(2, p, pcfg.tr_num_bins), axis()
+        right = axis() if pcfg.regress_right else None
+        return cls(pair_u, tr_gumbel, up, torch.randn(3, generator=generator, device=device),
+                   jitter, right)
+
+    @classmethod
+    def from_jax_key(cls, pcfg: PoseConfig, key, device, n_raw: int) -> "PoseDraws":
+        """The draws that the JAX ``CategoryRunner.estimate(key, ...)``
+        consumes (cppf_tpu/eval/nocs_inference.py:105, pipeline/pose.py:794,
+        :533, :544, :315), remade in torch from ``key`` (two uint32 words,
+        ``jax.random.key_data``); the preprocess jitter is for ``n_raw``
+        padded points."""
+        key = (int(key[0]), int(key[1]))
+        r_pre, r_pose = threefry.split(key)
+        rng_pairs, rng_vote = threefry.split(r_pose)
+        rng_tr, rng_up, rng_right, rng_fallback = threefry.split(rng_vote, 4)
+        p, s = pcfg.n_pairs, pcfg.rot_subsample
+
+        def axis(k):
+            rng_bin, rng_sub = threefry.split(k)
+            return AxisDraws(threefry.uniform(rng_sub, (s,), device),
+                             threefry.gumbel(rng_bin, (s, pcfg.rot_num_bins), device))
+
+        tr = [threefry.gumbel(k, (p, pcfg.tr_num_bins), device) for k in threefry.split(rng_tr)]
+        return cls(threefry.uniform(rng_pairs, (p, 2), device), torch.stack(tr), axis(rng_up),
+                   threefry.normal(rng_fallback, (3,), device),
+                   threefry.normal(r_pre, (n_raw, 3), device),
+                   axis(rng_right) if pcfg.regress_right else None)
 
 
 class PoseResult(NamedTuple):
@@ -144,12 +194,20 @@ def _bce_logits(logits, targets, mask):
 
 
 def _vote_axis(pc, pc_normal, point_idxs, pair_mask, angle_logits, aux_logits, sphere_pts,
-               pcfg: PoseConfig, draws: AxisDraws) -> torch.Tensor:
+               pcfg: PoseConfig, draws: AxisDraws, pair_weights=None) -> torch.Tensor:
     """One orientation axis: subsample surviving pairs, decode their angle
-    bins, cone-vote on the sphere, flip the argmax by the aux-bit BCE."""
+    bins, cone-vote on the sphere, flip the argmax by the aux-bit BCE.
+
+    ``pair_weights`` [P] biases the subsample and weights the aux BCE (see
+    the JAX PoseConfig.asym_right_votes).  With ``axis_topk`` K > 1 the K
+    distinct sphere peaks (greedy 20° suppression over both hemispheres)
+    are each signed and scored by the aux BCE, and the lowest wins among
+    those holding ``axis_topk_min_frac`` of the top peak's count."""
     p = point_idxs.shape[0]
     any_alive = pair_mask.any()
     keep = (pair_mask | ~any_alive).to(torch.float32)
+    if pair_weights is not None:
+        keep = keep * pair_weights
     cdf = torch.cumsum(keep, 0)
     u = draws.sub_u * cdf[-1]
     sub = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, p - 1)
@@ -165,11 +223,44 @@ def _vote_axis(pc, pc_normal, point_idxs, pair_mask, angle_logits, aux_logits, s
     n_a = pc_normal[idx[:, 0]]
     n_canon = n_a * torch.where(torch.sum(n_a * ab_unit, -1, keepdim=True) < 0, -1.0, 1.0)
     aux_mask = pair_mask.to(pc.dtype)
-    cand = sphere_pts[torch.argmax(counts)]
-    target = (torch.sum(n_canon * cand, -1) > 0).to(pc.dtype)
-    up_loss = _bce_logits(aux_logits, target, aux_mask)
-    down_loss = _bce_logits(aux_logits, 1.0 - target, aux_mask)
-    return torch.where(down_loss < up_loss, -cand, cand)
+    if pair_weights is not None:
+        aux_mask = aux_mask * pair_weights
+
+    def signed_bce(cand):
+        target = (torch.sum(n_canon * cand, -1) > 0).to(pc.dtype)
+        up_loss = _bce_logits(aux_logits, target, aux_mask)
+        down_loss = _bce_logits(aux_logits, 1.0 - target, aux_mask)
+        return torch.where(down_loss < up_loss, -cand, cand), torch.minimum(up_loss, down_loss)
+
+    if pcfg.axis_topk <= 1:
+        return signed_bce(sphere_pts[torch.argmax(counts)])[0]
+
+    cos_sup = torch.cos(torch.deg2rad(torch.tensor(20.0, dtype=pc.dtype)))
+    cand_idx = []
+    c = counts
+    for _ in range(pcfg.axis_topk):
+        i = torch.argmax(c)
+        cand_idx.append(i)
+        c = torch.where(torch.abs(sphere_pts @ sphere_pts[i]) > cos_sup, -1.0, c)
+    cand_idx = torch.stack(cand_idx)
+    cand_counts = counts[cand_idx]
+    signed, bce = zip(*(signed_bce(sphere_pts[i]) for i in cand_idx))
+    ok = cand_counts >= pcfg.axis_topk_min_frac * cand_counts[0]
+    bce = torch.where(ok, torch.stack(bce), math.inf)
+    return torch.stack(signed)[torch.argmin(bce)]
+
+
+def _protrusion_centroid(pc, T_est, up, n_valid, asym):
+    """Radial-asymmetry-weighted centroid direction about the (T, up) line,
+    projected off the axis.  Returns (h_dir, gate): ``gate`` is False when
+    the protruding geometry is occluded (no asymmetry mass)."""
+    w_pt = torch.where(torch.arange(pc.shape[0], device=pc.device) < n_valid, asym, 0.0)
+    cen = torch.sum(w_pt[:, None] * (pc - T_est), 0)
+    cen = cen - torch.dot(cen, up) * up
+    cen_n = torch.linalg.norm(cen)
+    h_dir = cen / (cen_n + 1e-9)
+    gate = (cen_n > 1e-6) & (torch.sum(w_pt) > 1.0)
+    return h_dir, gate
 
 
 def sample_pair_indices(pair_u: torch.Tensor, n_valid) -> torch.Tensor:
@@ -213,14 +304,34 @@ def grid_frame(pc, valid_mask, pcfg: PoseConfig):
     return corner, torch.minimum(grid_dims, cap)
 
 
+def coplanar_center_mask(pc, pc_normal, point_idxs) -> torch.Tensor:
+    """[P] bool center-vote mask of ``filter_coplanar``: False for a pair
+    whose normals are parallel and both ⟂ its axis (its vote circle also
+    hits the center mirrored across the shared plane), unless that would
+    keep under 5 % of the pairs, when every pair votes."""
+    idx = point_idxs.long()
+    n1 = pc_normal[idx[:, 0]]
+    n2 = pc_normal[idx[:, 1]]
+    ab = pc[idx[:, 0]] - pc[idx[:, 1]]
+    abu = ab / (torch.linalg.norm(ab, dim=-1, keepdim=True) + 1e-7)
+    coplanar = ((torch.abs(torch.sum(n1 * n2, -1)) > 0.9)
+                & (torch.abs(torch.sum(abu * n1, -1)) < 0.1)
+                & (torch.abs(torch.sum(abu * n2, -1)) < 0.1))
+    keep = ~coplanar
+    return keep | (torch.mean(keep.to(pc.dtype)) < 0.05)
+
+
 def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
-              draws: PoseDraws) -> PoseResult:
-    """Voting half: decode pair predictions into a 9D pose (no network)."""
+              draws: PoseDraws, laptop_up=None, laptop_up_valid=None) -> PoseResult:
+    """Voting half: decode pair predictions into a 9D pose (no network).
+    The branches run in the order of the JAX ``_vote_pose_body``."""
     n = pc.shape[0]
     valid_mask = torch.arange(n, device=pc.device) < n_valid
     B, R = pcfg.tr_num_bins, pcfg.rot_num_bins
     up_logits = preds[:, 2 * B: 2 * B + R]
+    right_logits = preds[:, 2 * B + R: 2 * B + 2 * R]
     up_aux = preds[:, -5]
+    right_aux = preds[:, -4]
     scale_pred = preds[:, -3:]
 
     preds_tr = decode_translation(preds, draws.tr_gumbel, pcfg)
@@ -229,21 +340,65 @@ def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseC
     res = torch.tensor(pcfg.res, dtype=pc.dtype, device=pc.device)
     corner, grid_dims = grid_frame(pc, valid_mask, pcfg)
     probs = torch.ones(n, dtype=pc.dtype, device=pc.device)
-    peak_idx, grid_max = ppf_vote_peak(
-        pc, preds_tr, probs, point_idxs, corner, res, grid_dims, pcfg.grid_shape,
-        n_rots=pcfg.num_rots, adaptive=pcfg.adaptive_voting, splat=pcfg.splat,
-        max_rounds=pcfg.peak_rounds)
-    T_est = corner + peak_idx.to(pc.dtype) * pcfg.res
+    center_mask = (coplanar_center_mask(pc, pc_normal, point_idxs) if pcfg.filter_coplanar
+                   else None)
 
-    # --- back-vote filter ---------------------------------------------------
-    _, pair_mask = backvote(pc, preds_tr, point_idxs, corner, res, grid_dims, T_est,
-                            3.0 * pcfg.res, n_rots=pcfg.num_rots)
+    def center_peak(weights):
+        peak_idx, peak = ppf_vote_peak(
+            pc, preds_tr, weights, point_idxs, corner, res, grid_dims, pcfg.grid_shape,
+            n_rots=pcfg.num_rots, adaptive=pcfg.adaptive_voting, splat=pcfg.splat,
+            max_rounds=pcfg.peak_rounds, pair_mask=center_mask)
+        return corner + peak_idx.to(pc.dtype) * pcfg.res, peak
+
+    def consistent_pairs(center):
+        return backvote(pc, preds_tr, point_idxs, corner, res, grid_dims, center,
+                        3.0 * pcfg.res, n_rots=pcfg.num_rots)[1]
+
+    T_est, grid_max = center_peak(probs)
+    pair_mask = consistent_pairs(T_est)
 
     # --- orientation axes ---------------------------------------------------
     up = _vote_axis(pc, pc_normal, point_idxs, pair_mask, up_logits, up_aux, sphere_pts,
                     pcfg, draws.up)
-    right = torch.stack([torch.zeros_like(up[0]), -up[2], up[1]])
-    right = right / (torch.linalg.norm(right) + 1e-9)
+
+    if pcfg.asym_center_refine:
+        # second center pass on the protruding points' votes; only its
+        # component along the protrusion direction is taken
+        asym_c = radial_asymmetry_about(pc, T_est, up, n_valid)
+        T_ref, _ = center_peak((0.05 + 0.95 * asym_c) * probs)
+        u_h, gate = _protrusion_centroid(pc, T_est, up, n_valid, asym_c)
+        T_est = torch.where(gate, T_est + torch.dot(T_ref - T_est, u_h) * u_h, T_est)
+        pair_mask = consistent_pairs(T_est)
+
+    if pcfg.regress_right:
+        right_w = asym = None
+        if pcfg.asym_right_votes or pcfg.geo_right_sign:
+            asym = radial_asymmetry_about(pc, T_est, up, n_valid)
+        if pcfg.asym_right_votes:
+            idx = point_idxs.long()
+            right_w = 0.05 + 0.95 * torch.maximum(asym[idx[:, 0]], asym[idx[:, 1]])
+        right = _vote_axis(pc, pc_normal, point_idxs, pair_mask, right_logits, right_aux,
+                           sphere_pts, pcfg, draws.right, pair_weights=right_w)
+        if pcfg.geo_right_sign:
+            h_dir, gate = _protrusion_centroid(pc, T_est, up, n_valid, asym)
+            ref_dir = h_dir if pcfg.geo_right_dir == "direct" else cross(h_dir, up)
+            right = torch.where(gate & (torch.dot(right, ref_dir) < 0), -right, right)
+        right = orthonormal_right(up, right)
+    else:
+        right = torch.stack([torch.zeros_like(up[0]), -up[2], up[1]])
+        right = right / (torch.linalg.norm(right) + 1e-9)
+
+    if laptop_up is not None:
+        # the laptop plane override: ``laptop_up`` is the base-plane normal
+        # oriented toward the camera; it replaces up whenever it lines up
+        # with up no better than with right
+        lv = (torch.tensor(True, device=pc.device) if laptop_up_valid is None
+              else torch.as_tensor(laptop_up_valid, device=pc.device))
+        lup = laptop_up.to(pc.dtype)
+        swap = (torch.dot(up, lup) < torch.abs(torch.dot(right, lup))) & lv
+        up, right = (torch.where(swap, lup, up),
+                     torch.where(swap, orthonormal_right(lup, up), right))
+
     # degenerate right fallback
     degen = torch.linalg.norm(right) < 1e-7
     right = torch.where(degen, orthonormal_right(up, draws.fallback_normal), right)
@@ -265,12 +420,15 @@ def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseC
 @torch.no_grad()
 def estimate_pose(point_encoder, ppf_encoder, pc, pc_normal, n_valid, sphere_pts,
                   pcfg: PoseConfig, nbr_idx=None, draws: Optional[PoseDraws] = None,
-                  generator: Optional[torch.Generator] = None) -> PoseResult:
+                  generator: Optional[torch.Generator] = None, laptop_up=None,
+                  laptop_up_valid=None) -> PoseResult:
     """Single-instance 9D pose.  pc/pc_normal: [N, 3] padded, valid points
     compacted to the front; ``n_valid`` real points.  Draws come from
-    ``draws`` when given, else from ``generator``."""
+    ``draws`` when given, else from ``generator``.  ``laptop_up`` [3]
+    (with ``laptop_up_valid``, default True) is the laptop plane override."""
     if draws is None:
         draws = PoseDraws.sample(pcfg, generator, pc.device)
     point_idxs, preds = pair_predictions(point_encoder, ppf_encoder, pc, pc_normal, n_valid,
                                          pcfg, draws.pair_u, nbr_idx)
-    return vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg, draws)
+    return vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg, draws,
+                     laptop_up, laptop_up_valid)

@@ -29,7 +29,7 @@ from cppf_tpu_torch.ops import vote_hist
 from cppf_tpu_torch.ops import voting
 
 W8 = 16
-GRIDS = [(64, 1), (120, 2)]
+GRIDS = [(56, 1), (64, 1), (88, 2), (120, 2), (152, 4)]
 
 
 @pytest.fixture
@@ -158,6 +158,43 @@ def test_front_ends_match_plain(cuda, g, pf, splat, adaptive):
                [exact_w], rel=pairs_rel)
     assert vote_hist.LAUNCHES["bound_projections_pairs"] == before["bound_projections_pairs"] + 1
     assert vote_hist.LAUNCHES["refine_window_pairs"] == before["refine_window_pairs"] + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["peaked point weights", "half the pairs masked"])
+def test_front_ends_weights_and_mask(cuda, case):
+    """Both front ends of both peak kernels against float64 sums on the
+    pooled 152³ grid (pool 4), with the weights of a second center pass
+    (0.05 + 0.95·score, most points near the floor) or with a bool pair
+    mask that drops about half the pairs."""
+    g, pf, res, n_rots = 152, 4, 4e-3, 72
+    pc, preds_tr, probs, idxs, corner, dims, mask = _pair_inputs(g, cuda, False)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    if case == "peaked point weights":
+        score = torch.clamp(torch.rand(probs.shape[0], generator=gen) * 4 - 3, 0, 1)
+        probs = (0.05 + 0.95 * score).to(cuda)
+        mask = torch.ones_like(mask)
+    else:
+        probs = torch.ones_like(probs)
+        mask = (torch.rand(mask.shape[0], generator=gen) < 0.5).to(cuda)
+    params = voting.pair_vote_params(pc, preds_tr, probs, idxs, res, n_rots, False, mask)
+    frame = vote_hist.vote_frame(corner, res, dims)
+    f, r, w = voting.votes_from_pair_params(params, corner, res, dims, (g, g, g), n_rots)
+    votes = [t.reshape(-1).contiguous() for t in (*f, *r, w)]
+    bn = -(-g // pf)
+    kw = dict(by_n=bn, bz_n=bn, pfy=pf, pfz=pf)
+    pkw = dict(n_rots=n_rots, grid_shape=(g, g, g))
+    exact = _float(vote_hist.bound_projections_plain(*_double(votes), gx=g, gy=g, **kw))
+    _bounds(vote_hist.bound_projections(*votes, gx=g, gy=g, **kw), exact)
+    _bounds(vote_hist.bound_projections_pairs(params, frame, **pkw, **kw), exact)
+    ix, iy = divmod(int(torch.argmax(exact[0])), bn)
+    iz = int(torch.argmax(exact[1])) % bn
+    o = torch.tensor([min(v // W8 * W8, g - W8) for v in (ix, iy * pf, iz * pf)],
+                     dtype=torch.int32, device=cuda)
+    exact_w = [vote_hist.refine_window_plain(o, *_double(votes), w8=W8).float()]
+    assert float(exact_w[0].max()) > 0
+    _close([vote_hist.refine_window(o, *votes, w8=W8)], exact_w)
+    _close([vote_hist.refine_window_pairs(o, params, frame, **pkw, w8=W8)], exact_w)
 
 
 @pytest.mark.cuda

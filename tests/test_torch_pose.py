@@ -1,14 +1,11 @@
-"""The port's bowl slice as a whole against cppf_tpu's estimate_pose.
+"""The port's bowl slice as a whole against cppf_tpu's estimate_pose, the
+port's PoseConfig against the JAX one, and oracle pose recovery.
 
 Both pipelines get the same cloud, neighbours and weights, and the same
-random draws: the JAX ones, made with estimate_pose's own key splits
-(pipeline/pose.py:794, :533, :544, :315) and handed to the port.
+random draws (``torch_slices``).
 """
 import dataclasses
-import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,54 +13,38 @@ import torch
 from cppf_tpu.config import load_config as load_config_j
 from cppf_tpu.data.synthetic import PRIMITIVES, mesh_bounds, oracle_pair_predictions, sample_surface
 from cppf_tpu.pipeline.pose import PoseConfig as PoseConfigJ
-from cppf_tpu.pipeline.pose import estimate_pose as estimate_pose_j
-from cppf_tpu.pipeline.preprocess import preprocess_cloud as preprocess_j
-from cppf_tpu.train.checkpoints import load_params
 from cppf_tpu_torch.config import load_config
-from cppf_tpu_torch.models.convert import ASSETS, load_encoders, load_npz_params
-from cppf_tpu_torch.pipeline.pose import AxisDraws, PoseConfig, PoseDraws, estimate_pose, vote_pose
+from cppf_tpu_torch.pipeline.pose import PoseConfig, PoseDraws, vote_pose
 from cppf_tpu_torch.pipeline.preprocess import preprocess_cloud
+from torch_slices import assert_slices_match, run_slice, runner_configs
 
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SNAP = os.path.join(ROOT, "checkpoints", "bowl", "config.yaml")
-SMALL = dict(knn=16, rot_subsample=2048)
-N_PAIRS = 2048
-
-
-def _jax_draws(key, pcfg):
-    """The draws estimate_pose makes from ``key``, as a PoseDraws."""
-    rng_pairs, rng_vote = jax.random.split(key)
-    pair_u = jax.random.uniform(rng_pairs, (pcfg.n_pairs, 2))
-    rng_tr, rng_up, _, rng_fallback = jax.random.split(rng_vote, 4)
-    rng_tr0, rng_tr1 = jax.random.split(rng_tr)
-    tr = [jax.random.gumbel(k, (pcfg.n_pairs, pcfg.tr_num_bins)) for k in (rng_tr0, rng_tr1)]
-    rng_bin, rng_sub = jax.random.split(rng_up)
-    t = lambda a: torch.from_numpy(np.array(a))
-    return PoseDraws(
-        pair_u=t(pair_u), tr_gumbel=t(jnp.stack(tr)),
-        up=AxisDraws(t(jax.random.uniform(rng_sub, (pcfg.rot_subsample,))),
-                     t(jax.random.gumbel(rng_bin, (pcfg.rot_subsample, pcfg.rot_num_bins)))),
-        fallback_normal=t(jax.random.normal(rng_fallback, (3,), jnp.float32)))
+CATEGORIES = ("bowl", "bottle", "can", "camera", "mug", "laptop", "sofa", "chair", "bed",
+              "bathtub", "bookshelf", "table")
 
 
 def test_pose_config_matches_jax():
-    for cat in ("bowl", "bottle"):
-        snap = os.path.join(ROOT, "checkpoints", cat, "config.yaml")
-        pj = PoseConfigJ.from_config(load_config_j(cat, snapshot=snap))
-        pt = PoseConfig.from_config(load_config(cat, snapshot=snap))
+    """Every category's config, built as the runners build it, gives the
+    JAX PoseConfig's values for every field the port has."""
+    grids = {}
+    for cat in CATEGORIES:
+        cfg_j, cfg_t = runner_configs(cat)
+        pj, pt = PoseConfigJ.from_config(cfg_j), PoseConfig.from_config(cfg_t)
         for f in dataclasses.fields(pt):
-            assert getattr(pt, f.name) == getattr(pj, f.name), f.name
+            assert getattr(pt, f.name) == getattr(pj, f.name), (cat, f.name)
         np.testing.assert_array_equal(pt.sphere_points(), pj.sphere_points())
-    assert pt.grid_shape == (120, 120, 120)
-    assert len(PoseConfig.from_config(load_config("bowl", snapshot=SNAP)).sphere_points()) == 480
+        grids[cat] = pt.grid_shape[0]
+    assert grids["bottle"] == 120 and grids["can"] == 56 and grids["bookshelf"] == 152
+    assert len(PoseConfig.from_config(load_config("bowl")).sphere_points()) == 480
 
 
-@pytest.mark.parametrize("category", ["mug", "laptop"])
-def test_unported_flags_raise(category):
+@pytest.mark.parametrize("flag,value", [("coplanar_halfspace", True), ("subvoxel_refine", True)])
+def test_unported_flags_raise(flag, value):
+    cfg = load_config("mug")
+    setattr(cfg, flag, value)
     with pytest.raises(NotImplementedError):
-        PoseConfig.from_config(load_config(category))
+        PoseConfig.from_config(cfg)
 
 
 @pytest.mark.parametrize("view,seed", [(0, 7), (2, 11)])
@@ -71,38 +52,7 @@ def test_bowl_slice_matches_jax(view, seed):
     """Bowl checkpoint at a small size (512 points, knn 16, 2048 pairs) on a
     committed rendered view: T to 1e-6 (the same voxel), the same up sphere
     point, scale to rtol 1e-5, back-vote survivors within 0.1 %."""
-    with np.load(os.path.join(ASSETS, "bowl_views.npz")) as z:
-        raw = z[f"pc_{view}"]
-    pad = np.zeros((8192, 3), np.float32)
-    pad[: len(raw)] = raw
-    pre = preprocess_j(jax.random.PRNGKey(0), jnp.asarray(pad), len(raw), 4e-3,
-                       npoint_pad=512, knn=16, jitter=False)
-    pcfg_j = dataclasses.replace(
-        PoseConfigJ.from_config(load_config_j("bowl", snapshot=SNAP), n_pairs=N_PAIRS), **SMALL)
-    pcfg_t = dataclasses.replace(
-        PoseConfig.from_config(load_config("bowl", snapshot=SNAP), n_pairs=N_PAIRS), **SMALL)
-    sphere = pcfg_t.sphere_points()
-    params = load_params(os.path.join(ROOT, "checkpoints", "bowl"), "params_best")
-    key = jax.random.PRNGKey(seed)
-    out_j = estimate_pose_j(key, params["point"], params["ppf"], pre.pc, pre.normals,
-                            pre.n_valid, jnp.asarray(sphere), pcfg_j, nbr_idx=pre.nbr_idx)
-
-    point, ppf = load_encoders(load_npz_params(os.path.join(ASSETS, "bowl_params_best.npz")),
-                               load_config("bowl", snapshot=SNAP).out_dim, "cpu")
-    t = lambda a: torch.from_numpy(np.array(a))
-    out_t = estimate_pose(point, ppf, t(pre.pc), t(pre.normals), t(pre.n_valid),
-                          torch.from_numpy(sphere), pcfg_t, nbr_idx=t(pre.nbr_idx),
-                          draws=_jax_draws(key, pcfg_t))
-    np.testing.assert_allclose(out_t.T.numpy(), np.asarray(out_j.T), atol=1e-6)
-    np.testing.assert_allclose(out_t.up.numpy(), np.asarray(out_j.up), atol=1e-6)
-    assert np.any(np.all(np.abs(sphere - np.abs(out_t.up.numpy())) < 1e-6, -1)
-                  | np.all(np.abs(sphere + out_t.up.numpy()) < 1e-6, -1)
-                  | np.all(np.abs(sphere - out_t.up.numpy()) < 1e-6, -1))
-    np.testing.assert_allclose(out_t.scale.numpy(), np.asarray(out_j.scale), rtol=1e-5)
-    np.testing.assert_allclose(out_t.R.numpy(), np.asarray(out_j.R), atol=1e-6)
-    n_j = int(out_j.n_filtered)
-    assert n_j > 100
-    assert abs(int(out_t.n_filtered) - n_j) <= 0.001 * n_j
+    assert_slices_match(*run_slice("bowl", view, seed))
 
 
 def _posed_instance(rng, category, n=4000):
