@@ -66,9 +66,26 @@ Phases:
    dense grid's to 1e-3 of the maximum; and a reduced run (200 000 pairs) on
    the CPU and on the card, which must give the same detections to 1 mm.
 
+8. every other category on its 4 committed views at full width, replaying
+   each stored JAX run's draws, against the stored JAX estimates;
+9. CPU against CUDA on one view of each at 20 000 pairs;
+10. the NOCS REAL275 driver, ``nocs_inference.main`` at full width with
+   ``--seed 0`` on the committed frame (``assets/nocs_frame``: 7 instances
+   of 4 categories, a batched chunk of 3 padded to 4, one of 2, two
+   singletons; launch counts reset just before): fails unless every
+   instance is posed (not the identity, det(R) > 0, unit scales), its T
+   within 1 cm of the stored JAX driver's and its up within 5° (up to sign
+   for bowl, bottle, can; one flip is printed and allowed), the pairs front
+   ends of both peak kernels launched once (mug twice) a center pass and
+   the votes front ends and ``dense_hist`` never, and ``nocs_eval.main``
+   on the stored JAX pkl equals the stored JAX eval to 1e-12; then the warm
+   frame loop (median of 3), ms per instance of each chunk, the frame's
+   peak device memory, and both peak kernels held and timed on the frame's
+   first instance.
+
 ``--profile`` adds the warm time of each stage of one pose, and a
-torch.profiler table of the kernels of one pose and of one zero-shot
-frame (``scripts/pose_stages.py`` runs the pose half for several checkouts
+torch.profiler table of the kernels of one pose, of one zero-shot frame
+and of one NOCS frame (``scripts/pose_stages.py`` runs the pose half for several checkouts
 in turns).  Prints the categories JSON line of phase 8, the kernels JSON
 line, the ``nvidia-smi`` line, and last the result line.
 Usage: python3 chip_smoke.py [--profile]
@@ -668,16 +685,16 @@ def stage_times(runner, pc_raw, reps: int = 5):
     print(f"  stages total {total:.3f} ms", flush=True)
 
 
-def profile_pose(runner, pc_raw):
-    """Device time by kernel over one warm pose, and the device's idle share."""
+def device_profile(fn, what, top=15):
+    """One call of ``fn`` under torch.profiler: its wall time (host clock,
+    synchronised), the device's busy time by kernel and its idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    runner.estimate(pc_raw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.estimate(pc_raw)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -685,10 +702,17 @@ def profile_pose(runner, pc_raw):
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    print(f"profile: wall {wall_ms:.2f} ms under the profiler, device busy {busy_ms:.2f} ms "
-          f"over {launches} kernel launches (idle share {1 - busy_ms / wall_ms:.3f})")
-    for e in kernels[:15]:
+    print(f"profile: {what}: wall {wall_ms:.2f} ms under the profiler, device busy "
+          f"{busy_ms:.2f} ms over {launches} kernel launches (idle share "
+          f"{1 - busy_ms / wall_ms:.3f})", flush=True)
+    for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:100]}")
+
+
+def profile_pose(runner, pc_raw):
+    """Device time by kernel over one warm pose, and the device's idle share."""
+    runner.estimate(pc_raw)
+    device_profile(lambda: runner.estimate(pc_raw), "one warm pose")
 
 
 def zero_shot_stages(encoders, cfg, z, n_pairs, device, prop_thresh=50.0, contrib_thresh=12):
@@ -912,21 +936,8 @@ def _match(dets, centers):
 def profile_frame(encoders, cfg, z, device):
     """Device time by kernel over one warm zero-shot frame, and the device's
     idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, times, _ = zero_shot_stages(encoders, cfg, z, ZS_PAIRS, device)
-    wall_ms = sum(times.values()) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"profile: zero-shot frame {wall_ms:.1f} ms under the profiler, device busy "
-          f"{busy_ms:.1f} ms over {sum(e.count for e in kernels)} kernel launches (idle share "
-          f"{1 - busy_ms / wall_ms:.3f})", flush=True)
-    for e in kernels[:12]:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:100]}")
+    device_profile(lambda: zero_shot_stages(encoders, cfg, z, ZS_PAIRS, device),
+                   "zero-shot frame", top=12)
 
 
 def zero_shot_phase(z, device, profile=False):
@@ -1042,6 +1053,178 @@ def zero_shot_phase(z, device, profile=False):
           f"|dT| {dT} m (cpu run {sum(t_cpu.values()):.1f} s)", flush=True)
     check(len(d_cpu) == len(d_gpu) > 0, "CPU and CUDA detection counts differ")
     check(max(dT) < 1e-3, "CPU and CUDA detections are more than 1 mm apart")
+    return records, launches
+
+
+# the up-symmetric NOCS classes of the eval (eval/nocs_eval.py::load_results);
+# their up axis is compared with JAX's up to sign
+UP_SYMMETRIC = ("bowl", "bottle", "can")
+NOCS_T_TOL = 0.01
+NOCS_UP_TOL_DEG = 5.0
+
+
+def unpack_nocs_frame(tmp):
+    """The committed frame (assets/nocs_frame) as the driver reads it:
+    ``tmp/nocs/real/...``, ``tmp/seg/results_*.pkl``, and a checkpoint tree
+    ``tmp/checkpoints`` of links to the repo's ``checkpoints/<cat>`` for the
+    frame's categories (no ``laptop_aux``), as its JAX run had.  Returns
+    (seg_dir, nocs_dir, ckpt_path, the record, the stored JAX run)."""
+    import gzip
+    import pickle
+    import shutil
+
+    from cppf_tpu_torch.eval.nocs_inference import SYNSET_NAMES
+    from cppf_tpu_torch.models.convert import ASSETS
+
+    src = os.path.join(ASSETS, "nocs_frame")
+    shutil.copytree(os.path.join(src, "real"), os.path.join(tmp, "nocs", "real"))
+    with gzip.open(os.path.join(src, "results_real_scene1_0000.pkl.gz"), "rb") as f:
+        record = pickle.load(f)
+    os.makedirs(os.path.join(tmp, "seg"))
+    with open(os.path.join(tmp, "seg", "results_real_scene1_0000.pkl"), "wb") as f:
+        pickle.dump(record, f)
+    ckpt = os.path.join(tmp, "checkpoints")
+    os.makedirs(ckpt)
+    for cat in sorted({SYNSET_NAMES[c] for c in record["pred_class_ids"]}):
+        os.symlink(os.path.join(ROOT, "checkpoints", cat), os.path.join(ckpt, cat))
+    return (os.path.join(tmp, "seg"), os.path.join(tmp, "nocs"), ckpt, record,
+            dict(np.load(os.path.join(src, "jax_driver.npz"))))
+
+
+def nocs_driver_phase(tmp, profile=False):
+    """Phase 10: ``nocs_inference.main`` at full width with ``--seed 0`` on
+    the committed frame (launch counts reset just before and read just
+    after), its poses against the stored JAX driver's, ``nocs_eval.main``
+    on the stored JAX pkl against the stored JAX eval, the frame loop timed
+    warm, and both peak kernels held against their plain versions and timed
+    on the frame's first instance.  Returns (kernel records, launches)."""
+    import contextlib
+    import io
+    import pickle
+
+    from cppf_tpu_torch.core import threefry
+    from cppf_tpu_torch.data.png import read_png
+    from cppf_tpu_torch.eval import nocs_eval, nocs_inference as ni
+    from cppf_tpu_torch.ops import vote_hist as vh
+
+    seg_dir, nocs_dir, ckpt, record, jax_run = unpack_nocs_frame(tmp)
+    names = [ni.SYNSET_NAMES[c] for c in record["pred_class_ids"]]
+    n = len(names)
+    out_dir = os.path.join(tmp, "pred")
+    argv = ["--seg_dir", seg_dir, "--nocs_dir", nocs_dir, "--out_dir", out_dir,
+            "--ckpt_path", ckpt, "--seed", "0"]
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    vh.reset_launches()
+    frames = ni.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(vh.LAUNCHES)
+    cold_s = time.perf_counter() - t0
+    print(f"nocs driver: {n} instances ({', '.join(names)}), chunks "
+          f"{[(c.category, c.instances, c.batched) for c in frames[0]]}; launches {launches}; "
+          f"first run of main {cold_s:.2f} s (runners, weights and first calls included)",
+          flush=True)
+    args = ni.build_parser().parse_args(argv)
+    runners = ni.load_runners(args)
+    passes = sum(2 if runners[c].pcfg.asym_center_refine else 1 for c in names)
+    check(launches["bound_projections_pairs"] == passes,
+          f"nocs driver: bound_projections_pairs launched {launches['bound_projections_pairs']} "
+          f"times, not once a center pass ({passes})")
+    check(passes <= launches["refine_window_pairs"] <= 2 * passes,
+          f"nocs driver: refine_window_pairs launched {launches['refine_window_pairs']} times "
+          f"for {passes} center passes")
+    check(all(launches[k] == 0 for k in ("bound_projections", "refine_window", "dense_hist",
+                                         "dense_hist_pairs")),
+          "nocs driver: a votes front end or dense_hist launched")
+
+    with open(ni.result_path(out_dir, record), "rb") as f:
+        res = pickle.load(f)
+    RTs, scales = res["pred_RTs"], res["pred_scales"]
+    R = RTs[:, :3, :3] / np.cbrt(np.linalg.det(RTs[:, :3, :3]))[:, None, None]
+    flips = []
+    for i, cat in enumerate(names):
+        check(not np.allclose(RTs[i], np.eye(4)), f"nocs driver: instance {i} was not posed")
+        check(np.linalg.det(RTs[i][:3, :3]) > 0, f"nocs driver: instance {i} has det(R) <= 0")
+        check(abs(np.linalg.norm(scales[i]) - 1) <= 1e-5,
+              f"nocs driver: instance {i} |pred_scales| = {np.linalg.norm(scales[i])}")
+        dT = float(np.linalg.norm(RTs[i][:3, 3] - jax_run["T"][i]))
+        d_up = _angle(R[i][:, 1], jax_run["up"][i], fold=cat in UP_SYMMETRIC)
+        d_right = _angle(R[i][:, 0], jax_run["right"][i])
+        print(f"  instance {i} ({cat}): port minus JAX T {dT * 1e3:.3f} mm, up {d_up:.3f} deg, "
+              f"right {d_right:.3f} deg", flush=True)
+        check(dT <= NOCS_T_TOL, f"nocs driver: instance {i} T {dT * 1e3:.2f} mm from JAX's")
+        if d_up > NOCS_UP_TOL_DEG:
+            flips.append(i)
+            print(f"  instance {i} ({cat}): up {d_up:.2f} deg from JAX's (a near-tie flip?)",
+                  flush=True)
+    check(len(flips) <= 1, f"nocs driver: up axes of instances {flips} differ from JAX's by "
+          f"more than {NOCS_UP_TOL_DEG} deg")
+
+    # the port's eval on the stored JAX pkl equals the stored JAX eval
+    jax_dir = os.path.join(tmp, "jax_pred")
+    os.makedirs(jax_dir)
+    with open(ni.result_path(jax_dir, record), "wb") as f:
+        pickle.dump(dict(record, pred_RTs=jax_run["pred_RTs"],
+                         pred_scales=jax_run["pred_scales"]), f)
+    with contextlib.redirect_stdout(io.StringIO()):  # its per-class tables
+        got = nocs_eval.main(["--pred_dir", jax_dir, "--subsample", "1"])
+    for name, g in zip(("iou_aps", "pose_aps", "pose_pred_matches", "pose_gt_matches"), got):
+        want = jax_run[name]
+        same = (np.array_equal(g, want) if g.dtype.kind == "i" else
+                bool(np.allclose(g, want, rtol=0, atol=1e-12, equal_nan=True)))
+        check(same and g.shape == want.shape, f"nocs eval on the JAX pkl: {name} differs")
+    print("nocs eval on the stored JAX pkl: iou_aps, pose_aps and the matches equal the stored "
+          "JAX eval (1e-12)", flush=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        iou_aps, pose_aps = nocs_eval.main(["--pred_dir", out_dir, "--subsample", "1"])[:2]
+    print(f"nocs eval on the port's pkl: mean 3D IoU AP at 0.25 {iou_aps[-1, 25]:.4f}, at 0.5 "
+          f"{iou_aps[-1, 50]:.4f}; mean pose AP at 10 deg 10 cm {pose_aps[-1, 1, 1]:.4f} (JAX's "
+          f"pkl: {jax_run['iou_aps'][-1, 25]:.4f}, {jax_run['iou_aps'][-1, 50]:.4f}, "
+          f"{jax_run['pose_aps'][-1, 1, 1]:.4f})", flush=True)
+
+    # the frame loop of main, warm: PNG, crops, poses, their copy to the host
+    depth_path = os.path.join(nocs_dir, record["image_path"][5:] + "_depth.png")
+    seconds, chunk_ms = [], []
+    for rep in range(4):
+        torch.cuda.synchronize()
+        if rep == 3:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        groups = ni.frame_crops(read_png(depth_path), record, runners)
+        _, _, _, chunks = ni.infer_frame(groups, n, runners, threefry.key(0))
+        torch.cuda.synchronize()
+        if rep < 3:
+            seconds.append(time.perf_counter() - t0)
+            chunk_ms.append([c.seconds * 1e3 / c.instances for c in chunks])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    per_chunk = [statistics.median(ms) for ms in zip(*chunk_ms)]
+    print(f"nocs driver: warm {statistics.median(seconds):.3f} s/frame (median of 3: "
+          f"{', '.join(f'{x:.3f}' for x in seconds)}); ms per instance by chunk (median of 3): "
+          + "; ".join(f"{c.category} x{c.instances}{' batched' if c.batched else ''} {ms:.1f}"
+                      for c, ms in zip(chunks, per_chunk))
+          + f"; peak device memory of a frame {peak_gib:.3f} GiB | {smi_line()}", flush=True)
+
+    # the draws alone: what remaking JAX's random numbers costs an instance
+    i0, pc0 = next(iter(groups.values()))[0]
+    runner = runners[names[i0]]
+    draw_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.draws(threefry.key(0))
+        torch.cuda.synchronize()
+        draw_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"nocs driver: the JAX-key draws of one {names[i0]} instance "
+          f"{statistics.median(draw_ms):.2f} ms (median of 3)", flush=True)
+    if profile:
+        device_profile(lambda: ni.infer_frame(ni.frame_crops(read_png(depth_path), record,
+                                                             runners),
+                                              n, runners, threefry.key(0)),
+                       "one warm nocs frame")
+
+    # both peak kernels on the frame's first instance, against the plain version
+    records = kernel_phase(main_path_inputs(runner, pc0, runner.pcfg.grid_shape),
+                           f"nocs frame instance {i0} ({names[i0]})")
     return records, launches
 
 
@@ -1180,22 +1363,36 @@ def main():
     print(json.dumps({"categories": summary}), flush=True)
     cpu_cuda_phase(runners)
 
+    # ---- 10. the NOCS REAL275 driver on the committed frame ------------------
+    import tempfile
+
+    t10 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        nocs_records, nocs_launches = nocs_driver_phase(tmp, args.profile)
+    print(f"phase 10 (nocs driver): {time.perf_counter() - t10:.1f} s", flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
-    # comparisons, stands beside it under votes_ keys
+    # comparisons, stands beside it under votes_ keys.  The peak kernels
+    # stand twice: on bowl's main path (phase 4) and on the NOCS driver's
+    # frame (phase 10), each with the launches of its own run
     kernels = []
-    for name, rec in records.items():
-        pairs = name + "_pairs" if name + "_pairs" in launches else name
-        k = dict(name=name, route="cuda", source="cppf_tpu_torch/csrc/vote_hist.cu",
-                 replaces=TPU_KERNELS[name], launches=launches[pairs],
-                 max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
-                 bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-                 library_ms=rec["library_ms"])
-        if pairs != name:
-            k.update({key: rec[key] for key in ("votes_max_abs_err", "votes_ms", "votes_plain_ms",
-                                                "votes_bound_ms", "votes_bound_by")},
-                     votes_launches=launches[name])
-        kernels.append(k)
+    paths = [("main path (phase 4; dense_hist: zero-shot, phase 7)", records, launches),
+             ("nocs driver (phase 10)", nocs_records, nocs_launches)]
+    for path, recs, counts in paths:
+        for name, rec in recs.items():
+            pairs = name + "_pairs" if name + "_pairs" in counts else name
+            k = dict(name=name, path=path, route="cuda",
+                     source="cppf_tpu_torch/csrc/vote_hist.cu", replaces=TPU_KERNELS[name],
+                     launches=counts[pairs], max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+                     plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                     bound_by=rec["bound_by"], library_ms=rec["library_ms"])
+            if pairs != name:
+                k.update({key: rec[key] for key in ("votes_max_abs_err", "votes_ms",
+                                                    "votes_plain_ms", "votes_bound_ms",
+                                                    "votes_bound_by")},
+                         votes_launches=counts[name])
+            kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device,

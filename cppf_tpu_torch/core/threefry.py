@@ -12,7 +12,8 @@ XLA's float32 polynomial for erfinv (:func:`erfinv`), each of which can
 differ from XLA's in the last bit.
 
 A key is a pair of Python ints.  This lets the port consume the very draws
-that a JAX run consumed from the same key (``PoseDraws.from_jax_key``).
+that a JAX run consumed from the same key (``PoseDraws.from_jax_key``);
+:func:`draw_many` makes several draws in one pass of the hash.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ def key(seed: int) -> Key:
 
 def threefry2x32(k: Key, x0: torch.Tensor, x1: torch.Tensor):
     """The Threefry-2x32 hash (20 rounds) of the counter words ``x0``,
-    ``x1`` (int64 tensors holding uint32 values) under key ``k``."""
+    ``x1`` (uint32 values as Python ints or int64 tensors) under key ``k``:
+    two ints, or two int64 tensors that give each counter its own key."""
     ks = (k[0], k[1], k[0] ^ k[1] ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -49,36 +51,32 @@ def threefry2x32(k: Key, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def _counters(n: int, device):
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    return i >> 32, i & _MASK
-
-
 def split(k: Key, num: int = 2) -> List[Key]:
-    """``jax.random.split(key, num)``."""
-    b0, b1 = threefry2x32(k, *_counters(num, "cpu"))
-    return list(zip(b0.tolist(), b1.tolist()))
+    """``jax.random.split(key, num)``, hashed in Python ints (a few keys:
+    cheaper than tensor operations)."""
+    return [threefry2x32(k, i >> 32, i & _MASK) for i in range(num)]
 
 
-def random_bits(k: Key, shape, device) -> torch.Tensor:
-    """32 random bits an element, as int64 values in [0, 2^32)."""
-    b0, b1 = threefry2x32(k, *_counters(math.prod(shape), device))
-    return (b0 ^ b1).reshape(shape)
-
-
-def uniform(k: Key, shape, device, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in float32."""
-    mant = ((random_bits(k, shape, device) >> 9) | 0x3F800000).to(torch.int32)
+def _uniform(bits: torch.Tensor, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32 from 32 random bits an element."""
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = mant.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
-def gumbel(k: Key, shape, device) -> torch.Tensor:
+def _gumbel(bits: torch.Tensor) -> torch.Tensor:
     """``jax.random.gumbel`` (its default "low" mode) in float32."""
-    tiny = float(torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(uniform(k, shape, device, tiny, 1.0)))
+    return -torch.log(-torch.log(_uniform(bits, float(torch.finfo(torch.float32).tiny), 1.0)))
+
+
+def _normal(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.normal`` in float32: √2 · erfinv(u), u uniform on
+    (-1, 1)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return (torch.tensor(math.sqrt(2), dtype=torch.float32, device=bits.device)
+            * erfinv(_uniform(bits, lo, 1.0)))
 
 
 # XLA's float32 ErfInv: Giles' single-precision approximation, a degree-8
@@ -101,9 +99,20 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def normal(k: Key, shape, device) -> torch.Tensor:
-    """``jax.random.normal`` in float32: √2 · erfinv(u), u uniform on
-    (-1, 1)."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(k, shape, device, lo, 1.0)
-    return torch.tensor(math.sqrt(2), dtype=torch.float32, device=device) * erfinv(u)
+_KINDS = {"uniform": _uniform, "gumbel": _gumbel, "normal": _normal}
+
+
+def draw_many(requests, device) -> List[torch.Tensor]:
+    """Several draws, each ``(kind, key, shape)`` with kind ``"uniform"``,
+    ``"gumbel"`` or ``"normal"``, from one pass of the hash over all their
+    counters, each counter with its own draw's key.  Equal element for
+    element to the draws made one at a time (the hash is elementwise), in
+    one set of launches instead of one a draw."""
+    sizes = [math.prod(shape) for _, _, shape in requests]
+    keys = torch.repeat_interleave(
+        torch.tensor([k for _, k, _ in requests], dtype=torch.int64, device=device),
+        torch.tensor(sizes, device=device), dim=0, output_size=sum(sizes))
+    i = torch.cat([torch.arange(n, dtype=torch.int64, device=device) for n in sizes])
+    b0, b1 = threefry2x32((keys[:, 0], keys[:, 1]), i >> 32, i & _MASK)
+    return [_KINDS[kind](bits.reshape(shape))
+            for (kind, _, shape), bits in zip(requests, (b0 ^ b1).split(sizes))]

@@ -147,22 +147,28 @@ class PoseDraws(NamedTuple):
         :533, :544, :315), remade in torch from ``key`` (two uint32 words,
         ``jax.random.key_data``); the preprocess jitter is for ``n_raw``
         padded points."""
-        key = (int(key[0]), int(key[1]))
-        r_pre, r_pose = threefry.split(key)
-        rng_pairs, rng_vote = threefry.split(r_pose)
+        return cls.from_jax_keys(pcfg, *threefry.split((int(key[0]), int(key[1]))), device,
+                                 n_raw)
+
+    @classmethod
+    def from_jax_keys(cls, pcfg: PoseConfig, pre_key, pose_key, device,
+                      n_raw: int) -> "PoseDraws":
+        """The draws of a preprocess key and a pose key taken apart, as
+        ``CategoryRunner.estimate_batch`` takes them from one split: the
+        jitter for ``n_raw`` padded points from ``pre_key``, every pose draw
+        from ``pose_key`` (cppf_tpu/eval/nocs_inference.py:169-178)."""
+        rng_pairs, rng_vote = threefry.split((int(pose_key[0]), int(pose_key[1])))
         rng_tr, rng_up, rng_right, rng_fallback = threefry.split(rng_vote, 4)
         p, s = pcfg.n_pairs, pcfg.rot_subsample
-
-        def axis(k):
+        requests = [("uniform", rng_pairs, (p, 2)), ("normal", rng_fallback, (3,)),
+                    ("normal", (int(pre_key[0]), int(pre_key[1])), (n_raw, 3))]
+        requests += [("gumbel", k, (p, pcfg.tr_num_bins)) for k in threefry.split(rng_tr)]
+        for k in (rng_up, rng_right) if pcfg.regress_right else (rng_up,):
             rng_bin, rng_sub = threefry.split(k)
-            return AxisDraws(threefry.uniform(rng_sub, (s,), device),
-                             threefry.gumbel(rng_bin, (s, pcfg.rot_num_bins), device))
-
-        tr = [threefry.gumbel(k, (p, pcfg.tr_num_bins), device) for k in threefry.split(rng_tr)]
-        return cls(threefry.uniform(rng_pairs, (p, 2), device), torch.stack(tr), axis(rng_up),
-                   threefry.normal(rng_fallback, (3,), device),
-                   threefry.normal(r_pre, (n_raw, 3), device),
-                   axis(rng_right) if pcfg.regress_right else None)
+            requests += [("uniform", rng_sub, (s,)), ("gumbel", rng_bin, (s, pcfg.rot_num_bins))]
+        pair_u, fallback, jitter, tr0, tr1, *axes = threefry.draw_many(requests, device)
+        right = AxisDraws(*axes[2:]) if pcfg.regress_right else None
+        return cls(pair_u, torch.stack([tr0, tr1]), AxisDraws(*axes[:2]), fallback, jitter, right)
 
 
 class PoseResult(NamedTuple):
@@ -432,3 +438,16 @@ def estimate_pose(point_encoder, ppf_encoder, pc, pc_normal, n_valid, sphere_pts
                                          pcfg, draws.pair_u, nbr_idx)
     return vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg, draws,
                      laptop_up, laptop_up_valid)
+
+
+@torch.no_grad()
+def estimate_pose_batch(point_encoder, ppf_encoder, pcs, pc_normals, n_valids, sphere_pts,
+                        pcfg: PoseConfig, draws, nbr_idxs) -> PoseResult:
+    """:func:`estimate_pose` of each instance of ``pcs`` [B, N, 3] on its own
+    ``draws[i]`` and ``nbr_idxs[i]``, one after another, as the JAX
+    ``lax.map`` runs them (cppf_tpu/pipeline/pose.py:804-839); the fields
+    come back stacked [B, ...]."""
+    rows = [estimate_pose(point_encoder, ppf_encoder, pcs[i], pc_normals[i], n_valids[i],
+                          sphere_pts, pcfg, nbr_idx=nbr_idxs[i], draws=d)
+            for i, d in enumerate(draws)]
+    return PoseResult(*(torch.stack(f) for f in zip(*rows)))

@@ -56,3 +56,14 @@ def preprocess_cloud(
     normals = torch.where(valid[:, None], normals, 0.0)
     return PreprocessedCloud(pc, normals, n_keep.to(torch.int32), valid, nbr_idx,
                              take.to(torch.int32))
+
+
+def preprocess_cloud_batch(pcs_raw: torch.Tensor, n_raws, res: float, noises: torch.Tensor,
+                           npoint_pad: int = 8192, knn: int = 60) -> PreprocessedCloud:
+    """:func:`preprocess_cloud` of each instance of ``pcs_raw`` [B, N_raw, 3]
+    (``n_raws`` [B] real points each, ``noises`` [B, N_raw, 3] their own
+    jitter draws), one after another; the fields come back stacked [B, ...]
+    (counterpart of cppf_tpu/pipeline/preprocess.py:80-99, a vmap there)."""
+    rows = [preprocess_cloud(pcs_raw[i], int(n_raws[i]), res, npoint_pad=npoint_pad, knn=knn,
+                             noise=noises[i]) for i in range(pcs_raw.shape[0])]
+    return PreprocessedCloud(*(torch.stack(f) for f in zip(*rows)))

@@ -21,14 +21,36 @@ Writes two files into ``cppf_tpu_torch/assets/``:
   stand-in) and the JAX estimate with that override: ``jax_ov_T_i``,
   ``jax_ov_up_i``, ``jax_ov_right_i``, ``jax_ov_scale_i``.
 
+With ``--nocs_frame`` it writes instead ``cppf_tpu_torch/assets/nocs_frame/``,
+one rendered NOCS-format frame and the JAX NOCS driver's output on it:
+
+- ``real/scene_1/0000_depth.png`` (uint16 mm) and ``0000_color.png``, written
+  by ``cv2``: ``FRAME_LAYOUT``'s instances (native rasterizer, the
+  categories' primitives, REAL275 intrinsics, 640×480), z-buffer composited
+  with a mask each;
+- ``results_real_scene1_0000.pkl.gz``: the detection record (masks, boxes,
+  classes, scores, GT), gzipped;
+- ``jax_driver.npz``: ``cppf_tpu.eval.nocs_inference.main`` on the CPU at
+  full width with ``--seed 0`` on a checkpoint tree that links
+  ``checkpoints/<cat>`` for the frame's categories (no ``laptop_aux``):
+  ``pred_RTs``, ``pred_scales`` and each instance's ``T``, ``up``,
+  ``right`` (from ``pred_RTs``); and ``cppf_tpu.eval.nocs_eval.main`` on
+  that output (``--subsample 1``): ``iou_aps``, ``pose_aps``,
+  ``pose_pred_matches``, ``pose_gt_matches``.
+
 Usage (needs JAX; runs on the CPU):
     python scripts/export_torch_assets.py [--category bowl] [--n_views 4] [--seed 0]
+    python scripts/export_torch_assets.py --nocs_frame   (~5 min)
 """
 from __future__ import annotations
 
 import argparse
+import gzip
 import os
+import pickle
+import shutil
 import sys
+import tempfile
 
 import numpy as np
 
@@ -116,17 +138,158 @@ def render_views(category: str, n_views: int, seed: int, runner):
     return views
 
 
+# the frame's instances: (category, x, y, z) in the driver's camera frame
+# (meters; +y down the image, +z away); the categories of 3, 2 and 1+1
+# instances make a batched chunk padded from 3 to 4, one of 2, and two
+# singletons, one of them mug with its second center pass
+FRAME_LAYOUT = (("can", -0.27, 0.10, 0.80), ("bowl", -0.05, 0.12, 0.78),
+                ("mug", 0.20, 0.10, 0.82), ("bowl", 0.30, -0.08, 1.05),
+                ("can", 0.05, -0.10, 1.10), ("camera", -0.22, -0.08, 1.02),
+                ("bowl", -0.40, -0.14, 1.20))
+
+
+def render_nocs_frame(out_root: str, layout=FRAME_LAYOUT, seed: int = 0):
+    """A NOCS-format frame of ``layout``'s instances, each a random
+    primitive of its category at a random training-distribution rotation,
+    z-buffer composited: writes ``<out_root>/nocs/real/scene_1/0000_{depth,
+    color}.png`` and ``<out_root>/seg/results_real_scene1_0000.pkl``.
+    Returns (seg_dir, nocs_dir, the record)."""
+    import cv2
+
+    from cppf_tpu.config import load_config
+    from cppf_tpu.data import native
+    from cppf_tpu.data.shapenet import FLIP2NOCS
+    from cppf_tpu.data.synthetic import mesh_bounds, observation_pose, random_primitive
+    from cppf_tpu.eval.nocs_inference import REAL275_INTRINSICS, SYNSET_NAMES
+
+    rng = np.random.default_rng(seed)
+    K = REAL275_INTRINSICS
+    depths, gts = [], []
+    for cat, x, y, z in layout:
+        mesh = random_primitive(cat, rng)
+        lo, hi = mesh_bounds(mesh)
+        diag = float(np.linalg.norm(hi - lo))
+        scale = float(rng.uniform(*load_config(cat).scale_range))
+        R, _ = observation_pose(rng, is_nocs=True)
+        T = np.array([x, y, z])
+        v_canon = (mesh.vertices - (lo + hi) / 2) / diag * scale @ FLIP2NOCS.T
+        # the driver's backprojection recovers (x, -y_render, -z_render)
+        v_render = (v_canon @ R.T + T) * np.float32([1, -1, -1])
+        depths.append(native.rasterize_depth(v_render.astype(np.float32), mesh.faces,
+                                             K[0, 0], K[1, 1], K[0, 2], K[1, 2], 640, 480))
+        gts.append((R, T, (hi - lo) / diag * scale @ np.abs(FLIP2NOCS.T)))
+    stack = np.where(np.stack(depths) > 0, np.stack(depths), np.inf)
+    nearest = np.argmin(stack, axis=0)
+    hit = np.isfinite(stack.min(axis=0))
+    depth = np.where(hit, stack.min(axis=0), 0.0)
+    # colour: each instance its hue, shaded by depth
+    hues = np.float32([[200, 60, 50], [60, 160, 220], [230, 200, 60], [90, 200, 90],
+                       [180, 90, 200], [240, 140, 40], [120, 120, 240]])
+    shade = np.clip(1.4 - depth / 1.5, 0.2, 1.0)[:, :, None]
+    rgb = np.where(hit[:, :, None], hues[nearest % len(hues)] * shade, 40).astype(np.uint8)
+
+    frame_dir = os.path.join(out_root, "nocs", "real", "scene_1")
+    seg_dir = os.path.join(out_root, "seg")
+    os.makedirs(frame_dir, exist_ok=True)
+    os.makedirs(seg_dir, exist_ok=True)
+    cv2.imwrite(os.path.join(frame_dir, "0000_depth.png"), (depth * 1000).astype(np.uint16))
+    cv2.imwrite(os.path.join(frame_dir, "0000_color.png"), rgb[:, :, ::-1])
+    masks, boxes, gt_RTs, gt_scales = [], [], [], []
+    for i, (R, T, bound) in enumerate(gts):
+        mask = hit & (nearest == i)
+        assert mask.sum() > 300, f"instance {i} shows {mask.sum()} pixels"
+        rows, cols = np.where(mask)
+        masks.append(mask)
+        boxes.append([rows.min(), cols.min(), rows.max(), cols.max()])
+        # NOCS GT conventions: RT holds R·|s|, gt_scales the unit scale
+        s_norm = float(np.linalg.norm(bound))
+        RT = np.eye(4, dtype=np.float32)
+        RT[:3, :3] = R * s_norm
+        RT[:3, 3] = T
+        gt_RTs.append(RT)
+        gt_scales.append(bound / s_norm)
+    cls = np.array([SYNSET_NAMES.index(c) for c, *_ in layout], np.int32)
+    record = {
+        "image_path": "data/real/scene_1/0000",
+        "pred_bboxes": np.asarray(boxes, np.int32),
+        "pred_masks": np.stack(masks, -1),
+        "pred_class_ids": cls,
+        "pred_scores": np.linspace(0.95, 0.65, len(layout)).astype(np.float32),
+        "gt_class_ids": cls,
+        "gt_RTs": np.stack(gt_RTs),
+        "gt_scales": np.asarray(gt_scales, np.float32),
+        "gt_handle_visibility": np.ones(len(layout), np.int32),
+    }
+    with open(os.path.join(seg_dir, "results_real_scene1_0000.pkl"), "wb") as f:
+        pickle.dump(record, f)
+    return seg_dir, os.path.join(out_root, "nocs"), record
+
+
+def link_checkpoints(ckpt_root: str, categories):
+    """A checkpoint tree of ``categories`` only, each a link to the repo's
+    ``checkpoints/<cat>`` (so no ``laptop_aux``)."""
+    os.makedirs(ckpt_root, exist_ok=True)
+    for cat in sorted(set(categories)):
+        os.symlink(os.path.join(ROOT, "checkpoints", cat), os.path.join(ckpt_root, cat))
+    return ckpt_root
+
+
+def frame_axes(pred_RTs):
+    """(T, up, right) of each pose row: R = RT[:3, :3] / ∛det, up its
+    second column and right its first (no NOCS category has ``z_right``)."""
+    R = pred_RTs[:, :3, :3] / np.cbrt(np.linalg.det(pred_RTs[:, :3, :3]))[:, None, None]
+    return pred_RTs[:, :3, 3], R[:, :, 1], R[:, :, 0]
+
+
+def export_nocs_frame(seed: int = 0):
+    from cppf_tpu.eval import nocs_eval, nocs_inference
+
+    out = os.path.join(ASSETS, "nocs_frame")
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_dir, nocs_dir, record = render_nocs_frame(tmp)
+        ckpt = link_checkpoints(os.path.join(tmp, "checkpoints"),
+                                [c for c, *_ in FRAME_LAYOUT])
+        pred_dir = os.path.join(tmp, "pred")
+        nocs_inference.main(["--seg_dir", seg_dir, "--nocs_dir", nocs_dir, "--out_dir", pred_dir,
+                             "--ckpt_path", ckpt, "--seed", str(seed)])
+        with open(os.path.join(pred_dir, "results_real_scene_1_0000.pkl"), "rb") as f:
+            pred = pickle.load(f)
+        iou_aps, pose_aps, pred_m, gt_m = nocs_eval.main(["--pred_dir", pred_dir,
+                                                          "--subsample", "1"])
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(os.path.join(nocs_dir, "real"), os.path.join(out, "real"))
+    with gzip.open(os.path.join(out, "results_real_scene1_0000.pkl.gz"), "wb") as f:
+        pickle.dump(record, f)
+    T, up, right = frame_axes(pred["pred_RTs"])
+    np.savez_compressed(os.path.join(out, "jax_driver.npz"), pred_RTs=pred["pred_RTs"],
+                        pred_scales=pred["pred_scales"], T=T, up=up, right=right,
+                        iou_aps=iou_aps, pose_aps=pose_aps, pose_pred_matches=pred_m,
+                        pose_gt_matches=gt_m, seed=np.int32(seed))
+    for i, (c, *_) in enumerate(FRAME_LAYOUT):
+        gt = record["gt_RTs"][i]
+        print(f"instance {i} ({c}): JAX T err {np.linalg.norm(T[i] - gt[:3, 3]) * 1e3:.1f} mm, "
+              f"up err {np.degrees(np.arccos(np.clip(up[i] @ gt[:3, 1] / np.linalg.norm(gt[:3, 1]), -1, 1))):.1f} deg",
+              flush=True)
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out) for f in fs)
+    print(f"wrote {out}: {size} bytes", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--category", default="bowl")
     ap.add_argument("--n_views", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt_path", default=os.path.join(ROOT, "checkpoints"))
+    ap.add_argument("--nocs_frame", action="store_true",
+                    help="write assets/nocs_frame/ instead of a category's assets")
     args = ap.parse_args()
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.nocs_frame:
+        export_nocs_frame(args.seed)
+        return
     from cppf_tpu.eval.nocs_inference import CategoryRunner
     from cppf_tpu.train.checkpoints import load_params
 
