@@ -81,12 +81,27 @@ Phases:
    on the stored JAX pkl equals the stored JAX eval to 1e-12; then the warm
    frame loop (median of 3), ms per instance of each chunk, the frame's
    peak device memory, and both peak kernels held and timed on the frame's
-   first instance.
+   first instance;
+11. the SUN RGB-D driver, ``sunrgbd_inference.main`` at full width with
+   ``--seed 0`` and the 30° up prior on the committed scans
+   (``assets/sun_scans``: 7 scans, 14 posed instances of the six weighted
+   SUN categories, one scan holding two categories and a segment under the
+   200-point floor; launch counts reset just before): fails unless every
+   instance of the stored JAX run is posed, in its order, with its up axis
+   inside the prior, its T within 1 cm of JAX's, its scales within 1e-3
+   and its up within 5° (one flip is printed and allowed), the pairs front
+   ends launched once (windows at most twice) a center pass and the votes
+   front ends and ``dense_hist`` never, and ``sunrgbd_eval.main`` on the
+   stored JAX pkls equals the stored JAX eval to 1e-12; then the warm loop
+   (s/scan, median of 3), ms an instance by category, the draws of one
+   instance, the loop's peak device memory, and both peak kernels held and
+   timed on the first instance's grid.
 
 ``--profile`` adds the warm time of each stage of one pose, and a
-torch.profiler table of the kernels of one pose, of one zero-shot frame
-and of one NOCS frame (``scripts/pose_stages.py`` runs the pose half for several checkouts
-in turns).  Prints the categories JSON line of phase 8, the kernels JSON
+torch.profiler table of the kernels of one pose, of one zero-shot frame,
+of one NOCS frame and of one pass of the SUN driver's loop
+(``scripts/pose_stages.py`` runs the pose half for several checkouts in
+turns).  Prints the categories JSON line of phase 8, the kernels JSON
 line, the ``nvidia-smi`` line, and last the result line.
 Usage: python3 chip_smoke.py [--profile]
 """
@@ -1091,6 +1106,92 @@ def unpack_nocs_frame(tmp):
             dict(np.load(os.path.join(src, "jax_driver.npz"))))
 
 
+SUN_SCANS = ("sun_scans", "scans.npz")
+
+
+def sun_scans_to_arrays(scans) -> dict:
+    """A SUN scan set (a list of dicts: ``pc`` [N, 3] float32 as dumped,
+    ``rot`` [3, 3], ``bbox`` [n, 8], ``segments`` [n] index arrays,
+    ``Rtilt`` [3, 3]) as flat arrays for one ``.npz``."""
+    out = {"n_scans": np.int32(len(scans))}
+    for i, s in enumerate(scans):
+        out.update({f"scan{i}_pc": s["pc"], f"scan{i}_rot": s["rot"], f"scan{i}_bbox": s["bbox"],
+                    f"scan{i}_Rtilt": s["Rtilt"],
+                    f"scan{i}_seg": np.concatenate(s["segments"]).astype(np.int32),
+                    f"scan{i}_seg_len": np.array([len(g) for g in s["segments"]], np.int32)})
+    return out
+
+
+def sun_scans_from_arrays(z) -> list:
+    scans = []
+    for i in range(int(z["n_scans"])):
+        cut = np.cumsum(z[f"scan{i}_seg_len"])[:-1]
+        scans.append(dict(pc=z[f"scan{i}_pc"], rot=z[f"scan{i}_rot"], bbox=z[f"scan{i}_bbox"],
+                          Rtilt=z[f"scan{i}_Rtilt"],
+                          segments=[g.astype(np.int64) for g in np.split(z[f"scan{i}_seg"], cut)]))
+    return scans
+
+
+def write_sun_layout(scans, root):
+    """The on-disk layout that both packages' SUN drivers read, scan ``n``
+    being ``scans[n - 1]``: ``root/sunrgbd/SUNRGBDtoolbox/Metadata/
+    SUNRGBDMeta.mat`` (each scan's ``Rtilt``), ``root/extra/
+    sunrgbd_pc_bbox_votes_50k_v1_val/<n>_{pc.npz,rot.npy,bbox.npy,
+    segments.pkl}`` and ``root/extra/scan_names_list/<class>_val.txt``,
+    the scans that hold a box of the class.  Returns (sunrgbd_dir,
+    extra_dir)."""
+    import pickle
+
+    import scipy.io as sio
+
+    from cppf_tpu_torch.eval.sunrgbd_inference import META_PATH, SCAN_DIR, SPLIT
+
+    sun_dir, extra_dir = os.path.join(root, "sunrgbd"), os.path.join(root, "extra")
+    scan_dir, names_dir = os.path.join(extra_dir, SCAN_DIR), os.path.join(extra_dir,
+                                                                          "scan_names_list")
+    for d in (os.path.dirname(os.path.join(sun_dir, META_PATH)), scan_dir, names_dir):
+        os.makedirs(d, exist_ok=True)
+    meta = np.zeros((1, len(scans)), dtype=[("Rtilt", "O")])
+    names = {}
+    for i, s in enumerate(scans):
+        meta[0, i]["Rtilt"] = s["Rtilt"]
+        base = os.path.join(scan_dir, str(i + 1))
+        np.savez(base + "_pc.npz", pc=s["pc"])
+        np.save(base + "_rot.npy", s["rot"])
+        np.save(base + "_bbox.npy", s["bbox"])
+        with open(base + "_segments.pkl", "wb") as f:
+            pickle.dump(list(s["segments"]), f)
+        for c in sorted({int(b[7]) for b in s["bbox"]}):
+            names.setdefault(c, []).append(str(i + 1))
+    sio.savemat(os.path.join(sun_dir, META_PATH), {"SUNRGBDMeta": meta})
+    for c, ns in names.items():
+        with open(os.path.join(names_dir, f"{c}_{SPLIT}.txt"), "w") as f:
+            f.write("\n".join(ns) + "\n")
+    return sun_dir, extra_dir
+
+
+def unpack_sun_scans(tmp):
+    """The committed SUN scan set (assets/sun_scans) as the drivers read it
+    (:func:`write_sun_layout` under ``tmp``), and a checkpoint tree
+    ``tmp/checkpoints`` of links to the repo's ``checkpoints/<cat>`` for the
+    categories with weights, as its JAX run had.  Returns (sunrgbd_dir,
+    extra_dir, ckpt_path, the scans, the stored JAX run)."""
+    from cppf_tpu_torch.eval.sunrgbd_inference import TYPE2CLASS
+    from cppf_tpu_torch.models.convert import ASSETS
+
+    src = os.path.join(ASSETS, SUN_SCANS[0])
+    with np.load(os.path.join(src, SUN_SCANS[1])) as z:
+        scans = sun_scans_from_arrays(z)
+    sun_dir, extra_dir = write_sun_layout(scans, tmp)
+    ckpt = os.path.join(tmp, "checkpoints")
+    os.makedirs(ckpt)
+    for cat in TYPE2CLASS:
+        if os.path.isdir(os.path.join(ROOT, "checkpoints", cat)):
+            os.symlink(os.path.join(ROOT, "checkpoints", cat), os.path.join(ckpt, cat))
+    return (sun_dir, extra_dir, ckpt, scans,
+            dict(np.load(os.path.join(src, "jax_driver.npz"))))
+
+
 def nocs_driver_phase(tmp, profile=False):
     """Phase 10: ``nocs_inference.main`` at full width with ``--seed 0`` on
     the committed frame (launch counts reset just before and read just
@@ -1225,6 +1326,195 @@ def nocs_driver_phase(tmp, profile=False):
     # both peak kernels on the frame's first instance, against the plain version
     records = kernel_phase(main_path_inputs(runner, pc0, runner.pcfg.grid_shape),
                            f"nocs frame instance {i0} ({names[i0]})")
+    return records, launches
+
+
+SUN_T_TOL = 0.01
+SUN_UP_TOL_DEG = 5.0
+SUN_SCALE_RTOL = 1e-3
+SUN_UP_PRIOR_DEG = 30.0
+
+
+def _jax_sun_pkls(jax_run, extra_dir, out_dir):
+    """The stored JAX driver's result pkls, rebuilt as it wrote them: a row
+    [class_id, 1.0, then float32 scalars] for each posed instance, a list
+    (maybe empty) for each scan of the class.  Returns the categories."""
+    import pickle
+
+    from cppf_tpu_torch.eval.sunrgbd_inference import TYPE2CLASS, scan_names
+
+    os.makedirs(out_dir)
+    cats = [c for c, cid in TYPE2CLASS.items() if np.any(jax_run["class_id"] == cid)]
+    for cat in cats:
+        cid = TYPE2CLASS[cat]
+        poses = {name: [] for name in scan_names(extra_dir, cid)}
+        for row, c, scan in zip(jax_run["rows"], jax_run["class_id"], jax_run["scan"]):
+            if c == cid:
+                poses[str(scan)].append([cid, 1.0, *row[2:].astype(np.float32)])
+        with open(os.path.join(out_dir, f"results_{cat}.pkl"), "wb") as f:
+            pickle.dump(poses, f)
+    return cats
+
+
+def sun_driver_phase(tmp, profile=False):
+    """Phase 11: ``sunrgbd_inference.main`` at full width with ``--seed 0``
+    and the 30° up prior on the committed scan set (launch counts reset
+    just before and read just after), its poses against the stored JAX
+    driver's, ``sunrgbd_eval.main`` on the stored JAX pkls against the
+    stored JAX eval, the driver's loop timed warm, and both peak kernels
+    held against their plain versions and timed on the first instance.
+    Returns (kernel records, launches)."""
+    import contextlib
+    import io
+    import pickle
+
+    from cppf_tpu_torch.core import threefry
+    from cppf_tpu_torch.eval import sunrgbd_eval, sunrgbd_inference as si
+    from cppf_tpu_torch.ops import vote_hist as vh
+
+    sun_dir, extra_dir, ckpt, scans, jax_run = unpack_sun_scans(tmp)
+    out_dir = os.path.join(tmp, "pred")
+    argv = ["--sunrgbd_dir", sun_dir, "--sunrgbd_extra_dir", extra_dir, "--out_dir", out_dir,
+            "--ckpt_path", ckpt, "--seed", "0", "--up_prior_deg", str(SUN_UP_PRIOR_DEG)]
+    check(float(jax_run["up_prior_deg"]) == SUN_UP_PRIOR_DEG and int(jax_run["seed"]) == 0,
+          "sun driver: the stored JAX run is not at --seed 0 and a 30 deg prior")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    vh.reset_launches()
+    posed = si.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(vh.LAUNCHES)
+    cold_s = time.perf_counter() - t0
+    cats = list(dict.fromkeys(p.category for p in posed))
+    print(f"sun driver: {len(scans)} scans, {len(posed)} instances ({', '.join(cats)}); "
+          f"launches {launches}; first run of main {cold_s:.2f} s (runners, weights and first "
+          f"calls included)", flush=True)
+    args = si.build_parser().parse_args(argv)
+    runners = {cat: si.load_runner(cat, args) for cat in cats}
+    passes = sum(2 if runners[p.category].pcfg.asym_center_refine else 1 for p in posed)
+    check(launches["bound_projections_pairs"] == passes,
+          f"sun driver: bound_projections_pairs launched {launches['bound_projections_pairs']} "
+          f"times, not once a center pass ({passes})")
+    check(passes <= launches["refine_window_pairs"] <= 2 * passes,
+          f"sun driver: refine_window_pairs launched {launches['refine_window_pairs']} times "
+          f"for {passes} center passes")
+    check(all(launches[k] == 0 for k in ("bound_projections", "refine_window", "dense_hist",
+                                         "dense_hist_pairs")),
+          "sun driver: a votes front end or dense_hist launched")
+
+    # every instance against the stored JAX run, in the drivers' order
+    where = [(si.TYPE2CLASS[p.category], int(p.scan), p.index) for p in posed]
+    check(where == list(zip(jax_run["class_id"].tolist(), jax_run["scan"].tolist(),
+                            jax_run["index"].tolist())),
+          "sun driver: not the stored JAX run's instances")
+    rows = []
+    for cat in cats:
+        with open(os.path.join(out_dir, f"results_{cat}.pkl"), "rb") as f:
+            rows += [r for scan_rows in pickle.load(f).values() for r in scan_rows]
+    rows = np.asarray(rows, np.float64)
+    flips = []
+    for k, (p, row) in enumerate(zip(posed, rows)):
+        R, T, scale = row[5:14].reshape(3, 3), row[14:17], row[2:5]
+        cfg = runners[p.category].cfg
+        check(np.all(np.isfinite(row)) and np.linalg.det(R) > 0,
+              f"sun driver: instance {k} is not a pose")
+        check(abs(R[1, 1]) >= np.cos(np.radians(SUN_UP_PRIOR_DEG)) - 1e-6,
+              f"sun driver: instance {k}'s up lies outside the prior")
+        dT = float(np.linalg.norm(T - jax_run["T"][k]))
+        d_up = _angle(R[:, 1], jax_run["up"][k], fold=cfg.up_sym)
+        d_right = _angle(R[:, 2] if cfg.z_right else R[:, 0], jax_run["right"][k])
+        d_scale = float(np.max(np.abs(scale / jax_run["scale"][k] - 1)))
+        print(f"  instance {k} ({p.category}, scan {p.scan}, box {p.index}, {p.points} points): "
+              f"port minus JAX T {dT * 1e3:.3f} mm, up {d_up:.3f} deg, right {d_right:.3f} deg, "
+              f"scale {d_scale:.2e}", flush=True)
+        check(dT <= SUN_T_TOL, f"sun driver: instance {k} T {dT * 1e3:.2f} mm from JAX's")
+        check(d_scale <= SUN_SCALE_RTOL, f"sun driver: instance {k} scales {d_scale:.2e} off")
+        if d_up > SUN_UP_TOL_DEG:
+            flips.append(k)
+            print(f"  instance {k} ({p.category}): up {d_up:.2f} deg from JAX's (a near-tie "
+                  f"flip?)", flush=True)
+    check(len(flips) <= 1, f"sun driver: up axes of instances {flips} differ from JAX's by "
+          f"more than {SUN_UP_TOL_DEG} deg")
+
+    # the port's eval on the stored JAX pkls equals the stored JAX eval
+    jax_dir = os.path.join(tmp, "jax_pred")
+    eval_cats = _jax_sun_pkls(jax_run, extra_dir, jax_dir)
+    check(eval_cats == cats, f"sun driver: categories {cats}, the JAX run's {eval_cats}")
+    eval_argv = ["--sunrgbd_dir", sun_dir, "--sunrgbd_extra_dir", extra_dir, "--categories",
+                 *cats]
+    with contextlib.redirect_stdout(io.StringIO()):  # its per-class tables
+        got = sunrgbd_eval.main(["--pred_dir", jax_dir, *eval_argv])
+    for cat in cats:
+        for name, g in zip(("iou_aps", "pose_aps", "pose_pred_matches", "pose_gt_matches"),
+                           got[cat]):
+            want = jax_run[f"{cat}_{name}"]
+            same = (np.array_equal(g, want) if g.dtype.kind == "i" else
+                    bool(np.allclose(g, want, rtol=0, atol=1e-12, equal_nan=True)))
+            check(same and g.shape == want.shape, f"sun eval on the JAX pkls: {cat} {name} "
+                  "differs")
+    print("sun eval on the stored JAX pkls: iou_aps, pose_aps and the matches of every "
+          "category equal the stored JAX eval (1e-12)", flush=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        own = sunrgbd_eval.main(["--pred_dir", out_dir, *eval_argv])
+    print("sun eval on the port's pkls, 3D IoU AP at 0.25 / pose AP at 10 deg 10 cm (JAX's "
+          "pkls): " + "; ".join(
+              f"{cat} {own[cat][0][-1, 25]:.4f} / {own[cat][1][-1, 1, 1]:.4f} "
+              f"({got[cat][0][-1, 25]:.4f} / {got[cat][1][-1, 1, 1]:.4f})" for cat in cats),
+          flush=True)
+
+    # the driver's loop, warm: scans read, instances cut, posed, rows to the host
+    def scan_loop():
+        rng, timing = threefry.key(0), []
+        for cat in cats:
+            cid = si.TYPE2CLASS[cat]
+            for name in si.scan_names(extra_dir, cid):
+                bboxes, segments, points3d = si.read_scan(extra_dir, name)
+                items = si.scan_instances(points3d, bboxes, segments, cid)
+                _, rng, t = si.pose_instances(runners[cat], items, rng, cid)
+                timing += [(cat, s) for *_, s in t]
+        return timing
+
+    per_scan, inst_ms = [], []
+    for rep in range(4):
+        torch.cuda.synchronize()
+        if rep == 3:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        timing = scan_loop()
+        torch.cuda.synchronize()
+        if rep < 3:
+            per_scan.append((time.perf_counter() - t0) / len(scans))
+            inst_ms.append(timing)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    by_cat = {cat: statistics.median(s * 1e3 for rep in inst_ms for c, s in rep if c == cat)
+              for cat in cats}
+    print(f"sun driver: warm {statistics.median(per_scan):.3f} s/scan (the loop over every "
+          f"category's scans over {len(scans)} scans, median of 3: "
+          f"{', '.join(f'{x:.3f}' for x in per_scan)}); ms an instance by category (median of "
+          f"3 passes): " + "; ".join(f"{c} {ms:.1f}" for c, ms in by_cat.items())
+          + f"; peak device memory of the loop {peak_gib:.3f} GiB | {smi_line()}", flush=True)
+
+    # the draws alone: what remaking JAX's random numbers costs an instance
+    first = posed[0]
+    runner = runners[first.category]
+    draw_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.draws(threefry.key(0))
+        torch.cuda.synchronize()
+        draw_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"sun driver: the JAX-key draws of one {first.category} instance "
+          f"{statistics.median(draw_ms):.2f} ms (median of 3)", flush=True)
+    if profile:
+        device_profile(scan_loop, "one warm pass of the sun driver's loop")
+
+    # both peak kernels on the first instance, against the plain version
+    bboxes, segments, points3d = si.read_scan(extra_dir, first.scan)
+    pc0 = dict(si.scan_instances(points3d, bboxes, segments, si.TYPE2CLASS[first.category]))
+    g = runner.pcfg.grid_shape[0]
+    records = kernel_phase(main_path_inputs(runner, pc0[first.index], runner.pcfg.grid_shape),
+                           f"sun scan {first.scan} box {first.index} ({first.category} {g}^3)")
     return records, launches
 
 
@@ -1371,14 +1661,22 @@ def main():
         nocs_records, nocs_launches = nocs_driver_phase(tmp, args.profile)
     print(f"phase 10 (nocs driver): {time.perf_counter() - t10:.1f} s", flush=True)
 
+    # ---- 11. the SUN RGB-D driver on the committed scans ---------------------
+    t11 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sun_records, sun_launches = sun_driver_phase(tmp, args.profile)
+    print(f"phase 11 (sun driver): {time.perf_counter() - t11:.1f} s", flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
     # comparisons, stands beside it under votes_ keys.  The peak kernels
-    # stand twice: on bowl's main path (phase 4) and on the NOCS driver's
-    # frame (phase 10), each with the launches of its own run
+    # stand three times: on bowl's main path (phase 4), on the NOCS driver's
+    # frame (phase 10) and on the SUN driver's scans (phase 11), each with
+    # the launches of its own run
     kernels = []
     paths = [("main path (phase 4; dense_hist: zero-shot, phase 7)", records, launches),
-             ("nocs driver (phase 10)", nocs_records, nocs_launches)]
+             ("nocs driver (phase 10)", nocs_records, nocs_launches),
+             ("sun driver (phase 11)", sun_records, sun_launches)]
     for path, recs, counts in paths:
         for name, rec in recs.items():
             pairs = name + "_pairs" if name + "_pairs" in counts else name

@@ -34,6 +34,23 @@ def backproject(depth: np.ndarray, intrinsics: np.ndarray, instance_mask: np.nda
     return pts, (rows, cols)
 
 
+def backproject_sunrgbd(depth: np.ndarray, K: np.ndarray, Rtilt: np.ndarray, mask=None):
+    """SUN RGB-D unprojection on the host (cppf_tpu core/geometry.py:91-103):
+    the masked pixels' depth in mm lifted through ``K`` to (x, z, -y) in
+    meters, tilt-corrected by ``Rtilt``, pixels of zero depth dropped, and
+    the last two columns swapped.  Returns points [M, 3]."""
+    if mask is None:
+        mask = np.ones_like(depth, dtype=bool)
+    rows, cols = np.where(mask)
+    z = depth[mask] / 1000.0
+    x = (cols - K[0, 2]) * z / K[0, 0]
+    y = (rows - K[1, 2]) * z / K[1, 1]
+    pts = np.stack([x, z, -y], -1)
+    pts = (Rtilt @ pts.T).T
+    pts = pts[z != 0]
+    return pts[:, [0, 2, 1]]
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.cross`` over the last axis, written out in its term order."""
     a0, a1, a2 = a.unbind(-1)

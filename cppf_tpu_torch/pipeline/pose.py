@@ -68,6 +68,11 @@ class PoseConfig:
     geo_right_dir: str = "cross"
     axis_topk: int = 1
     axis_topk_min_frac: float = 0.2
+    # gravity prior on the up axis: only sphere directions within this many
+    # degrees of ±up_prior_dir may win its vote (0 = off).  No category
+    # config sets it; the SUN RGB-D driver does (eval/sunrgbd_inference.py)
+    up_prior_deg: float = 0.0
+    up_prior_dir: Tuple[float, float, float] = (0.0, 1.0, 0.0)
 
     @classmethod
     def from_config(cls, cfg, n_pairs: Optional[int] = None, scale_multiplier: float = 2.0):
@@ -200,7 +205,8 @@ def _bce_logits(logits, targets, mask):
 
 
 def _vote_axis(pc, pc_normal, point_idxs, pair_mask, angle_logits, aux_logits, sphere_pts,
-               pcfg: PoseConfig, draws: AxisDraws, pair_weights=None) -> torch.Tensor:
+               pcfg: PoseConfig, draws: AxisDraws, pair_weights=None,
+               prior_gate=None) -> torch.Tensor:
     """One orientation axis: subsample surviving pairs, decode their angle
     bins, cone-vote on the sphere, flip the argmax by the aux-bit BCE.
 
@@ -208,7 +214,9 @@ def _vote_axis(pc, pc_normal, point_idxs, pair_mask, angle_logits, aux_logits, s
     the JAX PoseConfig.asym_right_votes).  With ``axis_topk`` K > 1 the K
     distinct sphere peaks (greedy 20° suppression over both hemispheres)
     are each signed and scored by the aux BCE, and the lowest wins among
-    those holding ``axis_topk_min_frac`` of the top peak's count."""
+    those holding ``axis_topk_min_frac`` of the top peak's count.
+    ``prior_gate`` [n_sphere] bool marks the directions that may win: the
+    others' counts become -1 before the argmax and the top-K search."""
     p = point_idxs.shape[0]
     any_alive = pair_mask.any()
     keep = (pair_mask | ~any_alive).to(torch.float32)
@@ -223,6 +231,8 @@ def _vote_axis(pc, pc_normal, point_idxs, pair_mask, angle_logits, aux_logits, s
     cos_tol = torch.cos(torch.deg2rad(torch.tensor(pcfg.angle_prec, dtype=pc.dtype)))
     counts = rot_vote_sphere_count(pc, angles_sub, sub_idxs, sphere_pts, cos_tol.item(),
                                    n_rots=pcfg.num_rots)
+    if prior_gate is not None:
+        counts = torch.where(prior_gate, counts, -1.0)
     idx = point_idxs.long()
     ab = pc[idx[:, 0]] - pc[idx[:, 1]]
     ab_unit = ab / (torch.linalg.norm(ab, dim=-1, keepdim=True) + 1e-7)
@@ -254,6 +264,17 @@ def _vote_axis(pc, pc_normal, point_idxs, pair_mask, angle_logits, aux_logits, s
     ok = cand_counts >= pcfg.axis_topk_min_frac * cand_counts[0]
     bce = torch.where(ok, torch.stack(bce), math.inf)
     return torch.stack(signed)[torch.argmin(bce)]
+
+
+def up_prior_gate(sphere_pts, pcfg: PoseConfig):
+    """[n_sphere] bool: the directions within ``up_prior_deg`` of
+    ±``up_prior_dir``, in float32 as JAX computes it; None when the prior
+    is off."""
+    if pcfg.up_prior_deg <= 0:
+        return None
+    prior_dir = torch.tensor(pcfg.up_prior_dir, dtype=sphere_pts.dtype, device=sphere_pts.device)
+    cos_max = torch.cos(torch.deg2rad(torch.tensor(pcfg.up_prior_deg, dtype=sphere_pts.dtype)))
+    return torch.abs(torch.sum(sphere_pts * prior_dir, -1)) >= cos_max.to(sphere_pts.device)
 
 
 def _protrusion_centroid(pc, T_est, up, n_valid, asym):
@@ -365,7 +386,7 @@ def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseC
 
     # --- orientation axes ---------------------------------------------------
     up = _vote_axis(pc, pc_normal, point_idxs, pair_mask, up_logits, up_aux, sphere_pts,
-                    pcfg, draws.up)
+                    pcfg, draws.up, prior_gate=up_prior_gate(sphere_pts, pcfg))
 
     if pcfg.asym_center_refine:
         # second center pass on the protruding points' votes; only its

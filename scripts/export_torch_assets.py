@@ -38,9 +38,24 @@ one rendered NOCS-format frame and the JAX NOCS driver's output on it:
   that output (``--subsample 1``): ``iou_aps``, ``pose_aps``,
   ``pose_pred_matches``, ``pose_gt_matches``.
 
+With ``--sun_scans`` it writes instead ``cppf_tpu_torch/assets/sun_scans/``:
+
+- ``scans.npz``: the scans of ``sun_scan_set`` (``make_scans``, one scan
+  of 2 instances of each weighted SUN category and one that joins two
+  categories, with a segment under the drivers' 200-point floor), in the
+  flat arrays of ``chip_smoke.sun_scans_to_arrays``;
+- ``jax_driver.npz``: ``cppf_tpu.eval.sunrgbd_inference.main`` on the CPU
+  at full width with ``--seed 0`` and its default 30° up prior on a
+  checkpoint tree that links ``checkpoints/<cat>`` for the six: each posed
+  instance's ``class_id``, ``scan``, box ``index``, result ``rows`` and its
+  ``T``, ``R``, ``scale``, ``up``, ``right``; and
+  ``cppf_tpu.eval.sunrgbd_eval.main`` on that output: ``<cat>_iou_aps``,
+  ``<cat>_pose_aps``, ``<cat>_pose_pred_matches``, ``<cat>_pose_gt_matches``.
+
 Usage (needs JAX; runs on the CPU):
     python scripts/export_torch_assets.py [--category bowl] [--n_views 4] [--seed 0]
     python scripts/export_torch_assets.py --nocs_frame   (~5 min)
+    python scripts/export_torch_assets.py --sun_scans    (~2 min)
 """
 from __future__ import annotations
 
@@ -274,6 +289,128 @@ def export_nocs_frame(seed: int = 0):
     print(f"wrote {out}: {size} bytes", flush=True)
 
 
+# the SUN scan set: a scan of 2 instances of each weighted SUN category,
+# then one that holds instances of two categories (the first's second
+# segment cut to SMALL_SEGMENT points, under the drivers' 200-point floor)
+SUN_CATEGORIES = ("bed", "table", "sofa", "chair", "bookshelf", "bathtub")
+SUN_MIXED = ("chair", "table")
+SMALL_SEGMENT = 150
+
+
+def _make_scan(scratch, cat, instances, seed):
+    """One scan of ``make_scans`` in a scratch directory of its own, read
+    back as a dict (see chip_smoke.sun_scans_to_arrays)."""
+    from cppf_tpu.data.sunrgbd_synth import make_scans
+    from cppf_tpu.eval.sunrgbd_inference import TYPE2CLASS
+
+    d = tempfile.mkdtemp(dir=scratch)
+    extra = os.path.join(d, "extra")
+    make_scans(os.path.join(d, "sun"), extra, cat, TYPE2CLASS[cat], 1, instances=instances,
+               seed=seed)
+    base = os.path.join(extra, "sunrgbd_pc_bbox_votes_50k_v1_val", "1")
+    with open(base + "_segments.pkl", "rb") as f:
+        segments = pickle.load(f)
+    return dict(pc=np.load(base + "_pc.npz")["pc"], rot=np.load(base + "_rot.npy"),
+                bbox=np.load(base + "_bbox.npy"), segments=segments)
+
+
+def _tilt(rng, max_deg=5.0):
+    """A small camera tilt about the upright frame's x and y axes, as SUN
+    RGB-D's Rtilt."""
+    a, b = np.radians(rng.uniform(-max_deg, max_deg, 2))
+    rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+    ry = np.array([[np.cos(b), 0, np.sin(b)], [0, 1, 0], [-np.sin(b), 0, np.cos(b)]])
+    return rx @ ry
+
+
+def sun_scan_set(scratch, categories=SUN_CATEGORIES, mixed=SUN_MIXED, seed=0):
+    """SUN RGB-D-format scans from ``cppf_tpu.data.sunrgbd_synth.make_scans``
+    (native rasterizer, one depth view, at most 6000 points an object,
+    half-extent box coeffs, a random ``rot``): one scan of 2 instances of each of ``categories``, then one
+    that joins 2 instances of ``mixed[0]`` (its second segment cut to
+    ``SMALL_SEGMENT`` points) and 1 of ``mixed[1]``, moved 6 m along x (its
+    floor left out).  Each scan gets its own small random ``Rtilt``."""
+    rng = np.random.default_rng(seed)
+    scans = [_make_scan(scratch, cat, 2, seed + k) for k, cat in enumerate(categories)]
+    a = _make_scan(scratch, mixed[0], 2, seed + len(categories))
+    b = _make_scan(scratch, mixed[1], 1, seed + len(categories) + 1)
+    shift = np.array([6.0, 0.0, 0.0], np.float32)  # stored x is the world's x
+    n_b = len(b["segments"][0])
+    b_bbox = b["bbox"].copy()
+    b_bbox[:, 0] += shift[0]
+    a["segments"][1] = a["segments"][1][:SMALL_SEGMENT]
+    scans.append(dict(
+        pc=np.concatenate([a["pc"], b["pc"][:n_b] + shift]), rot=a["rot"],
+        bbox=np.concatenate([a["bbox"], b_bbox]),
+        segments=a["segments"] + [b["segments"][0] + len(a["pc"])]))
+    for s in scans:
+        s["Rtilt"] = _tilt(rng)
+    return scans
+
+
+def export_sun_scans(seed: int = 0):
+    """``assets/sun_scans/``: the scan set and the JAX SUN driver's output
+    on it (full width, ``--seed`` 0, the up prior at its default 30°) with
+    the JAX eval of that output."""
+    import chip_smoke
+    from cppf_tpu.config import load_config
+    from cppf_tpu.eval import sunrgbd_eval, sunrgbd_inference
+
+    out = os.path.join(ASSETS, "sun_scans")
+    os.makedirs(out, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        scans = sun_scan_set(tmp)
+        sun_dir, extra_dir = chip_smoke.write_sun_layout(scans, os.path.join(tmp, "set"))
+        ckpt = link_checkpoints(os.path.join(tmp, "checkpoints"), SUN_CATEGORIES)
+        pred_dir = os.path.join(tmp, "pred")
+        sunrgbd_inference.main(["--sunrgbd_dir", sun_dir, "--sunrgbd_extra_dir", extra_dir,
+                                "--out_dir", pred_dir, "--ckpt_path", ckpt,
+                                "--seed", str(seed)])
+        aps = sunrgbd_eval.main(["--pred_dir", pred_dir, "--sunrgbd_dir", sun_dir,
+                                 "--sunrgbd_extra_dir", extra_dir,
+                                 "--categories", *SUN_CATEGORIES])
+        rows, where = [], []
+        for cat, cid in sunrgbd_inference.TYPE2CLASS.items():
+            path = os.path.join(pred_dir, f"results_{cat}.pkl")
+            if not os.path.exists(path):
+                continue
+            with open(path, "rb") as f:
+                pred = pickle.load(f)
+            for name, scan_rows in pred.items():
+                s = scans[int(name) - 1]
+                # the posed boxes of the class, in the drivers' order
+                idx = [i for i, b in enumerate(s["bbox"])
+                       if int(b[7]) == cid and len(s["segments"][i]) >= 200]
+                assert len(idx) == len(scan_rows), (cat, name)
+                rows += scan_rows
+                where += [(cid, int(name), i) for i in idx]
+    np.savez_compressed(os.path.join(out, "scans.npz"), **chip_smoke.sun_scans_to_arrays(scans))
+    rows = np.asarray(rows, np.float64)
+    R = rows[:, 5:14].reshape(-1, 3, 3)
+    z_right = {cid: load_config(cat).z_right
+               for cat, cid in sunrgbd_inference.TYPE2CLASS.items()}
+    right = np.stack([r[:, 2] if z_right[int(c)] else r[:, 0] for r, c in zip(R, rows[:, 0])])
+    arrays = dict(rows=rows, class_id=np.int32([w[0] for w in where]),
+                  scan=np.int32([w[1] for w in where]), index=np.int32([w[2] for w in where]),
+                  T=rows[:, 14:17], R=R, scale=rows[:, 2:5], up=R[:, :, 1], right=right,
+                  seed=np.int32(seed), up_prior_deg=np.float32(30.0))
+    for cat, (iou_aps, pose_aps, pred_m, gt_m) in aps.items():
+        arrays.update({f"{cat}_iou_aps": iou_aps, f"{cat}_pose_aps": pose_aps,
+                       f"{cat}_pose_pred_matches": pred_m, f"{cat}_pose_gt_matches": gt_m})
+    np.savez_compressed(os.path.join(out, "jax_driver.npz"), **arrays)
+    for k, (c, sc, i) in enumerate(where):
+        s = scans[sc - 1]
+        b = s["bbox"][i]
+        t_gt = sunrgbd_inference.EX_MAT @ s["rot"] @ np.array([b[0], b[1], b[2]])
+        print(f"instance {k} (class {c}, scan {sc}, box {i}): JAX T err "
+              f"{np.linalg.norm(arrays['T'][k] - t_gt) * 1e3:.1f} mm", flush=True)
+    for cat, (iou_aps, pose_aps, _, _) in aps.items():
+        print(f"{cat}: JAX 3D IoU AP at 0.25 {iou_aps[-1, 25]:.4f}, pose AP at 10 deg 10 cm "
+              f"{pose_aps[-1, 1, 1]:.4f}", flush=True)
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out) for f in fs)
+    print(f"wrote {out}: {size} bytes", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--category", default="bowl")
@@ -282,6 +419,8 @@ def main():
     ap.add_argument("--ckpt_path", default=os.path.join(ROOT, "checkpoints"))
     ap.add_argument("--nocs_frame", action="store_true",
                     help="write assets/nocs_frame/ instead of a category's assets")
+    ap.add_argument("--sun_scans", action="store_true",
+                    help="write assets/sun_scans/ instead of a category's assets")
     args = ap.parse_args()
 
     import jax
@@ -289,6 +428,9 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     if args.nocs_frame:
         export_nocs_frame(args.seed)
+        return
+    if args.sun_scans:
+        export_sun_scans(args.seed)
         return
     from cppf_tpu.eval.nocs_inference import CategoryRunner
     from cppf_tpu.train.checkpoints import load_params

@@ -38,7 +38,8 @@ def test_port_file_list_is_complete():
     assert "cppf_tpu_torch/ops/vote_hist.py" in names
     assert "cppf_tpu_torch/eval/nocs_inference.py" in names
     for module in ("eval/zero_shot.py", "eval/anchor.py", "ops/ransac.py", "data/png.py",
-                   "eval/nocs_eval.py", "eval/metrics.py", "eval/box3d.py", "eval/iou3d.py"):
+                   "eval/nocs_eval.py", "eval/metrics.py", "eval/box3d.py", "eval/iou3d.py",
+                   "eval/sunrgbd_inference.py", "eval/sunrgbd_eval.py", "eval/alignment.py"):
         assert f"cppf_tpu_torch/{module}" in names
 
 

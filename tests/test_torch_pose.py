@@ -37,6 +37,15 @@ def test_pose_config_matches_jax():
         grids[cat] = pt.grid_shape[0]
     assert grids["bottle"] == 120 and grids["can"] == 56 and grids["bookshelf"] == 152
     assert len(PoseConfig.from_config(load_config("bowl")).sphere_points()) == 480
+    # the gravity prior: off in every config, set by the SUN driver alone
+    names = {f.name for f in dataclasses.fields(PoseConfig)}
+    assert {"up_prior_deg", "up_prior_dir"} <= names
+    assert (pt.up_prior_deg, pt.up_prior_dir) == (pj.up_prior_deg, pj.up_prior_dir) == (
+        0.0, (0.0, 1.0, 0.0))
+    sun_t = dataclasses.replace(pt, scale_multiplier=1.0, up_prior_deg=30.0)
+    sun_j = dataclasses.replace(pj, scale_multiplier=1.0, up_prior_deg=30.0)
+    for f in dataclasses.fields(sun_t):
+        assert getattr(sun_t, f.name) == getattr(sun_j, f.name), f.name
 
 
 @pytest.mark.parametrize("flag,value", [("coplanar_halfspace", True), ("subvoxel_refine", True)])
