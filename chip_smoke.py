@@ -96,10 +96,27 @@ Phases:
    (s/scan, median of 3), ms an instance by category, the draws of one
    instance, the loop's peak device memory, and both peak kernels held and
    timed on the first instance's grid.
+12. supervised training of bowl at the full width of its checkpoint's
+   training config (batch 2, 4096 points, knn 60, 200 000 pairs a sample,
+   Adam 1e-3 with weight decay 1e-4; rendered primitives): one epoch of 20
+   steps from the flax-style init through ``train/loop.py::train`` with a
+   decode validation of its 6 held-out poses at 100 000 pairs (launch
+   counts reset just before: the pairs front ends of both peak kernels
+   once, and at most twice, a pose, nothing else of ``vote_hist.cu``);
+   ``CategoryRunner`` serves the run's ``params_best.npz`` on a committed
+   view equal to the trained modules' estimate; warm ms a step split into
+   host render, draws, batch prep and the step (CUDA events), samples a
+   second, the peak memory, the launches and idle share of a step; 10 steps
+   on one batch must lower its loss; one step on the CPU against the card
+   (loss 1e-5 relative, gradients 1e-3 of each tensor's maximum,
+   parameters 1e-6); the decode validation of the committed bowl params
+   on the card equal to the CPU's, up under 15°; both peak kernels held and
+   timed at a decode-val pose's shapes.
 
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose, of one zero-shot frame,
-of one NOCS frame and of one pass of the SUN driver's loop
+of one NOCS frame, of one pass of the SUN driver's loop and of one training
+loop step
 (``scripts/pose_stages.py`` runs the pose half for several checkouts in
 turns).  Prints the categories JSON line of phase 8, the kernels JSON
 line, the ``nvidia-smi`` line, and last the result line.
@@ -722,6 +739,7 @@ def device_profile(fn, what, top=15):
           f"{1 - busy_ms / wall_ms:.3f})", flush=True)
     for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:100]}")
+    return wall_ms, busy_ms, launches
 
 
 def profile_pose(runner, pc_raw):
@@ -1518,6 +1536,223 @@ def sun_driver_phase(tmp, profile=False):
     return records, launches
 
 
+# the full width of bowl's shipped checkpoint's training config
+TRAIN_STEPS = 20       # one epoch of phase 12 (40 rendered samples, batch 2)
+FIXED_BATCH_STEPS = 10
+
+
+def _train_config():
+    """Bowl at the width of ``checkpoints/bowl/config.yaml`` (its training
+    snapshot), with a decode validation after every epoch."""
+    from cppf_tpu_torch.config import load_config
+
+    cfg = load_config("bowl", snapshot=os.path.join(ROOT, "checkpoints", "bowl", "config.yaml"))
+    cfg.decode_val_every = 1
+    cfg.max_epoch = 1
+    check((cfg.batch_size, cfg.npoint_pad, cfg.npoint_max, cfg.knn, cfg.train_pairs,
+           cfg.out_dim, cfg.infer_pairs, cfg.decode_val_poses, cfg.opt.lr,
+           cfg.opt.weight_decay) == (2, 4096, 10000, 60, 200000, 141, 100000, 6, 1e-3, 1e-4),
+          f"phase 12 not at full width: {cfg}")
+    return cfg
+
+
+def _finite_comps(comps, what):
+    vals = {k: float(v) for k, v in comps.items()}
+    check(all(np.isfinite(v) for v in vals.values()), f"{what}: a loss is not finite: {vals}")
+    return vals
+
+
+def train_step_times(cfg, state, ds, reps: int = 5):
+    """Warm times of the parts of the trainer's own step
+    (``train/loop.py::loop_step``), one step after another: the host render
+    of a batch's samples (host clock), the JAX-key draws and the batch prep
+    on the device (synchronised at their ends) and the step (forward,
+    backward, Adam; CUDA events and host clock).  Medians over ``reps``
+    after a warm-up step; and the peak device memory of a step."""
+    from cppf_tpu_torch.core import threefry
+    from cppf_tpu_torch.train import loop, step
+
+    statics = step.TrainStatics.from_config(cfg)
+    rng = threefry.key(12345)
+    parts = {k: [] for k in ("render", "draws", "prep", "step", "step_device")}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    peak, base = 0, 0
+    times = {}
+
+    def mark(part):
+        nonlocal base
+        if part == "step":
+            ev[1].record()
+        torch.cuda.synchronize()
+        times[part] = time.perf_counter()
+        if part == "prep":
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ev[0].record()
+
+    for r in range(reps + 1):
+        times["start"] = time.perf_counter()
+        rng, _, batch = loop.loop_step(cfg, ds, rng, state, statics, "cuda", mark=mark)
+        if r == 0:
+            continue
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+        for prev, part in (("start", "render"), ("render", "draws"), ("draws", "prep"),
+                           ("prep", "step")):
+            parts[part].append((times[part] - times[prev]) * 1e3)
+        parts["step_device"].append(ev[0].elapsed_time(ev[1]))
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    return med, peak, batch, statics
+
+
+def training_phase(smi, profile=False):
+    """Phase 12: supervised training of bowl at full width on the card.
+    Returns (kernel records, launches) of its decode validation."""
+    import tempfile
+
+    from cppf_tpu_torch.core import threefry
+    from cppf_tpu_torch.data.shapenet import ShapeNetRenderDataset
+    from cppf_tpu_torch.eval.nocs_inference import CategoryRunner, _pad_cloud
+    from cppf_tpu_torch.models.convert import ASSETS, load_npz_params
+    from cppf_tpu_torch.ops import vote_hist as vh
+    from cppf_tpu_torch.pipeline.pose import PoseDraws, estimate_pose
+    from cppf_tpu_torch.train import loop, step
+    from cppf_tpu_torch.train.decode_val import DecodeValidator
+
+    device = "cuda"
+    cfg = _train_config()
+    n_poses = cfg.decode_val_poses
+
+    # (a) one epoch from the flax-style init, a decode validation at its end,
+    # launch counts reset just before
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "bowl")
+        vh.reset_launches()
+        t0 = time.perf_counter()
+        out = loop.train(cfg, out_dir=out_dir, epoch_len=TRAIN_STEPS * cfg.batch_size,
+                         device=device)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = dict(vh.LAUNCHES)
+        state = out["state"]
+        check(state.step == TRAIN_STEPS, f"{state.step} steps, not {TRAIN_STEPS}")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            row = json.loads(f.readline())
+        with open(os.path.join(out_dir, "decode_metrics.jsonl")) as f:
+            dv_row = json.loads(f.readline())
+        _finite_comps({k: v for k, v in row.items() if k.startswith("loss")}, "epoch")
+        print(f"phase 12: one epoch of {TRAIN_STEPS} steps at batch {cfg.batch_size} and a "
+              f"decode validation of {n_poses} poses in {epoch_s:.2f} s (the loop's own "
+              f"wall_s {row['wall_s']}); epoch losses {json.dumps(row)}; decode val "
+              f"{json.dumps(dv_row)}; launches {launches}", flush=True)
+        check(launches["bound_projections_pairs"] == n_poses,
+              f"training decode-val: bound_projections_pairs launched "
+              f"{launches['bound_projections_pairs']} times over {n_poses} poses")
+        check(0 < launches["refine_window_pairs"] <= 2 * n_poses,
+              f"training decode-val: refine_window_pairs launched "
+              f"{launches['refine_window_pairs']} times over {n_poses} poses")
+        check(launches["bound_projections"] == launches["refine_window"] == 0
+              and launches["dense_hist"] == launches["dense_hist_pairs"] == 0,
+              "training decode-val launched a votes front end or dense_hist")
+
+        # the trained params_best.npz, served by the runner on a committed view
+        runner = CategoryRunner("bowl", ckpt_path=tmp, device=device)
+        with np.load(os.path.join(ASSETS, "bowl_views.npz")) as z:
+            view = z["pc_0"]
+        draws = PoseDraws.sample(runner.pcfg, torch.Generator(device=device).manual_seed(3),
+                                 device, n_raw=runner.cfg.npoint_max)
+        served, pre = runner.estimate(view, draws=draws)
+        direct = estimate_pose(state.point, state.ppf, pre.pc, pre.normals, pre.n_valid,
+                               runner.sphere, runner.pcfg, nbr_idx=pre.nbr_idx, draws=draws)
+        same = all(torch.equal(getattr(served, k), getattr(direct, k)) for k in ("T", "R", "scale"))
+        print(f"phase 12: CategoryRunner('bowl', ckpt_path=<run>) serves the trained "
+              f"params_best.npz: T {served.T.tolist()}, equal to the trained modules' "
+              f"estimate: {same}", flush=True)
+        check(same and bool(torch.isfinite(served.RT).all())
+              and float(torch.det(served.R)) > 0, "the served checkpoint's estimate")
+
+    # warm times of the loop's parts, the peak memory of a step, its launches
+    ds = ShapeNetRenderDataset(cfg, seed=1)
+    med, peak, batch, statics = train_step_times(cfg, state, ds)
+    loop_ms = med["render"] + med["draws"] + med["prep"] + med["step"]
+    wall_ms, busy_ms, step_launches = device_profile(
+        lambda: step.train_step(state, batch, statics), "one warm train step", top=8)
+    print(f"phase 12 ({smi}): warm ms a step {loop_ms:.2f} = host render "
+          f"{med['render']:.2f} ({med['render'] / cfg.batch_size:.2f} a sample) + draws "
+          f"{med['draws']:.2f} + batch prep {med['prep']:.2f} + step (forward, backward, "
+          f"Adam) {med['step']:.2f} (device {med['step_device']:.2f}); "
+          f"{cfg.batch_size * 1e3 / loop_ms:.2f} samples/s; the epoch's "
+          f"{TRAIN_STEPS * cfg.batch_size / row['wall_s']:.2f} samples/s; peak device memory "
+          f"of a step {peak / 2**30:.3f} GiB above its inputs; {step_launches} kernel launches "
+          f"a step (idle share of a step alone {1 - busy_ms / wall_ms:.3f})", flush=True)
+    if profile:
+        device_profile(lambda: loop.loop_step(cfg, ds, threefry.key(1), state, statics, device),
+                       "one warm loop step (render, prep, step)")
+
+    # (b) a fixed batch from the flax-style init: the loss must fall
+    fresh = step.init_train_state(cfg, device)
+    losses = [_finite_comps(step.train_step(fresh, batch, statics), "fixed batch")["loss"]
+              for _ in range(FIXED_BATCH_STEPS)]
+    print(f"phase 12: {FIXED_BATCH_STEPS} steps on one batch: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}", flush=True)
+    check(losses[-1] < losses[0], f"the loss did not fall on a fixed batch: {losses}")
+
+    # CPU against CUDA: one step from the same init on the same batch
+    states = {dev: step.init_train_state(cfg, dev) for dev in ("cpu", device)}
+    batches = {device: batch, "cpu": batch.to("cpu")}
+    loss, grads = {}, {}
+    for dev, st in states.items():
+        st.opt.zero_grad()
+        total, _ = step.loss_fn(st, batches[dev], statics)
+        total.backward()
+        loss[dev] = total.item()
+        grads[dev] = [p.grad.cpu() for p in st.opt.param_groups[0]["params"]]
+        st.opt.step()
+    dl = abs(loss["cpu"] - loss[device]) / abs(loss["cpu"])
+    dg = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+             for a, b in zip(grads["cpu"], grads[device]))
+    dp = max(float((a.detach() - b.detach().cpu()).abs().max()) for a, b in
+             zip(states["cpu"].opt.param_groups[0]["params"],
+                 states[device].opt.param_groups[0]["params"]))
+    print(f"phase 12: cpu vs cuda, one step: loss {loss['cpu']:.6f} / {loss[device]:.6f} "
+          f"(rel {dl:.2e}), gradients within {dg:.2e} of each tensor's max, parameters after "
+          f"the step within {dp:.2e}", flush=True)
+    check(dl < 1e-5, "CPU and CUDA losses differ")
+    check(dg < 1e-3, "CPU and CUDA gradients differ")
+    check(dp < 1e-6, "CPU and CUDA parameters differ after a step")
+
+    # decode validation of the committed bowl params, card against CPU
+    params = load_npz_params(os.path.join(ASSETS, "bowl_params_best.npz"))
+    key = threefry.key(7)
+    dv_metrics = {}
+    for dev in (device, "cpu"):
+        st = step.init_train_state(cfg, dev, params=params)
+        validator = DecodeValidator(cfg, dev)
+        vh.reset_launches()
+        t0 = time.perf_counter()
+        dv_metrics[dev] = validator(st.point, st.ppf, key)
+        dv_s = time.perf_counter() - t0
+        if dev == device:
+            dv_launches = dict(vh.LAUNCHES)
+            first = validator.poses[0].pc
+        print(f"phase 12: decode val of the committed bowl params on {dev}: "
+              f"{json.dumps(dv_metrics[dev])} in {dv_s:.2f} s", flush=True)
+    check(dv_launches["bound_projections_pairs"] == n_poses
+          and 0 < dv_launches["refine_window_pairs"] <= 2 * n_poses
+          and dv_launches["bound_projections"] == dv_launches["refine_window"] == 0
+          and dv_launches["dense_hist"] == dv_launches["dense_hist_pairs"] == 0,
+          f"decode val launches {dv_launches}")
+    check(dv_metrics[device] == dv_metrics["cpu"], "decode val differs between CPU and CUDA")
+    check(dv_metrics[device]["dv_up_deg"] < 15.0,
+          f"decode val up error {dv_metrics[device]['dv_up_deg']} deg >= 15")
+
+    # both peak kernels at a decode-val pose's shapes, against the plain version
+    runner = CategoryRunner("bowl", device=device)
+    pad, n_raw = _pad_cloud(first, cfg.npoint_max)
+    records = kernel_phase(main_path_inputs(runner, pad[:n_raw], runner.pcfg.grid_shape),
+                           "training decode-val pose 0 (bowl 64^3)")
+    return records, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     ap.add_argument("--profile", action="store_true", help="profile one warm pose")
@@ -1667,16 +1902,23 @@ def main():
         sun_records, sun_launches = sun_driver_phase(tmp, args.profile)
     print(f"phase 11 (sun driver): {time.perf_counter() - t11:.1f} s", flush=True)
 
+    # ---- 12. supervised training of bowl at full width ------------------------
+    t12 = time.perf_counter()
+    train_records, train_launches = training_phase(smi, args.profile)
+    print(f"phase 12 (training): {time.perf_counter() - t12:.1f} s", flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
     # comparisons, stands beside it under votes_ keys.  The peak kernels
-    # stand three times: on bowl's main path (phase 4), on the NOCS driver's
-    # frame (phase 10) and on the SUN driver's scans (phase 11), each with
+    # stand four times: on bowl's main path (phase 4), on the NOCS driver's
+    # frame (phase 10), on the SUN driver's scans (phase 11) and in the
+    # trainer's decode validation (phase 12), each with
     # the launches of its own run
     kernels = []
     paths = [("main path (phase 4; dense_hist: zero-shot, phase 7)", records, launches),
              ("nocs driver (phase 10)", nocs_records, nocs_launches),
-             ("sun driver (phase 11)", sun_records, sun_launches)]
+             ("sun driver (phase 11)", sun_records, sun_launches),
+             ("training decode-val (phase 12)", train_records, train_launches)]
     for path, recs, counts in paths:
         for name, rec in recs.items():
             pairs = name + "_pairs" if name + "_pairs" in counts else name

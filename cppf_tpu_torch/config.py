@@ -1,17 +1,20 @@
-"""Configuration: the fields of ``cppf_tpu.config.Config`` that the port
-reads, and the same layered YAML loader
+"""Configuration: the fields of ``cppf_tpu.config.Config``, and the same
+layered YAML loader
 
     defaults (here)  <  configs/default.yaml  <  configs/category/<cat>.yaml
+                     <  overrides (``parse_cli_overrides``)
 
-or, when a training-time snapshot is given, defaults < snapshot.  Keys the
-port does not know are ignored, as the JAX loader ignores unknown keys.
+or, when a training-time snapshot is given, defaults < snapshot < overrides.
+Keys the port does not know are ignored, as the JAX loader ignores unknown
+keys.  ``Config.save`` writes the snapshot the trainer leaves beside its
+checkpoints.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
 
 import yaml
 
@@ -20,10 +23,21 @@ CONFIG_ROOT = os.path.join(REPO_ROOT, "configs")
 
 
 @dataclass
+class OptConfig:
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+
+
+@dataclass
 class Config:
     category: str = "bowl"
+    # the training seed: init params, data stream and the per-epoch key
+    seed: int = 0
+    batch_size: int = 1
     res: float = 5e-3
+    max_epoch: int = 200
     npoint_max: int = 10000
+    use_normal: bool = True
     regress_right: bool = False
     tr_num_bins: int = 32
     rot_num_bins: int = 36
@@ -32,9 +46,25 @@ class Config:
     z_right: bool = False
     cls_bins: bool = True
     knn: int = 60
+    shapenet_root: str = "./data/ShapeNetCore.v2"
+    opt: OptConfig = field(default_factory=OptConfig)
     scale_range: Tuple[float, float] = (0.1851, 0.2381)
     vote_range: Tuple[float, float] = (0.12, 0.12)
     scale_mean: Tuple[float, float, float] = (0.07, 0.03, 0.07)
+    # training-side (see cppf_tpu.config.Config): depth-noise strength of the
+    # renders (0 = off), |n·axis| weights on the aux-bit BCE, the
+    # radial-asymmetry factor on the right bit's weight, a factor on the
+    # right-bit BCE in the total, the base-membership weight on the up KL
+    depth_noise: float = 0.0
+    aux_weighted: bool = True
+    aux_asym: bool = False
+    right_aux_boost: float = 1.0
+    up_rot_base: bool = False
+    # validation cadences in epochs (0 = off) and the decode-val pose count
+    contrast_val_every: int = 0
+    decode_val_every: int = 0
+    decode_val_poses: int = 6
+    train_pairs: int = 200000
     # inference-side flags (see cppf_tpu.pipeline.pose.PoseConfig); the port
     # raises on those in pipeline/pose.py::UNPORTED_FLAGS unless they are off
     sharp_axis_votes: bool = False
@@ -72,6 +102,16 @@ class Config:
         if self.cls_bins:
             return 2 * self.tr_num_bins + 2 * self.rot_num_bins + 2 + 3
         return 2 + 2 + 2 + 3
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def save(self, path: str) -> None:
+        """Write the resolved config as YAML (the snapshot that inference
+        re-reads, as ``cppf_tpu.config.Config.save`` writes it)."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            yaml.safe_dump(self.to_dict(), f, sort_keys=False)
 
 
 def _apply(cfg: dict, overrides: dict) -> dict:
@@ -113,9 +153,38 @@ def load_config(
                 base["category"] = category
     if overrides:
         _apply(base, overrides)
+    opt = OptConfig(**base.pop("opt", {}))
     known = {f.name for f in dataclasses.fields(Config)}
     kwargs = {k: v for k, v in base.items() if k in known}
     for key in ("scale_range", "vote_range", "scale_mean"):
         if isinstance(kwargs.get(key), list):
             kwargs[key] = tuple(kwargs[key])
-    return Config(**kwargs)
+    return Config(**kwargs, opt=opt)
+
+
+def parse_cli_overrides(args: List[str]) -> dict:
+    """``key=value`` overrides (dotted keys nest: ``opt.lr=5e-4``), each
+    value read as YAML; a numeric string YAML 1.1 leaves unread ("5e-4")
+    becomes a number."""
+    out: dict = {}
+    for a in args:
+        if "=" not in a:
+            raise ValueError(f"override must look like key=value, got {a!r}")
+        k, v = a.split("=", 1)
+        try:
+            v = yaml.safe_load(v)
+        except yaml.YAMLError:
+            pass
+        if isinstance(v, str):
+            for cast in (int, float):
+                try:
+                    v = cast(v)
+                    break
+                except ValueError:
+                    pass
+        cur = out
+        *parents, leaf = k.split(".")
+        for p in parents:
+            cur = cur.setdefault(p, {})
+        cur[leaf] = v
+    return out

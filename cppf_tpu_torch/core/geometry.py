@@ -7,6 +7,23 @@ import numpy as np
 import torch
 
 
+def rotx(a: float) -> np.ndarray:
+    """4x4 rotation about +x."""
+    c, s = np.cos(a), np.sin(a)
+    m = np.eye(4)
+    m[1, 1], m[1, 2], m[2, 1], m[2, 2] = c, -s, s, c
+    return m
+
+
+def roty(a: float) -> np.ndarray:
+    """4x4 rotation about +y (its sine terms as cppf_tpu/core/geometry.py
+    places them)."""
+    c, s = np.cos(a), np.sin(a)
+    m = np.eye(4)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, -s, s, c
+    return m
+
+
 def fibonacci_sphere(samples: int) -> np.ndarray:
     """Near-uniform unit directions on S², float64 [samples, 3]: y runs from
     1 to -1 with golden-angle azimuth steps, the exact ordering of
@@ -34,6 +51,23 @@ def backproject(depth: np.ndarray, intrinsics: np.ndarray, instance_mask: np.nda
     return pts, (rows, cols)
 
 
+def backproject_grid(depth: torch.Tensor, intrinsics: torch.Tensor, mask: torch.Tensor):
+    """Every pixel through K⁻¹ at once: points [H·W, 3] (x and y negated,
+    zero where invalid) and their validity [H·W] (mask and depth > 0)."""
+    h, w = depth.shape
+    K_inv = torch.linalg.inv(intrinsics.to(depth.dtype))
+    vv, uu = torch.meshgrid(torch.arange(h, device=depth.device),
+                            torch.arange(w, device=depth.device), indexing="ij")
+    uv1 = torch.stack([uu.reshape(-1), vv.reshape(-1),
+                       torch.ones(h * w, dtype=torch.int64, device=depth.device)], 0)
+    rays = (K_inv @ uv1.to(depth.dtype)).T
+    z = depth.reshape(-1)
+    valid = mask.reshape(-1) & (z > 0)
+    pts = rays * (z[:, None] / rays[:, 2:3])
+    pts = pts * torch.tensor([-1.0, -1.0, 1.0], dtype=pts.dtype, device=pts.device)
+    return torch.where(valid[:, None], pts, 0.0), valid
+
+
 def backproject_sunrgbd(depth: np.ndarray, K: np.ndarray, Rtilt: np.ndarray, mask=None):
     """SUN RGB-D unprojection on the host (cppf_tpu core/geometry.py:91-103):
     the masked pixels' depth in mm lifted through ``K`` to (x, z, -y) in
@@ -49,6 +83,36 @@ def backproject_sunrgbd(depth: np.ndarray, K: np.ndarray, Rtilt: np.ndarray, mas
     pts = (Rtilt @ pts.T).T
     pts = pts[z != 0]
     return pts[:, [0, 2, 1]]
+
+
+def get_3d_bbox(scale, shift=0) -> np.ndarray:
+    """The 8 corners [3, 8] of an axis-aligned box of extents ``scale`` (a
+    scalar or 3) about ``shift``."""
+    s = np.asarray(scale, dtype=np.float64)
+    if s.ndim == 0:
+        s = np.full(3, float(s))
+    sx, sy, sz = s / 2.0
+    corners = np.array([
+        [+sx, +sy, +sz], [+sx, +sy, -sz], [-sx, +sy, +sz], [-sx, +sy, -sz],
+        [+sx, -sy, +sz], [+sx, -sy, -sz], [-sx, -sy, +sz], [-sx, -sy, -sz],
+    ]) + shift
+    return corners.T
+
+
+def transform_coordinates_3d(coords: np.ndarray, RT: np.ndarray) -> np.ndarray:
+    """A homogeneous 4x4 applied to [3, N] coordinates."""
+    if coords.shape[0] != 3:
+        raise ValueError(f"coordinates must be [3, N], got {coords.shape}")
+    hom = np.vstack([coords, np.ones((1, coords.shape[1]))])
+    out = RT @ hom
+    return out[:3] / out[3]
+
+
+def calculate_2d_projections(coords3d: np.ndarray, intrinsics: np.ndarray) -> np.ndarray:
+    """Integer pixels [N, 2] of [3, N] camera-frame points."""
+    proj = intrinsics @ coords3d
+    proj = (proj[:2] / proj[2]).T
+    return proj.astype(np.int32)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

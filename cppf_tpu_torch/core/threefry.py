@@ -57,6 +57,12 @@ def split(k: Key, num: int = 2) -> List[Key]:
     return [threefry2x32(k, i >> 32, i & _MASK) for i in range(num)]
 
 
+def fold_in(k: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)`` for a 32-bit ``data``: the hash of
+    the counter words (0, data)."""
+    return threefry2x32(k, 0, data & _MASK)
+
+
 def _uniform(bits: torch.Tensor, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32 from 32 random bits an element."""
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
@@ -99,12 +105,18 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-_KINDS = {"uniform": _uniform, "gumbel": _gumbel, "normal": _normal}
+def _bernoulli(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.bernoulli`` at p = ½ (the trainer's random normal
+    signs): a uniform below ½."""
+    return _uniform(bits) < 0.5
+
+
+_KINDS = {"uniform": _uniform, "gumbel": _gumbel, "normal": _normal, "bernoulli": _bernoulli}
 
 
 def draw_many(requests, device) -> List[torch.Tensor]:
     """Several draws, each ``(kind, key, shape)`` with kind ``"uniform"``,
-    ``"gumbel"`` or ``"normal"``, from one pass of the hash over all their
+    ``"gumbel"``, ``"normal"`` or ``"bernoulli"`` (p = ½), from one pass of the hash over all their
     counters, each counter with its own draw's key.  Equal element for
     element to the draws made one at a time (the hash is elementwise), in
     one set of launches instead of one a draw."""

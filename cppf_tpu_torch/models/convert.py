@@ -6,8 +6,9 @@ Mapping, leaf by leaf (module paths keep the flax names):
     LayerNorm.scale / .bias  → LayerNorm.weight / .bias
 
 The weights travel as a flat ``.npz`` (``scripts/export_torch_assets.py``
-writes it from the orbax checkpoint): one key per leaf, path parts joined by
-``/``, e.g. ``point/params/spconv0/kernel/lin0/kernel``.
+writes it from the orbax checkpoint, :func:`save_npz_params` from the torch
+modules): one key per leaf, path parts joined by ``/``, e.g.
+``point/params/spconv0/kernel/lin0/kernel``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from cppf_tpu_torch.models.encoders import PointEncoder, PPFEncoder
 
@@ -51,6 +53,36 @@ def params_to_state_dicts(params: dict):
     return _state_dict(params["point"]), _state_dict(params["ppf"])
 
 
+def modules_to_flat_params(point: nn.Module, ppf: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_to_state_dicts`, flattened: the two
+    encoders' weights as the flat flax layout {``"point/params/.../kernel"``:
+    array}, Linear weights transposed to [in, out], LayerNorm weights as
+    ``scale``."""
+    flat = {}
+    for top, module in (("point", point), ("ppf", ppf)):
+        for name, m in module.named_modules():
+            prefix = "/".join([top, "params", *name.split(".")])
+            if isinstance(m, nn.Linear):
+                leaves = {"kernel": m.weight.T, "bias": m.bias}
+            elif isinstance(m, nn.LayerNorm):
+                leaves = {"scale": m.weight, "bias": m.bias}
+            else:
+                continue
+            for leaf, t in leaves.items():
+                flat[f"{prefix}/{leaf}"] = np.ascontiguousarray(
+                    t.detach().cpu().numpy(), np.float32)
+    return flat
+
+
+def save_npz_params(path: str, point: nn.Module, ppf: nn.Module) -> None:
+    """Write both encoders' weights as the flat ``.npz`` that
+    :func:`load_npz_params` reads."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, **modules_to_flat_params(point, ppf))
+    os.replace(tmp, path)
+
+
 def load_npz_params(path: str) -> dict:
     """Read the flat ``.npz`` back into the nested params tree."""
     tree: dict = {}
@@ -64,12 +96,17 @@ def load_npz_params(path: str) -> dict:
     return tree
 
 
-def load_encoders(params: dict, out_dim: int, device) -> Tuple[PointEncoder, PPFEncoder]:
+def make_encoders(out_dim: int) -> Tuple[PointEncoder, PPFEncoder]:
     """Both encoders with the reference hyper-parameters (cppf_tpu
-    pipeline/pose.py::make_models), weights loaded with ``strict=True``,
-    in eval mode on ``device``."""
-    point = PointEncoder(spfcs=(32, 64, 32, 32), out_dim=32, num_layers=1)
-    ppf = PPFEncoder(ppffcs=(84, 32, 32, 16), out_dim=out_dim)
+    pipeline/pose.py::make_models), torch's default init."""
+    return (PointEncoder(spfcs=(32, 64, 32, 32), out_dim=32, num_layers=1),
+            PPFEncoder(ppffcs=(84, 32, 32, 16), out_dim=out_dim))
+
+
+def load_encoders(params: dict, out_dim: int, device) -> Tuple[PointEncoder, PPFEncoder]:
+    """:func:`make_encoders` with the weights of ``params`` loaded with
+    ``strict=True``, in eval mode on ``device``."""
+    point, ppf = make_encoders(out_dim)
     point_sd, ppf_sd = params_to_state_dicts(params)
     point.load_state_dict(point_sd, strict=True)
     ppf.load_state_dict(ppf_sd, strict=True)

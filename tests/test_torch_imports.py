@@ -39,7 +39,11 @@ def test_port_file_list_is_complete():
     assert "cppf_tpu_torch/eval/nocs_inference.py" in names
     for module in ("eval/zero_shot.py", "eval/anchor.py", "ops/ransac.py", "data/png.py",
                    "eval/nocs_eval.py", "eval/metrics.py", "eval/box3d.py", "eval/iou3d.py",
-                   "eval/sunrgbd_inference.py", "eval/sunrgbd_eval.py", "eval/alignment.py"):
+                   "eval/sunrgbd_inference.py", "eval/sunrgbd_eval.py", "eval/alignment.py",
+                   "train/step.py", "train/loop.py", "train/losses.py", "train/checkpoints.py",
+                   "train/decode_val.py", "data/shapenet.py", "data/compose.py",
+                   "data/synthetic.py", "data/native.py", "data/mesh.py", "core/binning.py",
+                   "utils/meters.py"):
         assert f"cppf_tpu_torch/{module}" in names
 
 

@@ -70,3 +70,38 @@ def test_draw_many_equals_one_draw_at_a_time():
     for kind, k, shape, g in zip(kinds, keys, shapes, got):
         assert g.shape == shape and g.dtype == torch.float32
         assert torch.equal(g, _draw(kind, k, shape)), kind
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2**32 - 5])
+def test_fold_in_and_bernoulli(seed):
+    """fold_in on the trainer's epoch numbers and draw_many's "bernoulli"
+    kind as bernoulli(0.5), the trainer's random normal signs."""
+    key = jax.random.PRNGKey(seed)
+    for data in (0, 1, 7, 199, 2**31 - 1):
+        assert threefry.fold_in(threefry.key(seed), data) == tuple(
+            int(v) for v in np.asarray(jax.random.key_data(jax.random.fold_in(key, data))))
+    for shape in ((4096, 1), (1000,)):
+        got = threefry.draw_many([("bernoulli", threefry.key(seed), shape)], "cpu")[0]
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(got, np.asarray(jax.random.bernoulli(key, 0.5, shape)))
+
+
+def test_batch_draws_from_jax_key():
+    """The trainer's batch draws: split(key, B), each row's key split into
+    preprocess / pairs / sign keys (cppf_tpu/train/loop.py:55-63)."""
+    from cppf_tpu_torch.config import load_config
+    from cppf_tpu_torch.train.loop import BatchDraws
+
+    cfg = load_config("bowl")
+    cfg.npoint_max, cfg.train_pairs, cfg.npoint_pad = 700, 900, 300
+    key = jax.random.fold_in(jax.random.PRNGKey(1), 3)
+    got = BatchDraws.from_jax_key(np.asarray(jax.random.key_data(key)), 3, cfg, "cpu")
+    for i, k in enumerate(jax.random.split(key, 3)):
+        pre, pairs, sign = jax.random.split(k, 3)
+        np.testing.assert_allclose(got.jitter[i].numpy(),
+                                   np.asarray(jax.random.normal(pre, (700, 3))), rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(got.pair_u[i].numpy(),
+                                      np.asarray(jax.random.uniform(pairs, (900, 2))))
+        np.testing.assert_array_equal(got.keep_sign[i].numpy(),
+                                      np.asarray(jax.random.bernoulli(sign, 0.5, (300, 1))))
