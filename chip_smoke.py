@@ -112,6 +112,27 @@ Phases:
    parameters 1e-6); the decode validation of the committed bowl params
    on the card equal to the CPU's, up under 15°; both peak kernels held and
    timed at a decode-val pose's shapes.
+13. the pair-sharded pose and the data-parallel step (``parallel/``),
+   the kernels built before any rank starts: bowl and mug at full width on
+   their 4 committed views, each on its stored JAX run's draws, over 4
+   gloo ranks sharing the card (``parallel/launch.py::run_ranks``: spawned
+   processes, a file store); fails unless every rank returns the same pose
+   bit for bit, T is the one-rank pose's (or a maximum of its dense grid
+   within 1e-3, one center pass only), up and right equal it to 1e-6,
+   scale to rtol 1e-5, the back-vote survivors are equal, the medians of T
+   and up against the stored JAX estimates stay under 2 cm and 15°, and
+   each rank launched the pairs front ends of both peak kernels on its own
+   pairs once and 1-2 times a center pass (mug: two passes) and nothing
+   else of ``vote_hist.cu``; which collectives gloo takes on CUDA tensors;
+   then bowl's first view over NCCL with one rank a card (world size
+   ``device_count()``), the same checks; then one ``data_parallel_train_step``
+   on 2 gloo ranks at bowl's training width against one rank's
+   ``train_step`` on the whole batch (loss 1e-5 relative, gradients 1e-4
+   of each maximum, weights 1e-6, every rank's weights equal); warm
+   ms/pose and ms a step against one rank's, the bytes a pose's and a
+   step's collectives move; both peak kernels held and timed on rank 0's
+   shard (25 000 of bowl's 100 000 pairs).  One-card gloo times say nothing
+   of NCCL across cards.
 
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose, of one zero-shot frame,
@@ -208,7 +229,7 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False, second_pass=False):
+def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False, second_pass=False, rows=None):
     """What ppf_vote_peak is given for one view, on the card: its arguments
     (``peak_args``), the pair-parameter block and grid frame that the pairs
     front ends read, the flat vote vectors that the votes front ends read
@@ -217,7 +238,8 @@ def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False, second_pass=Fal
     center mask (``filter_coplanar``'s, else every pair); with
     ``second_pass`` the point weights are those of ``asym_center_refine``'s
     second center pass, 0.05 + 0.95 · the radial asymmetry about the first
-    pass's center and up axis."""
+    pass's center and up axis.  ``rows`` (a slice) keeps those pairs only:
+    one rank's shard of the pair-sharded pose."""
     from cppf_tpu_torch.core.targets import radial_asymmetry_about
     from cppf_tpu_torch.ops.vote_hist import vote_frame
     from cppf_tpu_torch.ops.voting import (backvote, pair_vote_params, ppf_vote_peak,
@@ -254,6 +276,8 @@ def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False, second_pass=Fal
             up = _vote_axis(pre.pc, pre.normals, idxs, alive, preds[:, 2 * B: 2 * B + R],
                             preds[:, -5], runner.sphere, pcfg, draws.up)
             probs = 0.05 + 0.95 * radial_asymmetry_about(pre.pc, T, up, pre.n_valid)
+        if rows is not None:
+            idxs, preds_tr, mask = idxs[rows], preds_tr[rows], mask[rows]
         params = pair_vote_params(pre.pc, preds_tr, probs, idxs, pcfg.res, pcfg.num_rots,
                                   adaptive, mask)
         f, r, w = votes_from_pair_params(params, corner, pcfg.res, dims.float(), grid_shape,
@@ -1753,6 +1777,362 @@ def training_phase(smi, profile=False):
     return records, launches
 
 
+# ---- 13. the pair-sharded pose and the data-parallel step -------------------
+PARALLEL_RANKS = 4            # gloo ranks sharing one card
+PARALLEL_CATEGORIES = ("bowl", "mug")
+DP_RANKS = 2
+RANK_TIMEOUT_S = 300.0
+PROBED = ("all_reduce", "all_gather", "all_gather uint8", "all_gather_into_tensor",
+          "broadcast", "reduce_scatter_tensor")
+
+
+def view_keys(z):
+    """Each committed view's JAX key: ``jax_key_i``, or, in bowl's views,
+    which were written before the keys were stored, the schedule that
+    wrote them remade (scripts/export_torch_assets.py::render_views:
+    PRNGKey(0), one split a view)."""
+    from cppf_tpu_torch.core import threefry
+
+    n = int(z["n_views"])
+    if "jax_key_0" in z:
+        return [tuple(int(v) for v in z[f"jax_key_{i}"]) for i in range(n)]
+    keys, key = [], threefry.key(0)
+    for _ in range(n):
+        key, k = threefry.split(key)
+        keys.append(k)
+    return keys
+
+
+def probe_collectives(device, world_size):
+    """Which collectives the default group takes on tensors of ``device``:
+    name → "ok" or the first line of its refusal."""
+    import torch.distributed as dist
+
+    def run(name):
+        x = torch.arange(4 * world_size, dtype=torch.float32, device=device)
+        part = torch.empty(4, device=device)
+        if name == "all_reduce":
+            dist.all_reduce(x)
+        elif name in ("all_gather", "all_gather uint8"):
+            src = x[:4].to(torch.uint8) if "uint8" in name else x[:4].clone()
+            dist.all_gather([torch.empty_like(src) for _ in range(world_size)], src)
+        elif name == "all_gather_into_tensor":
+            dist.all_gather_into_tensor(x, part.fill_(1.0))
+        elif name == "broadcast":
+            dist.broadcast(x, 0)
+        else:
+            dist.reduce_scatter_tensor(part, x)
+        _sync(device)
+
+    out = {}
+    for name in PROBED:
+        try:
+            run(name)
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = "refused: " + (str(e).strip().splitlines() or [type(e).__name__])[0][:160]
+    return out
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def parallel_pose_rank(rank, world_size, device, job):
+    """One rank of phase 13's pair-sharded pose: ``sharded_estimate_pose``
+    of each category's views (the parent's preprocessed clouds, the views'
+    JAX draws remade here) on a (1, world_size) mesh, launch counts and
+    collective traffic reset just before and read just after; then the
+    warm time of a pose (host clock, the ranks started together by a
+    barrier).  Returns the poses (on the host), the counts and the times."""
+    import torch.distributed as dist
+
+    from cppf_tpu_torch.eval.nocs_inference import CategoryRunner
+    from cppf_tpu_torch.ops import vote_hist as vh
+    from cppf_tpu_torch.parallel.mesh import make_mesh
+    from cppf_tpu_torch.parallel.pose import sharded_estimate_pose
+
+    mesh = make_mesh(world_size, shape=(1, world_size), device=device)
+    out = {"collectives": probe_collectives(device, world_size) if job["probe"] else None}
+    for cat, views in job["poses"].items():
+        runner = CategoryRunner(cat, device=device)
+        pres = [{k: t.to(device) for k, t in v.items()} for v in views["pre"]]
+        draws = [runner.draws(k) for k in views["keys"]]
+
+        def pose(v, d):
+            return sharded_estimate_pose(mesh, runner.point_encoder, runner.ppf_encoder,
+                                         v["pc"], v["normals"], v["n_valid"], runner.sphere,
+                                         runner.pcfg, d, nbr_idx=v["nbr_idx"])
+
+        _sync(device)
+        dist.barrier()
+        vh.reset_launches()
+        mesh.traffic.clear()
+        res = [pose(v, d) for v, d in zip(pres, draws)]
+        _sync(device)
+        launches, traffic = dict(vh.LAUNCHES), dict(mesh.traffic)
+        times = []
+        for _ in range(job["reps"]):
+            for v, d in zip(pres, draws):
+                dist.barrier()
+                _sync(device)
+                t0 = time.perf_counter()
+                pose(v, d)
+                _sync(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[cat] = dict(poses=[{k: t.cpu() for k, t in r._asdict().items()} for r in res],
+                        launches=launches, traffic=traffic, ms=statistics.median(times))
+        del draws
+    return out
+
+
+def dp_rank(rank, world_size, device, job):
+    """One rank of phase 13's data-parallel step: the flax-style init from
+    ``cfg.seed``, one ``data_parallel_train_step`` on the rank's samples of
+    the parent's batch (collective traffic counted), then the warm time of
+    a step (median of 3, the ranks started together by a barrier)."""
+    import torch.distributed as dist
+
+    from cppf_tpu_torch.device import pin_float32
+    from cppf_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from cppf_tpu_torch.parallel.train_step import data_parallel_train_step
+    from cppf_tpu_torch.train import step
+
+    pin_float32()
+    mesh = make_mesh(world_size, shape=(world_size, 1), device=device)
+    cfg = job["cfg"]
+    statics = step.TrainStatics.from_config(cfg)
+    state = step.init_train_state(cfg, device)
+    params = state.opt.param_groups[0]["params"]
+    init = [p.detach().cpu().clone() for p in params]
+    local = shard_batch(job["batch"].to(device), mesh)
+    comps = data_parallel_train_step(state, local, statics, mesh)
+    out = dict(comps={k: float(v) for k, v in comps.items()}, init=init,
+               grads=[p.grad.cpu() for p in params], weights=[p.detach().cpu() for p in params],
+               traffic=dict(mesh.traffic), samples=local.pc.shape[0])
+    times = []
+    for _ in range(3):
+        dist.barrier()
+        _sync(device)
+        t0 = time.perf_counter()
+        data_parallel_train_step(state, local, statics, mesh)
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["ms"] = statistics.median(times)
+    return out
+
+
+def _dense_value_ok(runner, pre, draws, T, first_T):
+    """Whether ``T``, the sharded pose's center where it differs from the
+    one-rank ``first_T`` (one center pass), is a maximum of the one-rank
+    dense vote grid within KERNEL_RTOL (ROADMAP port rule 5)."""
+    from cppf_tpu_torch.ops.voting import ppf_vote
+    from cppf_tpu_torch.pipeline.pose import decode_translation, grid_frame, pair_predictions
+
+    pcfg = runner.pcfg
+    with torch.no_grad():
+        idxs, preds = pair_predictions(runner.point_encoder, runner.ppf_encoder, pre.pc,
+                                       pre.normals, pre.n_valid, pcfg, draws.pair_u, pre.nbr_idx)
+        preds_tr = decode_translation(preds, draws.tr_gumbel, pcfg)
+        corner, dims = grid_frame(pre.pc, pre.valid_mask, pcfg)
+        grid = ppf_vote(pre.pc, preds_tr, torch.ones(pre.pc.shape[0], device=pre.pc.device), idxs,
+                        corner, pcfg.res, dims, pcfg.grid_shape, n_rots=pcfg.num_rots)
+    vals = [float(grid[tuple(torch.round((t.to(corner.device) - corner) / pcfg.res).long())])
+            for t in (T, first_T)]
+    top = float(grid.max())
+    print(f"  sharded center {T.tolist()} holds {vals[0]:.6f} votes, the one-rank one "
+          f"{vals[1]:.6f}, the grid's maximum {top:.6f}", flush=True)
+    return vals[0] >= top * (1 - KERNEL_RTOL)
+
+
+def hold_sharded(cat, ranks, refs, runner, z, world_size, backend):
+    """Phase 13's checks of one category's sharded poses against the
+    one-rank poses and the stored JAX estimates; returns each rank's
+    launches."""
+    passes = 2 if runner.pcfg.asym_center_refine else 1
+    n = len(refs["outs"])
+    for r, ro in enumerate(ranks):
+        for i in range(n):
+            for k, v in ro[cat]["poses"][i].items():
+                check(torch.equal(v, ranks[0][cat]["poses"][i][k]),
+                      f"{backend} {cat} view {i}: rank {r}'s {k} differs from rank 0's")
+        lr = ro[cat]["launches"]
+        check(lr["bound_projections_pairs"] == passes * n
+              and passes * n <= lr["refine_window_pairs"] <= 2 * passes * n
+              and lr["bound_projections"] == lr["refine_window"] == 0
+              and lr["dense_hist"] == lr["dense_hist_pairs"] == 0,
+              f"{backend} {cat}: rank {r} launched {lr}, not {passes} bound pass(es) and 1-2 "
+              f"windows a center pass")
+    d_jax_T, d_jax_up = [], []
+    for i in range(n):
+        got, want = ranks[0][cat]["poses"][i], refs["outs"][i]
+        same_T = torch.equal(got["T"], want.T.cpu())
+        if not same_T:
+            check(passes == 1 and _dense_value_ok(runner, refs["pres"][i], refs["draws"][i],
+                                                  got["T"], want.T),
+                  f"{backend} {cat} view {i}: sharded T {got['T'].tolist()} is neither the "
+                  f"one-rank {want.T.tolist()} nor a maximum of its grid")
+        d = {k: float((got[k] - getattr(want, k).cpu()).abs().max()) for k in ("T", "up", "right")}
+        d_scale = float(((got["scale"] - want.scale.cpu()) / want.scale.cpu()).abs().max())
+        print(f"  {backend} x{world_size} {cat} view {i}: |dT| {d['T']:.2e}, |d up| "
+              f"{d['up']:.2e}, |d right| {d['right']:.2e}, scale rel {d_scale:.2e}, survivors "
+              f"{int(got['n_filtered'])} / {int(want.n_filtered)} (one rank)", flush=True)
+        if same_T:
+            check(d["up"] <= 1e-6 and d["right"] <= 1e-6,
+                  f"{backend} {cat} view {i}: axes differ from the one-rank pose: {d}")
+        check(d_scale <= 1e-5, f"{backend} {cat} view {i}: scale differs by {d_scale:.2e}")
+        check(int(got["n_filtered"]) == int(want.n_filtered),
+              f"{backend} {cat} view {i}: back-vote survivors differ")
+        d_jax_T.append(float(np.linalg.norm(got["T"].numpy() - z[f"jax_T_{i}"])))
+        d_jax_up.append(_angle(got["up"].numpy(), z[f"jax_up_{i}"]))
+    t_med, up_med = _median(d_jax_T), _median(d_jax_up)
+    print(f"  {backend} x{world_size} {cat}: sharded minus stored JAX estimate, median T "
+          f"{t_med * 1e3:.3f} mm, up {up_med:.3f} deg", flush=True)
+    check(t_med < 0.02 and up_med < 15.0,
+          f"{backend} {cat}: sharded pose {t_med * 1e3:.1f} mm / {up_med:.1f} deg from JAX's")
+    return [ro[cat]["launches"] for ro in ranks]
+
+
+def parallel_phase(smi):
+    """Phase 13 (see the docstring).  Returns (both peak kernels' records on
+    rank 0's shard, rank 0's launches on bowl, every rank's launches by
+    category)."""
+    import tempfile
+
+    from cppf_tpu_torch.core import threefry
+    from cppf_tpu_torch.data.shapenet import ShapeNetRenderDataset
+    from cppf_tpu_torch.eval.nocs_inference import CategoryRunner
+    from cppf_tpu_torch.models.convert import ASSETS
+    from cppf_tpu_torch.parallel.launch import run_ranks
+    from cppf_tpu_torch.parallel.mesh import PairMesh, shard_rows
+    from cppf_tpu_torch.pipeline.pose import estimate_pose
+    from cppf_tpu_torch.train import loop, step
+
+    # one-rank poses of every view on its JAX draws, and their warm time
+    # from the preprocessed cloud
+    runners, refs, jobs, views = {}, {}, {}, {}
+    for cat in PARALLEL_CATEGORIES:
+        runner = runners[cat] = CategoryRunner(cat)
+        pcfg = runner.pcfg
+        check(pcfg.n_pairs == 100000 and pcfg.num_rots == 72 and pcfg.knn == 60
+              and runner.cfg.npoint_pad == 4096, f"phase 13 {cat}: not full width: {pcfg}")
+        z = views[cat] = np.load(os.path.join(ASSETS, f"{cat}_views.npz"))
+        keys = view_keys(z)
+        draws = [runner.draws(k) for k in keys]
+        outs, pres = zip(*(runner.estimate(z[f"pc_{i}"], draws=d) for i, d in enumerate(draws)))
+        times = []
+        for _ in range(3):
+            for pre, d in zip(pres, draws):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                estimate_pose(runner.point_encoder, runner.ppf_encoder, pre.pc, pre.normals,
+                              pre.n_valid, runner.sphere, pcfg, nbr_idx=pre.nbr_idx, draws=d)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        refs[cat] = dict(outs=outs, pres=pres, draws=draws, ms=statistics.median(times))
+        jobs[cat] = dict(keys=keys, pre=[dict(pc=p.pc.cpu(), normals=p.normals.cpu(),
+                                              n_valid=p.n_valid.cpu(), nbr_idx=p.nbr_idx.cpu())
+                                         for p in pres])
+    all_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) 4 gloo ranks on one card
+        work = os.path.join(tmp, "gloo")
+        os.makedirs(work)
+        t0 = time.perf_counter()
+        gloo = run_ranks(parallel_pose_rank, "gloo", ["cuda:0"] * PARALLEL_RANKS,
+                         dict(poses=jobs, probe=True, reps=3), work, RANK_TIMEOUT_S)
+        print(f"phase 13 ({smi}): gloo, {PARALLEL_RANKS} ranks on one card, "
+              f"{time.perf_counter() - t0:.1f} s; collectives gloo takes on CUDA tensors: "
+              f"{json.dumps(gloo[0]['collectives'])}", flush=True)
+        for cat in PARALLEL_CATEGORIES:
+            n = len(refs[cat]["outs"])
+            all_launches[cat] = hold_sharded(cat, gloo, refs[cat], runners[cat], views[cat],
+                                             PARALLEL_RANKS, "gloo")
+            per_pose = {k: v / n for k, v in gloo[0][cat]["traffic"].items()}
+            print(f"phase 13 ({smi}): {cat} pair-sharded over {PARALLEL_RANKS} gloo ranks of "
+                  f"one card (one-card gloo: says nothing of NCCL across cards), warm "
+                  f"{gloo[0][cat]['ms']:.2f} ms/pose (rank 0's host clock) against one rank's "
+                  f"{refs[cat]['ms']:.2f} ms/pose; a pose's collectives on each rank: "
+                  f"{json.dumps(per_pose)}; launches a rank over {n} poses: "
+                  f"{json.dumps(all_launches[cat])}", flush=True)
+
+        # (b) NCCL, one rank a card
+        n_cards = torch.cuda.device_count()
+        work = os.path.join(tmp, "nccl")
+        os.makedirs(work)
+        t0 = time.perf_counter()
+        bowl1 = dict(keys=jobs["bowl"]["keys"][:1], pre=jobs["bowl"]["pre"][:1])
+        nccl = run_ranks(parallel_pose_rank, "nccl", [f"cuda:{r}" for r in range(n_cards)],
+                         dict(poses={"bowl": bowl1}, probe=False, reps=3), work, RANK_TIMEOUT_S)
+        ref1 = dict(refs["bowl"], outs=refs["bowl"]["outs"][:1], pres=refs["bowl"]["pres"][:1],
+                    draws=refs["bowl"]["draws"][:1])
+        hold_sharded("bowl", nccl, ref1, runners["bowl"], views["bowl"], n_cards, "nccl")
+        print(f"phase 13 ({smi}): NCCL, {n_cards} rank(s), one a card, bowl view 0: warm "
+              f"{nccl[0]['bowl']['ms']:.2f} ms/pose (one rank: {refs['bowl']['ms']:.2f}); "
+              f"collectives a pose: {json.dumps(nccl[0]['bowl']['traffic'])}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # (c) the data-parallel step: 2 gloo ranks on one card against one rank
+        cfg = _train_config()
+        ds = ShapeNetRenderDataset(cfg, seed=2)
+        samples = [ds.sample() for _ in range(cfg.batch_size)]
+        draws = loop.BatchDraws.from_jax_key(threefry.key(11), cfg.batch_size, cfg, "cuda")
+        batch = loop.build_batch(cfg, draws, samples, cfg.npoint_pad, "cuda")
+        statics = step.TrainStatics.from_config(cfg)
+        single = step.init_train_state(cfg, "cuda")
+        ps = single.opt.param_groups[0]["params"]
+        single.opt.zero_grad()
+        loss, _ = step.loss_fn(single, batch, statics)
+        loss.backward()
+        grads = [p.grad.cpu() for p in ps]
+        single.opt.step()
+        weights = [p.detach().cpu() for p in ps]
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step.train_step(single, batch, statics)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        work = os.path.join(tmp, "dp")
+        os.makedirs(work)
+        t0 = time.perf_counter()
+        dp = run_ranks(dp_rank, "gloo", ["cuda:0"] * DP_RANKS,
+                       dict(cfg=cfg, batch=batch.to("cpu")), work, RANK_TIMEOUT_S)
+        dp_s = time.perf_counter() - t0
+    for r in dp[1:]:
+        check(all(torch.equal(a, b) for a, b in zip(r["init"], dp[0]["init"])),
+              "data-parallel ranks start from different weights")
+        check(all(torch.equal(a, b) for a, b in zip(r["weights"], dp[0]["weights"])),
+              "data-parallel ranks hold different weights after the step")
+    dl = abs(dp[0]["comps"]["loss"] - loss.item()) / abs(loss.item())
+    dg = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+             for a, b in zip(dp[0]["grads"], grads))
+    dw = max(float((a - b).abs().max()) for a, b in zip(dp[0]["weights"], weights))
+    print(f"phase 13 ({smi}): data-parallel step, {DP_RANKS} gloo ranks of one card, "
+          f"{dp[0]['samples']} sample(s) of {cfg.train_pairs} pairs a rank, against one rank on "
+          f"the batch of {cfg.batch_size}: loss {dp[0]['comps']['loss']:.6f} / {loss.item():.6f} "
+          f"(rel {dl:.2e}), gradients within {dg:.2e} of each tensor's maximum, weights after "
+          f"the step within {dw:.2e}; warm {dp[0]['ms']:.2f} ms a step (rank 0; one-card gloo) "
+          f"against one rank's {statistics.median(times):.2f}; collectives a step "
+          f"{json.dumps(dp[0]['traffic'])} ({sum(p.numel() for p in ps)} parameters); "
+          f"{dp_s:.1f} s", flush=True)
+    check(dl < 1e-5, "data-parallel loss differs from one rank's")
+    check(dg < 1e-4, "data-parallel gradients differ from one rank's")
+    check(dw < 1e-6, "data-parallel weights differ from one rank's after the step")
+
+    # both peak kernels on rank 0's shard of bowl's first view
+    runner = runners["bowl"]
+    p = runner.pcfg.n_pairs
+    rows = shard_rows(p, PairMesh(0, (1, PARALLEL_RANKS), (0, 0), torch.device("cuda"), None,
+                                  None))
+    records = kernel_phase(main_path_inputs(runner, views["bowl"]["pc_0"],
+                                            runner.pcfg.grid_shape, rows=rows),
+                           f"bowl 64^3, rank 0's {rows.stop - rows.start} of {p} pairs")
+    return records, all_launches["bowl"][0], all_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     ap.add_argument("--profile", action="store_true", help="profile one warm pose")
@@ -1907,18 +2287,25 @@ def main():
     train_records, train_launches = training_phase(smi, args.profile)
     print(f"phase 12 (training): {time.perf_counter() - t12:.1f} s", flush=True)
 
+    # ---- 13. the pair-sharded pose and the data-parallel step ---------------
+    t13 = time.perf_counter()
+    par_records, par_launches, par_all = parallel_phase(smi)
+    print(f"phase 13 (parallel): {time.perf_counter() - t13:.1f} s", flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
     # comparisons, stands beside it under votes_ keys.  The peak kernels
-    # stand four times: on bowl's main path (phase 4), on the NOCS driver's
-    # frame (phase 10), on the SUN driver's scans (phase 11) and in the
-    # trainer's decode validation (phase 12), each with
-    # the launches of its own run
+    # stand five times: on bowl's main path (phase 4), on the NOCS driver's
+    # frame (phase 10), on the SUN driver's scans (phase 11), in the
+    # trainer's decode validation (phase 12) and on one rank's shard of the
+    # pair-sharded pose (phase 13: rank 0's launches on bowl, every rank's
+    # by category beside them), each with the launches of its own run
     kernels = []
     paths = [("main path (phase 4; dense_hist: zero-shot, phase 7)", records, launches),
              ("nocs driver (phase 10)", nocs_records, nocs_launches),
              ("sun driver (phase 11)", sun_records, sun_launches),
-             ("training decode-val (phase 12)", train_records, train_launches)]
+             ("training decode-val (phase 12)", train_records, train_launches),
+             ("pair-sharded pose (phase 13)", par_records, par_launches)]
     for path, recs, counts in paths:
         for name, rec in recs.items():
             pairs = name + "_pairs" if name + "_pairs" in counts else name
@@ -1932,6 +2319,9 @@ def main():
                                                     "votes_plain_ms", "votes_bound_ms",
                                                     "votes_bound_by")},
                          votes_launches=counts[name])
+            if recs is par_records:
+                k["launches_per_rank"] = {cat: [c[pairs] for c in ranks]
+                                          for cat, ranks in par_all.items()}
             kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

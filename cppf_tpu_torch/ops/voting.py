@@ -229,7 +229,7 @@ def ppf_vote_peak(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
                   grid_shape: Tuple[int, int, int], n_rots: int = 72, adaptive: bool = False,
                   pair_mask=None, splat: str = "trilinear", window: int = 16,
                   coarse_factor: int = 8, max_rounds: int = 0, bound_dtype: str = "float32",
-                  halfspace=None):
+                  halfspace=None, reduce_fn=None):
     """Argmax and max of the :func:`ppf_vote` grid without building the grid
     (cppf_tpu ops/voting.py:280-524), by branch-and-bound:
 
@@ -250,6 +250,13 @@ def ppf_vote_peak(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
     ``max_rounds=2`` costs at most two syncs.  Ties go to the first maximum
     (``argmax``).  Bounds are float32 sums and need no inflation, so
     ``bound_dtype`` accepts only "float32".  Returns (idx [3] int32, peak).
+
+    ``reduce_fn`` (default: none) is applied to every sum over votes: to
+    each of Mxy, Mxz, Myz after the bound pass and to each window.  With the
+    pairs split over ranks, an all-reduce there gives every rank the sums of
+    all pairs (``parallel/mesh.py::sharded_ppf_vote_peak``); it must give
+    every rank the same bits, since the loop's host read of ``bnd.max() >
+    best`` decides each rank's control flow.
     """
     if bound_dtype != "float32":
         raise ValueError(f"bound_dtype must be 'float32', got {bound_dtype!r}")
@@ -290,6 +297,9 @@ def ppf_vote_peak(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
         def refine(o):
             return refine_window(o, *votes, w8=w8, splat=splat)
 
+    if reduce_fn is not None:
+        mxy, mxz, myz = reduce_fn(mxy), reduce_fn(mxz), reduce_fn(myz)
+
     bnd = torch.minimum(
         torch.minimum(_maxpool2d(mxy, f8, f8 // pfy)[:, :, None],
                       _maxpool2d(mxz, f8, f8 // pfz)[:, None, :]),
@@ -307,6 +317,8 @@ def ppf_vote_peak(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
                             cflat % cz_n]).to(torch.int32)
         o = (cell * f8) // w8 * w8  # window-aligned: covers whole cells
         win = refine(o)
+        if reduce_fn is not None:
+            win = reduce_fn(win)
         wflat = torch.argmax(win)
         local = torch.stack([wflat // (w8 * w8), (wflat // w8) % w8,
                              wflat % w8]).to(torch.int32)

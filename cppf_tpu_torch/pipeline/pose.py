@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -188,70 +188,85 @@ class PoseResult(NamedTuple):
     grid_max: torch.Tensor
 
 
-def _masked_mean(x, mask, dim=None):
+def _masked_mean(x, mask, dim=None, reduce_fn=None):
+    """Mean of ``x`` over the entries ``mask`` keeps (1 where it keeps
+    none).  ``reduce_fn``, when given, sums the numerator and the count
+    over ranks first (one call on both): the mean over every rank's pairs."""
     m = mask.to(x.dtype)
     while m.dim() < x.dim():
         m = m[..., None]
     if dim is None:
-        return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
-    return torch.sum(x * m, dim) / torch.clamp(torch.sum(m, dim), min=1.0)
+        num, den = torch.sum(x * m), torch.sum(m)
+    else:
+        num, den = torch.sum(x * m, dim), torch.sum(m, dim)
+    if reduce_fn is not None:
+        both = reduce_fn(torch.cat([num.reshape(-1), den.reshape(-1)]))
+        num, den = both[:num.numel()].reshape(num.shape), both[num.numel():].reshape(den.shape)
+    return num / torch.clamp(den, min=1.0)
 
 
-def _bce_logits(logits, targets, mask):
-    """BCE-with-logits, mean over the masked entries."""
+def _bce_logits(logits, targets, mask, reduce_fn=None):
+    """BCE-with-logits, mean over the masked entries (of every rank's,
+    with ``reduce_fn``)."""
     loss = (torch.clamp(logits, min=0) - logits * targets
             + torch.log1p(torch.exp(-torch.abs(logits))))
-    return _masked_mean(loss, mask)
+    return _masked_mean(loss, mask, reduce_fn=reduce_fn)
 
 
-def _vote_axis(pc, pc_normal, point_idxs, pair_mask, angle_logits, aux_logits, sphere_pts,
-               pcfg: PoseConfig, draws: AxisDraws, pair_weights=None,
-               prior_gate=None) -> torch.Tensor:
-    """One orientation axis: subsample surviving pairs, decode their angle
-    bins, cone-vote on the sphere, flip the argmax by the aux-bit BCE.
-
-    ``pair_weights`` [P] biases the subsample and weights the aux BCE (see
-    the JAX PoseConfig.asym_right_votes).  With ``axis_topk`` K > 1 the K
-    distinct sphere peaks (greedy 20° suppression over both hemispheres)
-    are each signed and scored by the aux BCE, and the lowest wins among
-    those holding ``axis_topk_min_frac`` of the top peak's count.
-    ``prior_gate`` [n_sphere] bool marks the directions that may win: the
-    others' counts become -1 before the argmax and the top-K search."""
-    p = point_idxs.shape[0]
+def _axis_subsample(pair_mask, pair_weights, sub_u) -> torch.Tensor:
+    """[S] indices of the pairs whose cone votes an axis takes: ``sub_u``
+    inverted through the CDF of the surviving pairs (all pairs when none
+    survives), weighted by ``pair_weights``."""
     any_alive = pair_mask.any()
     keep = (pair_mask | ~any_alive).to(torch.float32)
     if pair_weights is not None:
         keep = keep * pair_weights
     cdf = torch.cumsum(keep, 0)
-    u = draws.sub_u * cdf[-1]
-    sub = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, p - 1)
-    sub_idxs = point_idxs[sub]
-    bin_idx = torch.argmax(angle_logits[sub] + draws.gumbel, -1)
-    angles_sub = bin_idx.to(pc.dtype) / (pcfg.rot_num_bins - 1) * math.pi
-    cos_tol = torch.cos(torch.deg2rad(torch.tensor(pcfg.angle_prec, dtype=pc.dtype)))
-    counts = rot_vote_sphere_count(pc, angles_sub, sub_idxs, sphere_pts, cos_tol.item(),
-                                   n_rots=pcfg.num_rots)
-    if prior_gate is not None:
-        counts = torch.where(prior_gate, counts, -1.0)
+    u = sub_u * cdf[-1]
+    return torch.clamp(torch.searchsorted(cdf, u, right=True), 0, pair_mask.shape[0] - 1)
+
+
+def _axis_angles(angle_logits, gumbel, pcfg: PoseConfig, dtype):
+    """(decoded cone angles of the rows of ``angle_logits`` on their Gumbel
+    noise, the cosine tolerance of the sphere bins)."""
+    bin_idx = torch.argmax(angle_logits + gumbel, -1)
+    angles = bin_idx.to(dtype) / (pcfg.rot_num_bins - 1) * math.pi
+    cos_tol = torch.cos(torch.deg2rad(torch.tensor(pcfg.angle_prec, dtype=dtype)))
+    return angles, cos_tol.item()
+
+
+def _aux_sign(pc, pc_normal, point_idxs, aux_logits, aux_mask, reduce_fn=None):
+    """``signed_bce(cand)`` → (±cand, its BCE): the sign whose aux-bit
+    targets (the pair's canonical normal on the side of ``cand``) the
+    logits of ``point_idxs``' pairs fit better; ``reduce_fn`` as in
+    :func:`_bce_logits`."""
     idx = point_idxs.long()
     ab = pc[idx[:, 0]] - pc[idx[:, 1]]
     ab_unit = ab / (torch.linalg.norm(ab, dim=-1, keepdim=True) + 1e-7)
     n_a = pc_normal[idx[:, 0]]
     n_canon = n_a * torch.where(torch.sum(n_a * ab_unit, -1, keepdim=True) < 0, -1.0, 1.0)
-    aux_mask = pair_mask.to(pc.dtype)
-    if pair_weights is not None:
-        aux_mask = aux_mask * pair_weights
 
     def signed_bce(cand):
         target = (torch.sum(n_canon * cand, -1) > 0).to(pc.dtype)
-        up_loss = _bce_logits(aux_logits, target, aux_mask)
-        down_loss = _bce_logits(aux_logits, 1.0 - target, aux_mask)
+        up_loss = _bce_logits(aux_logits, target, aux_mask, reduce_fn)
+        down_loss = _bce_logits(aux_logits, 1.0 - target, aux_mask, reduce_fn)
         return torch.where(down_loss < up_loss, -cand, cand), torch.minimum(up_loss, down_loss)
 
+    return signed_bce
+
+
+def _pick_axis(counts, sphere_pts, pcfg: PoseConfig, signed_bce, prior_gate=None):
+    """The axis from the sphere counts: the argmax signed by
+    ``signed_bce``, or with ``axis_topk`` K > 1 the best-scoring of the K
+    distinct peaks (greedy 20° suppression over both hemispheres) among
+    those holding ``axis_topk_min_frac`` of the top peak's count.
+    ``prior_gate`` [n_sphere] bool marks the directions that may win."""
+    if prior_gate is not None:
+        counts = torch.where(prior_gate, counts, -1.0)
     if pcfg.axis_topk <= 1:
         return signed_bce(sphere_pts[torch.argmax(counts)])[0]
 
-    cos_sup = torch.cos(torch.deg2rad(torch.tensor(20.0, dtype=pc.dtype)))
+    cos_sup = torch.cos(torch.deg2rad(torch.tensor(20.0, dtype=sphere_pts.dtype)))
     cand_idx = []
     c = counts
     for _ in range(pcfg.axis_topk):
@@ -264,6 +279,26 @@ def _vote_axis(pc, pc_normal, point_idxs, pair_mask, angle_logits, aux_logits, s
     ok = cand_counts >= pcfg.axis_topk_min_frac * cand_counts[0]
     bce = torch.where(ok, torch.stack(bce), math.inf)
     return torch.stack(signed)[torch.argmin(bce)]
+
+
+def _vote_axis(pc, pc_normal, point_idxs, pair_mask, angle_logits, aux_logits, sphere_pts,
+               pcfg: PoseConfig, draws: AxisDraws, pair_weights=None,
+               prior_gate=None) -> torch.Tensor:
+    """One orientation axis: subsample surviving pairs, decode their angle
+    bins, cone-vote on the sphere, flip the argmax by the aux-bit BCE.
+
+    ``pair_weights`` [P] biases the subsample and weights the aux BCE (see
+    the JAX PoseConfig.asym_right_votes); ``axis_topk`` and ``prior_gate``
+    as in :func:`_pick_axis`."""
+    sub = _axis_subsample(pair_mask, pair_weights, draws.sub_u)
+    angles_sub, cos_tol = _axis_angles(angle_logits[sub], draws.gumbel, pcfg, pc.dtype)
+    counts = rot_vote_sphere_count(pc, angles_sub, point_idxs[sub], sphere_pts, cos_tol,
+                                   n_rots=pcfg.num_rots)
+    aux_mask = pair_mask.to(pc.dtype)
+    if pair_weights is not None:
+        aux_mask = aux_mask * pair_weights
+    return _pick_axis(counts, sphere_pts, pcfg,
+                      _aux_sign(pc, pc_normal, point_idxs, aux_logits, aux_mask), prior_gate)
 
 
 def up_prior_gate(sphere_pts, pcfg: PoseConfig):
@@ -348,25 +383,33 @@ def coplanar_center_mask(pc, pc_normal, point_idxs) -> torch.Tensor:
     return keep | (torch.mean(keep.to(pc.dtype)) < 0.05)
 
 
+class PairStages(NamedTuple):
+    """The steps of :func:`decode_pose` that read every pair, as functions
+    of what they are given (the rest is per-point or replicated):
+
+    - ``center_peak(weights [N])`` → (T [3], peak) of the center vote;
+    - ``consistent_pairs(T)`` → [P] bool back-vote mask of every pair;
+    - ``vote_axis(pair_mask, angle_logits, aux_logits, draws, pair_weights,
+      prior_gate)`` → axis [3], the logits being columns of ``preds``;
+    - ``scale_mean(scale_pred, pair_mask)`` → [3] mean log-scale of the
+      surviving pairs.
+
+    :func:`vote_pose` makes them over all pairs on one device;
+    ``parallel/pose.py`` over each rank's share of the pairs."""
+
+    center_peak: Callable
+    consistent_pairs: Callable
+    vote_axis: Callable
+    scale_mean: Callable
+
+
 def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
               draws: PoseDraws, laptop_up=None, laptop_up_valid=None) -> PoseResult:
-    """Voting half: decode pair predictions into a 9D pose (no network).
-    The branches run in the order of the JAX ``_vote_pose_body``."""
-    n = pc.shape[0]
-    valid_mask = torch.arange(n, device=pc.device) < n_valid
-    B, R = pcfg.tr_num_bins, pcfg.rot_num_bins
-    up_logits = preds[:, 2 * B: 2 * B + R]
-    right_logits = preds[:, 2 * B + R: 2 * B + 2 * R]
-    up_aux = preds[:, -5]
-    right_aux = preds[:, -4]
-    scale_pred = preds[:, -3:]
-
+    """Voting half: decode pair predictions into a 9D pose (no network)."""
+    valid_mask = torch.arange(pc.shape[0], device=pc.device) < n_valid
     preds_tr = decode_translation(preds, draws.tr_gumbel, pcfg)
-
-    # --- center voting ------------------------------------------------------
     res = torch.tensor(pcfg.res, dtype=pc.dtype, device=pc.device)
     corner, grid_dims = grid_frame(pc, valid_mask, pcfg)
-    probs = torch.ones(n, dtype=pc.dtype, device=pc.device)
     center_mask = (coplanar_center_mask(pc, pc_normal, point_idxs) if pcfg.filter_coplanar
                    else None)
 
@@ -381,21 +424,51 @@ def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseC
         return backvote(pc, preds_tr, point_idxs, corner, res, grid_dims, center,
                         3.0 * pcfg.res, n_rots=pcfg.num_rots)[1]
 
-    T_est, grid_max = center_peak(probs)
-    pair_mask = consistent_pairs(T_est)
+    def vote_axis(pair_mask, angle_logits, aux_logits, axis_draws, pair_weights=None,
+                  prior_gate=None):
+        return _vote_axis(pc, pc_normal, point_idxs, pair_mask, angle_logits, aux_logits,
+                          sphere_pts, pcfg, axis_draws, pair_weights, prior_gate)
+
+    def scale_mean(scale_pred, pair_mask):
+        return _masked_mean(scale_pred, pair_mask, dim=0)
+
+    stages = PairStages(center_peak, consistent_pairs, vote_axis, scale_mean)
+    return decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg, draws, stages,
+                       laptop_up, laptop_up_valid)
+
+
+def decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
+                draws: PoseDraws, stages: PairStages, laptop_up=None,
+                laptop_up_valid=None) -> PoseResult:
+    """The pose from the center vote, the back-vote mask and the axis votes
+    of ``stages``; the branches run in the order of the JAX
+    ``_vote_pose_body``.  ``point_idxs`` [P, 2] are every pair; ``preds``
+    the rows that ``stages`` read (all of them on one device)."""
+    n = pc.shape[0]
+    B, R = pcfg.tr_num_bins, pcfg.rot_num_bins
+    up_logits = preds[:, 2 * B: 2 * B + R]
+    right_logits = preds[:, 2 * B + R: 2 * B + 2 * R]
+    up_aux = preds[:, -5]
+    right_aux = preds[:, -4]
+    scale_pred = preds[:, -3:]
+    probs = torch.ones(n, dtype=pc.dtype, device=pc.device)
+
+    # --- center voting ------------------------------------------------------
+    T_est, grid_max = stages.center_peak(probs)
+    pair_mask = stages.consistent_pairs(T_est)
 
     # --- orientation axes ---------------------------------------------------
-    up = _vote_axis(pc, pc_normal, point_idxs, pair_mask, up_logits, up_aux, sphere_pts,
-                    pcfg, draws.up, prior_gate=up_prior_gate(sphere_pts, pcfg))
+    up = stages.vote_axis(pair_mask, up_logits, up_aux, draws.up,
+                          prior_gate=up_prior_gate(sphere_pts, pcfg))
 
     if pcfg.asym_center_refine:
         # second center pass on the protruding points' votes; only its
         # component along the protrusion direction is taken
         asym_c = radial_asymmetry_about(pc, T_est, up, n_valid)
-        T_ref, _ = center_peak((0.05 + 0.95 * asym_c) * probs)
+        T_ref, _ = stages.center_peak((0.05 + 0.95 * asym_c) * probs)
         u_h, gate = _protrusion_centroid(pc, T_est, up, n_valid, asym_c)
         T_est = torch.where(gate, T_est + torch.dot(T_ref - T_est, u_h) * u_h, T_est)
-        pair_mask = consistent_pairs(T_est)
+        pair_mask = stages.consistent_pairs(T_est)
 
     if pcfg.regress_right:
         right_w = asym = None
@@ -404,8 +477,8 @@ def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseC
         if pcfg.asym_right_votes:
             idx = point_idxs.long()
             right_w = 0.05 + 0.95 * torch.maximum(asym[idx[:, 0]], asym[idx[:, 1]])
-        right = _vote_axis(pc, pc_normal, point_idxs, pair_mask, right_logits, right_aux,
-                           sphere_pts, pcfg, draws.right, pair_weights=right_w)
+        right = stages.vote_axis(pair_mask, right_logits, right_aux, draws.right,
+                                 pair_weights=right_w)
         if pcfg.geo_right_sign:
             h_dir, gate = _protrusion_centroid(pc, T_est, up, n_valid, asym)
             ref_dir = h_dir if pcfg.geo_right_dir == "direct" else cross(h_dir, up)
@@ -433,7 +506,7 @@ def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseC
 
     # --- scale --------------------------------------------------------------
     scale_mean = torch.tensor(pcfg.scale_mean, dtype=pc.dtype, device=pc.device)
-    pred_scale = (torch.exp(_masked_mean(scale_pred, pair_mask, dim=0)) * scale_mean
+    pred_scale = (torch.exp(stages.scale_mean(scale_pred, pair_mask)) * scale_mean
                   * pcfg.scale_multiplier)
     scale_norm = torch.linalg.norm(pred_scale)
     RT = torch.eye(4, dtype=pc.dtype, device=pc.device)

@@ -41,6 +41,7 @@ from cppf_tpu_torch.core.targets import (base_membership, generate_targets, radi
                                          sample_pair_idxs, scale_target, soft_bin_targets)
 from cppf_tpu_torch.data.shapenet import ShapeNetRenderDataset
 from cppf_tpu_torch.device import pin_float32, resolve_device
+from cppf_tpu_torch.parallel.input_pipeline import shard_dataset
 from cppf_tpu_torch.pipeline.preprocess import preprocess_cloud
 from cppf_tpu_torch.train import checkpoints
 from cppf_tpu_torch.train.step import Batch, TrainStatics, init_train_state, train_step
@@ -173,6 +174,10 @@ def train(cfg: Config, out_dir: Optional[str] = None, epoch_len: Optional[int] =
         raise NotImplementedError("contrast validation (eval/contrast_val.py) is not ported")
 
     ds = dataset or ShapeNetRenderDataset(cfg, seed=cfg.seed)
+    if dataset is None:
+        # this process's share of the models and its own generator, reseeded
+        # from 0 as the JAX trainer's (cppf_tpu/train/loop.py:126-132)
+        shard_dataset(ds)
     if epoch_len is not None:
         ds.epoch_len = epoch_len
     steps = max(1, len(ds) // cfg.batch_size)

@@ -14,7 +14,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every CPU test and fail only on the card
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "cppf_tpu", "cv2", "PIL")
 PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "cppf_tpu_torch", "**", "*.py"),
-                              recursive=True)) + [os.path.join(ROOT, "chip_smoke.py")]
+                              recursive=True)) + [os.path.join(ROOT, "chip_smoke.py"),
+                                                  os.path.join(ROOT, "scripts",
+                                                               "parallel_smoke.py")]
 
 
 def _imported_modules(path):
@@ -35,6 +37,7 @@ def test_port_imports_nothing_of_jax(path):
 
 def test_port_file_list_is_complete():
     names = {os.path.relpath(p, ROOT) for p in PORT_FILES}
+    assert "scripts/parallel_smoke.py" in names
     assert "cppf_tpu_torch/ops/vote_hist.py" in names
     assert "cppf_tpu_torch/eval/nocs_inference.py" in names
     for module in ("eval/zero_shot.py", "eval/anchor.py", "ops/ransac.py", "data/png.py",
@@ -43,7 +46,9 @@ def test_port_file_list_is_complete():
                    "train/step.py", "train/loop.py", "train/losses.py", "train/checkpoints.py",
                    "train/decode_val.py", "data/shapenet.py", "data/compose.py",
                    "data/synthetic.py", "data/native.py", "data/mesh.py", "core/binning.py",
-                   "utils/meters.py"):
+                   "utils/meters.py", "parallel/mesh.py", "parallel/pose.py",
+                   "parallel/input_pipeline.py", "parallel/train_step.py",
+                   "parallel/launch.py"):
         assert f"cppf_tpu_torch/{module}" in names
 
 

@@ -138,3 +138,30 @@ def test_decode_validator_matches_jax(category):
     assert "dv_right_line_deg" in got
     for k in want:
         assert abs(got[k] - want[k]) <= 0.011, (k, got[k], want[k])
+
+
+def test_trainer_renders_jax_sample_stream_at_any_seed(tmp_path, monkeypatch):
+    """At cfg.seed 3 the port's train renders the samples of JAX's trainer:
+    the dataset it builds is reseeded by shard_dataset, to default_rng(0)
+    on one process whatever the seed, as cppf_tpu/train/loop.py:126-132
+    reseeds JAX's."""
+    from cppf_tpu.data.shapenet import ShapeNetRenderDataset as DatasetJ
+    from cppf_tpu.parallel.input_pipeline import shard_dataset as shard_dataset_j
+
+    cfg_j, cfg = small_configs(max_epoch=1, seed=3)
+    rendered = []
+
+    class Recording(loop.ShapeNetRenderDataset):
+        def sample(self):
+            rendered.append(super().sample())
+            return rendered[-1]
+
+    monkeypatch.setattr(loop, "ShapeNetRenderDataset", Recording)
+    loop.train(cfg, out_dir=str(tmp_path / "bowl"), epoch_len=2, device="cpu")
+    assert len(rendered) == cfg.batch_size == 2
+    ds_j = shard_dataset_j(DatasetJ(cfg_j, seed=cfg_j.seed))
+    for got in rendered:
+        want = ds_j.sample()
+        np.testing.assert_array_equal(got.pc, want.pc)
+        np.testing.assert_array_equal(got.bound, want.bound)
+        assert got.scale == want.scale
