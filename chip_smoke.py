@@ -134,6 +134,30 @@ Phases:
    shard (25 000 of bowl's 100 000 pairs).  One-card gloo times say nothing
    of NCCL across cards.
 
+14. the laptop segmenter (``models/segmenter.py``, ``train/laptop_aux.py``)
+   and the NOCS driver's laptop override, on the committed laptop frame
+   (``assets/nocs_laptop_frame``: a mug, a laptop, a bowl, and the JAX
+   driver's full-width run with its laptop path): (a) the segmenter trained
+   from the flax-style init at the JAX trainer's width (batch 16, 224²,
+   Adam 1e-3) on the synthetic stream for about 45 s (``train``), its
+   losses finite and falling, ms a step split into host render and device
+   step, the peak memory; 10 steps on one batch must lower its loss; one
+   step on the CPU against the card at batch 2 in float64 (loss 1e-5,
+   gradients 1e-3 of each tensor's maximum, weights 1e-6; the float32
+   numbers printed beside); (b) the trained weights served by
+   ``SegmenterRunner`` on the frame's crop, CPU against CUDA (logits 1e-4
+   of the maximum, labels equal on 99.9 % of the pixels), ms a forward;
+   (c) from JAX's stored labels on the card: ``laptop_crop`` equal to the
+   stored crop (1e-6), ``laptop_up_from_labels`` to JAX's ``laptop_up``
+   (1e-5 rad), the second pose to JAX's (T the same voxel, up 0.1°); (d)
+   ``nocs_inference.main`` with the trained segmenter in
+   ``<tmp>/checkpoints/laptop_aux`` on the card (launch counts reset just
+   before: the pairs front ends of both peak kernels once, and at most
+   twice, a center pass, the laptop's two poses two passes) and on the
+   CPU: every T within 1 cm and up within 5° of the CPU's; the laptop's T
+   and up against GT, the warm frame loop with the override and without
+   it, and both peak kernels held and timed on the laptop instance.
+
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose, of one zero-shot frame,
 of one NOCS frame, of one pass of the SUN driver's loop and of one training
@@ -1120,12 +1144,13 @@ NOCS_T_TOL = 0.01
 NOCS_UP_TOL_DEG = 5.0
 
 
-def unpack_nocs_frame(tmp):
-    """The committed frame (assets/nocs_frame) as the driver reads it:
+def unpack_nocs_frame(tmp, frame="nocs_frame", laptop_aux=None):
+    """A committed frame (``assets/<frame>``) as the driver reads it:
     ``tmp/nocs/real/...``, ``tmp/seg/results_*.pkl``, and a checkpoint tree
     ``tmp/checkpoints`` of links to the repo's ``checkpoints/<cat>`` for the
-    frame's categories (no ``laptop_aux``), as its JAX run had.  Returns
-    (seg_dir, nocs_dir, ckpt_path, the record, the stored JAX run)."""
+    frame's categories, and ``laptop_aux`` linked to the directory
+    ``laptop_aux`` when one is given.  Returns (seg_dir, nocs_dir,
+    ckpt_path, the record, the stored JAX run)."""
     import gzip
     import pickle
     import shutil
@@ -1133,7 +1158,7 @@ def unpack_nocs_frame(tmp):
     from cppf_tpu_torch.eval.nocs_inference import SYNSET_NAMES
     from cppf_tpu_torch.models.convert import ASSETS
 
-    src = os.path.join(ASSETS, "nocs_frame")
+    src = os.path.join(ASSETS, frame)
     shutil.copytree(os.path.join(src, "real"), os.path.join(tmp, "nocs", "real"))
     with gzip.open(os.path.join(src, "results_real_scene1_0000.pkl.gz"), "rb") as f:
         record = pickle.load(f)
@@ -1144,6 +1169,8 @@ def unpack_nocs_frame(tmp):
     os.makedirs(ckpt)
     for cat in sorted({SYNSET_NAMES[c] for c in record["pred_class_ids"]}):
         os.symlink(os.path.join(ROOT, "checkpoints", cat), os.path.join(ckpt, cat))
+    if laptop_aux is not None:
+        os.symlink(os.path.abspath(laptop_aux), os.path.join(ckpt, "laptop_aux"))
     return (os.path.join(tmp, "seg"), os.path.join(tmp, "nocs"), ckpt, record,
             dict(np.load(os.path.join(src, "jax_driver.npz"))))
 
@@ -1778,6 +1805,267 @@ def training_phase(smi, profile=False):
 
 
 # ---- 13. the pair-sharded pose and the data-parallel step -------------------
+LAPTOP_FRAME = "nocs_laptop_frame"
+LAPTOP_TRAIN_S = 45.0         # phase 14's training budget, the timing steps apart
+LAPTOP_MIN_STEPS = 20
+LAPTOP_FRAME_REPS = 3         # warm frame loops timed, after one warm-up
+LAPTOP_BATCH = 16             # the JAX trainer's defaults: batch 16, 224², Adam 1e-3
+LAPTOP_CHECK_BATCH = 2        # samples of the float64 CPU-against-CUDA step
+LAPTOP_UP_TOL_RAD = 1e-5
+LAPTOP_POSE_UP_TOL_DEG = 0.1
+
+
+def _seg_step_times(ds, device, reps=3):
+    """Warm times of the segmenter trainer's parts: rendering a batch on the
+    host (host clock) and the step (forward, backward, Adam; CUDA events),
+    medians of ``reps`` after a warm-up step; and the peak device memory of
+    a step above its inputs."""
+    from cppf_tpu_torch.models.segmenter import FCNResNet50
+    from cppf_tpu_torch.train import laptop_aux as tl
+
+    model = FCNResNet50().to(device).train()
+    opt = tl.make_optimizer(model)
+    dropout = torch.Generator(device=device).manual_seed(1)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    render, step, peak = [], [], 0
+    for r in range(reps + 1):
+        t0 = time.perf_counter()
+        rgb, labels = tl.sample_batch(ds, LAPTOP_BATCH, device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ev[0].record()
+        tl.seg_train_step(model, opt, rgb, labels, dropout)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if r:
+            render.append((t1 - t0) * 1e3)
+            step.append(ev[0].elapsed_time(ev[1]))
+            peak = max(peak, torch.cuda.max_memory_allocated() - base)
+    return statistics.median(render), statistics.median(step), peak, (model, opt, rgb, labels)
+
+
+def _seg_step_cpu_cuda(rgb, labels, dtype, device):
+    """One step from the same flax-style init on the same batch on the CPU
+    and on the card, in ``dtype``: (relative loss difference, gradients'
+    largest difference over each tensor's maximum, parameters' largest
+    difference after the step, the losses)."""
+    from cppf_tpu_torch.models.segmenter import FCNResNet50
+    from cppf_tpu_torch.train import laptop_aux as tl
+    from cppf_tpu_torch.train.step import flax_init_
+
+    loss, grads, params = {}, {}, {}
+    for dev in ("cpu", device):
+        model = FCNResNet50()
+        flax_init_(model, torch.Generator().manual_seed(3))
+        model = model.to(dev, dtype).train()
+        opt = tl.make_optimizer(model)
+        opt.zero_grad()
+        total = tl.ce_ignore_loss(model(rgb.to(dev, dtype)), labels.to(dev))
+        total.backward()
+        loss[dev] = total.item()
+        grads[dev] = [p.grad.cpu() for p in model.parameters()]
+        opt.step()
+        params[dev] = [p.detach().cpu() for p in model.parameters()]
+    dl = abs(loss["cpu"] - loss[device]) / abs(loss["cpu"])
+    dg = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+             for a, b in zip(grads["cpu"], grads[device]))
+    dp = max(float((a - b).abs().max()) for a, b in zip(params["cpu"], params[device]))
+    return dl, dg, dp, loss
+
+
+def laptop_phase(smi, profile=False):
+    """Phase 14: the laptop segmenter trained on the card, served, and the
+    NOCS driver's laptop override on the committed laptop frame.
+    Returns (kernel records, launches) of the driver's run on the frame."""
+    import pickle
+    import tempfile
+
+    from cppf_tpu_torch.core import threefry
+    from cppf_tpu_torch.data.laptop_aux import LaptopAuxDataset
+    from cppf_tpu_torch.data.png import read_png
+    from cppf_tpu_torch.eval import nocs_inference as ni
+    from cppf_tpu_torch.models.segmenter import FCNResNet50, SegmenterRunner
+    from cppf_tpu_torch.ops import vote_hist as vh
+    from cppf_tpu_torch.train import laptop_aux as tl
+    from cppf_tpu_torch.train.step import flax_init_
+
+    device = "cuda"
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    no_blender = os.path.join(tmp, "no_blender_renders")
+
+    # (a) training at full width on the synthetic stream
+    ds = LaptopAuxDataset(data_root=no_blender, seed=11)
+    render_ms, step_ms, peak, (model, opt, rgb, labels) = _seg_step_times(ds, device)
+    steps = max(LAPTOP_MIN_STEPS, int(LAPTOP_TRAIN_S * 1e3 / (render_ms + step_ms)))
+    aux_dir = os.path.join(tmp, "checkpoints", "laptop_aux")
+    t0 = time.perf_counter()
+    _, losses = tl.train(max_epoch=1, batch_size=LAPTOP_BATCH, epoch_len=LAPTOP_BATCH * steps,
+                         out_dir=aux_dir, data_root=no_blender, device=device)
+    train_s = time.perf_counter() - t0
+    check(all(np.isfinite(losses)), "phase 14: a training loss is not finite")
+    head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"phase 14 ({smi}): the segmenter trained {steps} steps at batch {LAPTOP_BATCH}, 224², "
+          f"Adam 1e-3 in {train_s:.1f} s: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+          f"the first 10 {head:.4f}, of the last 10 {tail:.4f}); warm ms a step "
+          f"{render_ms + step_ms:.2f} = host render {render_ms:.2f} "
+          f"({render_ms / LAPTOP_BATCH:.2f} a sample) + device step {step_ms:.2f}; peak device "
+          f"memory of a step {peak / 2**30:.3f} GiB above its inputs", flush=True)
+    check(tail < head, f"phase 14: the training loss did not fall: {head} -> {tail}")
+    if profile:
+        device_profile(lambda: tl.seg_train_step(model, opt, rgb, labels), "one warm segmenter "
+                       "train step", top=10)
+
+    # a fixed batch from the flax-style init: the loss must fall
+    fresh = FCNResNet50()
+    flax_init_(fresh, torch.Generator().manual_seed(5))
+    fresh = fresh.to(device).train()
+    fresh_opt = tl.make_optimizer(fresh)
+    gen = torch.Generator(device=device).manual_seed(5)
+    fixed = [float(tl.seg_train_step(fresh, fresh_opt, rgb, labels, gen)) for _ in range(10)]
+    print(f"phase 14: 10 steps on one batch: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}", flush=True)
+    check(all(np.isfinite(fixed)) and fixed[-1] < fixed[0],
+          f"phase 14: the loss did not fall on a fixed batch: {fixed}")
+    del model, opt, fresh, fresh_opt
+
+    # one step on the CPU against the card.  Held in float64: in float32 the
+    # InstanceNorm backward of the deep layers is ill-conditioned (the torch
+    # step alone is up to ~25 % of a layer's largest gradient off its float64
+    # result, tests/test_torch_segmenter.py), so two float32 devices part
+    # there; the float32 numbers are printed beside
+    sub_rgb, sub_labels = rgb[:LAPTOP_CHECK_BATCH].cpu(), labels[:LAPTOP_CHECK_BATCH].cpu()
+    for dtype in (torch.float32, torch.float64):
+        dl, dg, dp, loss = _seg_step_cpu_cuda(sub_rgb, sub_labels, dtype, device)
+        print(f"phase 14: cpu vs cuda, one step ({dtype}, batch {LAPTOP_CHECK_BATCH}): loss "
+              f"{loss['cpu']:.6f} / {loss[device]:.6f} (rel {dl:.2e}), gradients within "
+              f"{dg:.2e} of each tensor's max, parameters after the step within {dp:.2e}",
+              flush=True)
+        check(dl < 1e-5, f"phase 14: CPU and CUDA losses differ ({dtype})")
+    check(dg < 1e-3, "phase 14: CPU and CUDA gradients differ (float64)")
+    check(dp < 1e-6, "phase 14: CPU and CUDA parameters differ after a step (float64)")
+
+    # (b) the trained segmenter's forward on the frame's crop, CPU against CUDA
+    seg_dir, nocs_dir, ckpt, record, stored = unpack_nocs_frame(
+        os.path.join(tmp, "frame"), LAPTOP_FRAME, aux_dir)
+    k = int(stored["laptop"])
+    path = os.path.join(nocs_dir, record["image_path"][5:])
+    img, depth = read_png(path + "_color.png")[:, :, :3], read_png(path + "_depth.png")
+    mask_idxs = np.where(record["pred_masks"][:, :, k])
+    crop, idxs, _ = ni.laptop_crop(img, mask_idxs)
+    segs = {dev: SegmenterRunner(aux_dir, device=dev) for dev in ("cpu", device)}
+    logits = {dev: seg.logits(crop).cpu().numpy() for dev, seg in segs.items()}
+    d_logit = float(np.abs(logits["cpu"] - logits[device]).max())
+    scale = float(np.abs(logits["cpu"]).max())
+    same = float((logits["cpu"].argmax(-1) == logits[device].argmax(-1)).mean())
+    fwd_ms = cuda_ms(lambda: segs[device].logits(crop))
+    print(f"phase 14 ({smi}): the trained segmenter on the frame's crop: cpu vs cuda logits "
+          f"within {d_logit:.2e} (max |logit| {scale:.3f}), labels equal on {same * 100:.3f} % "
+          f"of pixels; lid {int((logits[device].argmax(-1) == 1).sum())} of 224²; "
+          f"{fwd_ms:.3f} ms a forward (batch 1)", flush=True)
+    check(d_logit <= 1e-4 * scale, "phase 14: CPU and CUDA segmenter logits differ")
+    check(same >= 0.999, "phase 14: CPU and CUDA segmenter labels differ")
+
+    # (c) JAX's stored laptop path, from JAX's stored labels
+    check(float(np.abs(crop - stored["crop"]).max()) <= 1e-6, "phase 14: laptop_crop differs "
+          "from the stored crop")
+    check(np.array_equal(idxs, stored["idxs_resized"]), "phase 14: the crop coordinates differ")
+    runner = ni.CategoryRunner("laptop", device=device)
+    pc = ni.frame_crops(depth, record, {"laptop": runner})["laptop"][0][1]
+    r_inst, r_plane = (tuple(int(v) for v in stored[n]) for n in ("r_inst", "r_plane"))
+    draws = runner.draws(r_inst)
+    pre = runner.preprocess(pc, draws)
+    n = int(pre.n_valid)
+    up = ni.laptop_up_from_labels(stored["labels"].astype(np.int64), idxs,
+                                  pre.pc[:n].cpu().numpy(), pre, r_plane)
+    d_up = np.radians(_angle(up, stored["laptop_up"]))
+    second, _ = runner.estimate(pc, draws=draws, laptop_up=stored["laptop_up"])
+    dT = float(np.linalg.norm(second.T.cpu().numpy() - stored["after_T"]))
+    d_pose_up = _angle(second.up.cpu().numpy(), stored["after_R"][:, 1])
+    print(f"phase 14: from JAX's stored labels on the card: crop equal (1e-6), laptop_up "
+          f"{d_up:.2e} rad from JAX's; the second pose T {dT * 1e3:.4f} mm, up "
+          f"{d_pose_up:.4f} deg from JAX's", flush=True)
+    check(d_up <= LAPTOP_UP_TOL_RAD, "phase 14: laptop_up differs from JAX's")
+    check(dT <= 1e-5, "phase 14: the second pose's T is not JAX's voxel")
+    check(d_pose_up <= LAPTOP_POSE_UP_TOL_DEG, "phase 14: the second pose's up differs")
+
+    # (d) the whole driver on the frame with the trained segmenter, card and CPU
+    argv = ["--seg_dir", seg_dir, "--nocs_dir", nocs_dir, "--ckpt_path", ckpt,
+            "--seed", str(int(stored["seed"]))]
+    names = [ni.SYNSET_NAMES[c] for c in record["pred_class_ids"]]
+    res = {}
+    for dev in (device, "cpu"):
+        out_dir = os.path.join(tmp, f"pred_{dev}")
+        torch.cuda.synchronize()
+        vh.reset_launches()
+        t0 = time.perf_counter()
+        ni.main(argv + ["--out_dir", out_dir, "--device", dev])
+        torch.cuda.synchronize()
+        if dev == device:
+            launches = dict(vh.LAUNCHES)
+        with open(ni.result_path(out_dir, record), "rb") as f:
+            res[dev] = pickle.load(f)
+        print(f"phase 14: the driver on the laptop frame on {dev}: "
+              f"{time.perf_counter() - t0:.2f} s (runners, weights and first calls included)",
+              flush=True)
+    runners = ni.load_runners(ni.build_parser().parse_args(argv + ["--device", device]))
+    passes = sum(2 if runners[c].pcfg.asym_center_refine else 1 for c in names) + 1
+    print(f"phase 14: driver launches {launches} ({passes} center passes: the laptop posed "
+          f"twice)", flush=True)
+    check(launches["bound_projections_pairs"] == passes,
+          f"phase 14: bound_projections_pairs launched {launches['bound_projections_pairs']} "
+          f"times, not once a center pass ({passes})")
+    check(passes <= launches["refine_window_pairs"] <= 2 * passes,
+          f"phase 14: refine_window_pairs launched {launches['refine_window_pairs']} times "
+          f"for {passes} center passes")
+    check(all(launches[x] == 0 for x in ("bound_projections", "refine_window", "dense_hist",
+                                         "dense_hist_pairs")),
+          "phase 14: a votes front end or dense_hist launched")
+    R = {dev: r["pred_RTs"][:, :3, :3] / np.cbrt(np.linalg.det(r["pred_RTs"][:, :3, :3]))[
+        :, None, None] for dev, r in res.items()}
+    for i, cat in enumerate(names):
+        RT = res[device]["pred_RTs"][i]
+        check(not np.allclose(RT, np.eye(4)) and np.linalg.det(RT[:3, :3]) > 0,
+              f"phase 14: instance {i} was not posed")
+        dT = float(np.linalg.norm(RT[:3, 3] - res["cpu"]["pred_RTs"][i][:3, 3]))
+        d_up = _angle(R[device][i][:, 1], R["cpu"][i][:, 1])
+        gt = record["gt_RTs"][i]
+        gt_up = gt[:3, 1] / np.linalg.norm(gt[:3, 1])
+        print(f"  instance {i} ({cat}): cuda minus cpu T {dT * 1e3:.3f} mm, up {d_up:.3f} deg; "
+              f"against GT T {np.linalg.norm(RT[:3, 3] - gt[:3, 3]) * 1e3:.1f} mm, up "
+              f"{_angle(R[device][i][:, 1], gt_up, fold=cat in UP_SYMMETRIC):.2f} deg", flush=True)
+        check(dT <= NOCS_T_TOL, f"phase 14: instance {i} T differs between CPU and CUDA")
+        check(d_up <= NOCS_UP_TOL_DEG, f"phase 14: instance {i} up differs between CPU and CUDA")
+
+    # the frame loop, warm, with the override and without it
+    seg = segs[device]
+    laptop = ni.LaptopFrame(seg, img, ni.frame_masks(record))
+    seconds, laptop_ms = {}, {}
+    for label, lap in (("with the override", laptop), ("without it", None)):
+        runs = []
+        for _ in range(LAPTOP_FRAME_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            groups = ni.frame_crops(depth, record, runners)
+            _, _, _, chunks = ni.infer_frame(groups, len(names), runners,
+                                             threefry.key(int(stored["seed"])), laptop=lap)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0,
+                         next(c.seconds for c in chunks if c.category == "laptop") * 1e3))
+        seconds[label] = statistics.median(r[0] for r in runs[1:])
+        laptop_ms[label] = statistics.median(r[1] for r in runs[1:])
+    print(f"phase 14 ({smi}): warm s/frame (median of {LAPTOP_FRAME_REPS}) " + "; ".join(
+        f"{label} {seconds[label]:.3f}, the laptop instance {laptop_ms[label]:.1f} ms"
+        for label in seconds), flush=True)
+
+    # both peak kernels on the laptop instance, against the plain version
+    records = kernel_phase(main_path_inputs(runner, pc, runner.pcfg.grid_shape),
+                           f"laptop frame instance {k} (laptop)")
+    tmp_dir.cleanup()
+    return records, launches
+
+
 PARALLEL_RANKS = 4            # gloo ranks sharing one card
 PARALLEL_CATEGORIES = ("bowl", "mug")
 DP_RANKS = 2
@@ -2292,6 +2580,11 @@ def main():
     par_records, par_launches, par_all = parallel_phase(smi)
     print(f"phase 13 (parallel): {time.perf_counter() - t13:.1f} s", flush=True)
 
+    # ---- 14. the laptop segmenter and the driver's laptop override ----------
+    t14 = time.perf_counter()
+    lap_records, lap_launches = laptop_phase(smi, args.profile)
+    print(f"phase 14 (laptop): {time.perf_counter() - t14:.1f} s", flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
     # comparisons, stands beside it under votes_ keys.  The peak kernels
@@ -2305,7 +2598,9 @@ def main():
              ("nocs driver (phase 10)", nocs_records, nocs_launches),
              ("sun driver (phase 11)", sun_records, sun_launches),
              ("training decode-val (phase 12)", train_records, train_launches),
-             ("pair-sharded pose (phase 13)", par_records, par_launches)]
+             ("pair-sharded pose (phase 13)", par_records, par_launches),
+             ("laptop frame with the segmenter override (phase 14)", lap_records,
+              lap_launches)]
     for path, recs, counts in paths:
         for name, rec in recs.items():
             pairs = name + "_pairs" if name + "_pairs" in counts else name

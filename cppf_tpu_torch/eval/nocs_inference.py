@@ -8,6 +8,12 @@ pkls in the reference format (``pred_RTs`` with the R·|s| convention,
 ``pred_scales`` unit-normalised), which ``cppf_tpu_torch.eval.nocs_eval``
 scores with the NOCS mAP protocol.
 
+With a segmenter under ``<ckpt_path>/laptop_aux`` a laptop is posed twice,
+as the JAX driver poses it (:func:`pose_laptop`): the segmenter splits the
+instance's colour crop into lid and base, a RANSAC plane through the base
+points oriented toward the camera gives the up axis, and the second pose
+overrides its up axis with it.
+
 The random draws follow the JAX driver's key schedule (core/threefry.py), so
 with the same ``--seed`` the port meets the draws the JAX driver met.
 
@@ -31,10 +37,14 @@ import torch
 from cppf_tpu_torch.config import REPO_ROOT, load_config
 from cppf_tpu_torch.core import threefry
 from cppf_tpu_torch.core.geometry import backproject
+from cppf_tpu_torch.data.laptop_aux import CROP, resized_idxs
 from cppf_tpu_torch.data.png import read_png
+from cppf_tpu_torch.data.resize import resize_linear
 from cppf_tpu_torch.device import pin_float32, resolve_device
 from cppf_tpu_torch.eval.anchor import anchor_box_t
 from cppf_tpu_torch.models.convert import ASSETS, load_encoders, load_npz_params
+from cppf_tpu_torch.models.segmenter import SegmenterRunner
+from cppf_tpu_torch.ops.ransac import segment_plane
 from cppf_tpu_torch.pipeline.pose import PoseConfig, PoseDraws, estimate_pose
 from cppf_tpu_torch.pipeline.preprocess import preprocess_cloud
 
@@ -49,6 +59,12 @@ OVERLAY = ("asym_right_votes", "asym_center_refine", "subvoxel_refine", "geo_rig
            "geo_right_dir", "filter_coplanar", "coplanar_halfspace", "pair_balance",
            "pair_sep_power", "sharp_axis_votes", "aux_align_weight", "axis_topk",
            "pose_f32", "anchor_t")
+
+# the laptop override's base plane (cppf_tpu/eval/nocs_inference.py:222-230)
+LAPTOP_MIN_BASE = 10
+LAPTOP_PLANE_PAD = 4096
+LAPTOP_PLANE_TOL = 0.02
+LAPTOP_PLANE_ITERS = 100
 
 log = logging.getLogger("cppf_tpu_torch.nocs")
 
@@ -138,22 +154,29 @@ class CategoryRunner:
         ``laptop_up`` [3], the base-plane normal oriented toward the camera,
         turns on the laptop plane override.
         Returns (PoseResult, PreprocessedCloud)."""
-        cfg = self.cfg
-        pad, n_raw = _pad_cloud(pc_raw, cfg.npoint_max)
         if draws is None:
             draws = PoseDraws.sample(self.pcfg, generator or self.generator, self.device,
-                                     n_raw=cfg.npoint_max)
-        pre = preprocess_cloud(torch.from_numpy(pad).to(self.device), n_raw, cfg.res,
-                               npoint_pad=cfg.npoint_pad, knn=cfg.knn, noise=draws.jitter,
-                               generator=generator or self.generator)
+                                     n_raw=self.cfg.npoint_max)
+        pre = self.preprocess(pc_raw, draws, generator)
         if laptop_up is not None:
             laptop_up = torch.as_tensor(np.asarray(laptop_up, np.float32), device=self.device)
         out = estimate_pose(self.point_encoder, self.ppf_encoder, pre.pc, pre.normals,
                             pre.n_valid, self.sphere, self.pcfg, nbr_idx=pre.nbr_idx,
                             draws=draws, laptop_up=laptop_up)
-        if cfg.anchor_t:
+        if self.cfg.anchor_t:
             out = self._anchor(out, pc_raw)
         return out, pre
+
+    def preprocess(self, pc_raw: np.ndarray, draws: PoseDraws,
+                   generator: Optional[torch.Generator] = None):
+        """The preprocessed cloud that :meth:`estimate` poses: ``pc_raw``
+        padded or stride-subsampled to ``npoint_max``, with the jitter of
+        ``draws``."""
+        cfg = self.cfg
+        pad, n_raw = _pad_cloud(pc_raw, cfg.npoint_max)
+        return preprocess_cloud(torch.from_numpy(pad).to(self.device), n_raw, cfg.res,
+                                npoint_pad=cfg.npoint_pad, knn=cfg.knn, noise=draws.jitter,
+                                generator=generator or self.generator)
 
     def _anchor(self, out, pc_raw: np.ndarray):
         """Host post-step of ``cfg.anchor_t``: observed-extent anchoring of
@@ -199,16 +222,24 @@ class Chunk(NamedTuple):
     seconds: float
 
 
+def frame_masks(res: dict, bbox_mask: bool = False) -> np.ndarray:
+    """The instance masks [H, W, n] the crops are cut with: the detections'
+    masks, each joined with its box under ``bbox_mask``."""
+    masks = res["pred_masks"].copy()
+    if bbox_mask:
+        for i, bbox in enumerate(res["pred_bboxes"]):
+            masks[:, :, i][bbox[0]:bbox[2], bbox[1]:bbox[3]] = True
+    return masks
+
+
 def frame_crops(depth: np.ndarray, res: dict, runners: dict, bbox_mask: bool = False):
     """A frame's instance clouds grouped by category, in the order the frame
     first meets each category: {category: [(instance index, cloud [M, 3])]}.
     Clouds are in meters in the camera frame; instances of a category
     without a runner and crops under 20 points are left out."""
-    masks = res["pred_masks"].copy()
+    masks = frame_masks(res, bbox_mask)
     groups: dict = {}
-    for i, bbox in enumerate(res["pred_bboxes"]):
-        if bbox_mask:
-            masks[:, :, i][bbox[0]:bbox[2], bbox[1]:bbox[3]] = True
+    for i in range(len(res["pred_bboxes"])):
         cls_name = SYNSET_NAMES[res["pred_class_ids"][i]]
         if runners.get(cls_name) is None:
             continue
@@ -223,11 +254,99 @@ def frame_crops(depth: np.ndarray, res: dict, runners: dict, bbox_mask: bool = F
     return groups
 
 
+def laptop_crop(img: np.ndarray, mask_idxs):
+    """The segmenter's input for one instance: its masked colour pixels
+    (``img`` [H, W, 3] uint8 RGB) in [0, 1], the mask's bounding box cut
+    out and resized to 224² as ``cv2.resize`` does (``data/resize.py``).
+    Returns (crop [224, 224, 3] float32, each mask pixel's (row, col) in the
+    crop [n, 2], the box [[row min, max], [col min, max]])."""
+    rows, cols = mask_idxs
+    bbox = np.array([[rows.min(), rows.max()], [cols.min(), cols.max()]])
+    rgb_obj = np.zeros(img.shape, np.float32)
+    rgb_obj[rows, cols] = img[rows, cols] / 255.0
+    crop = resize_linear(rgb_obj[bbox[0, 0]:bbox[0, 1] + 1, bbox[1, 0]:bbox[1, 1] + 1],
+                         (CROP, CROP))
+    return crop, resized_idxs(rows, cols, bbox), bbox
+
+
+def laptop_up_from_labels(pred: np.ndarray, idxs_resized: np.ndarray, pc: np.ndarray, pre,
+                          r_plane) -> Optional[np.ndarray]:
+    """The laptop's up axis from the segmenter's labels ``pred`` [224, 224]
+    (0 base, 1 lid): the label of each kept point ``pc`` [n, 3] (the
+    preprocessed cloud's valid rows, found in the crop through
+    ``pre.raw_idx``), a RANSAC plane through the first 4096 base points on
+    the uniforms JAX's ``segment_plane`` draws from the key ``r_plane``,
+    its normal turned toward the camera.  None under 10 base points.
+    The plane is a host step, as in the JAX driver, on ``pc``'s numpy
+    rows."""
+    keep = pre.raw_idx[: len(pc)].cpu().numpy()
+    pc_img = idxs_resized[keep]
+    base = pc[pred[pc_img[:, 0], pc_img[:, 1]] == 0]
+    if len(base) < LAPTOP_MIN_BASE:
+        return None
+    n = min(len(base), LAPTOP_PLANE_PAD)
+    pad = torch.zeros(LAPTOP_PLANE_PAD, 3)
+    pad[:n] = torch.from_numpy(np.asarray(base[:n], np.float32))
+    u = threefry.draw_many([("uniform", r_plane, (LAPTOP_PLANE_ITERS, 3))], "cpu")[0]
+    plane, _ = segment_plane(u, pad, LAPTOP_PLANE_TOL, torch.arange(LAPTOP_PLANE_PAD) < n)
+    normal = plane[:3].numpy()
+    # the RANSAC normal's sign is arbitrary; the camera at the origin sees
+    # the top of the base, so the up normal has n·p < 0 on its points
+    if float(normal @ base[:n].mean(0)) > 0:
+        normal = -normal
+    return normal
+
+
+class LaptopFrame(NamedTuple):
+    """What the laptop override needs of a frame: the segmenter (or the
+    ``FileNotFoundError`` of a ``laptop_aux`` directory without its
+    weights, raised at the first laptop), the colour image [H, W, 3] uint8
+    RGB (None with no segmenter) and the masks the crops were cut with."""
+    segmenter: object
+    img: Optional[np.ndarray]
+    masks: np.ndarray
+
+
+def pose_laptop(runner: CategoryRunner, laptop: LaptopFrame, i: int, pc: np.ndarray,
+                r_inst, r_plane):
+    """Instance ``i``, a laptop, in the JAX driver's order: posed on the
+    draws of ``r_inst``; its up axis from the segmenter's labels of its
+    crop (:func:`laptop_up_from_labels` on ``r_plane``); where there is
+    one, posed again on the same draws with it as ``laptop_up``.
+    Returns (PoseResult, the up axis or None)."""
+    if isinstance(laptop.segmenter, FileNotFoundError):
+        raise laptop.segmenter
+    draws = runner.draws(r_inst)
+    out, pre = runner.estimate(pc, draws=draws)
+    crop, idxs, _ = laptop_crop(laptop.img, np.where(laptop.masks[:, :, i]))
+    n = int(pre.n_valid)
+    up = laptop_up_from_labels(laptop.segmenter.predict(crop), idxs,
+                               pre.pc[:n].cpu().numpy(), pre, r_plane)
+    if up is not None:
+        out, _ = runner.estimate(pc, draws=draws, laptop_up=up)
+    return out, up
+
+
+def load_segmenter(ckpt_path: str, device=None):
+    """The laptop segmenter of ``<ckpt_path>/laptop_aux`` (its
+    ``params_best.npz``); the ``FileNotFoundError`` itself where the
+    directory holds no weights, for :func:`pose_laptop` to raise; None
+    without the directory."""
+    aux_dir = os.path.join(ckpt_path, "laptop_aux")
+    if not os.path.isdir(aux_dir):
+        return None
+    try:
+        return SegmenterRunner(aux_dir, device=device)
+    except FileNotFoundError as e:
+        return e
+
+
 def infer_frame(groups: dict, n_instances: int, runners: dict, rng, serial: bool = False,
-                max_batch: int = 4, laptop_aux: bool = False):
+                max_batch: int = 4, laptop: Optional[LaptopFrame] = None):
     """Poses of one frame's groups (:func:`frame_crops`), on the JAX
-    driver's key schedule from ``rng``.  Rows of instances that were not
-    posed keep the identity RT and unit scales.
+    driver's key schedule from ``rng``; laptops through :func:`pose_laptop`
+    when ``laptop`` is given.  Rows of instances that were not posed keep
+    the identity RT and unit scales.
     Returns (RTs [n, 4, 4], scales [n, 3], the next rng, [Chunk])."""
     RTs = np.tile(np.eye(4, dtype=np.float32), (n_instances, 1, 1))
     scales = np.ones((n_instances, 3), dtype=np.float32)
@@ -254,13 +373,13 @@ def infer_frame(groups: dict, n_instances: int, runners: dict, rng, serial: bool
                     RTs[i], scales[i] = RT[b], sc[b]
             continue
         for i, pc in items:
-            if cls_name == "laptop" and laptop_aux:
-                raise NotImplementedError(
-                    "the laptop segmenter override (laptop_up_from_aux, ROADMAP A9) is not "
-                    "ported; remove <ckpt_path>/laptop_aux to pose laptops without it")
-            rng, r_inst, _ = threefry.split(rng, 3)
-            RTs[i], scales[i] = timed(cls_name, 1, False, lambda: runner.estimate(
-                pc, draws=runner.draws(r_inst))[0])
+            rng, r_inst, r_plane = threefry.split(rng, 3)
+            if cls_name == "laptop" and laptop is not None:
+                RTs[i], scales[i] = timed(cls_name, 1, False, lambda: pose_laptop(
+                    runner, laptop, i, pc, r_inst, r_plane)[0])
+            else:
+                RTs[i], scales[i] = timed(cls_name, 1, False, lambda: runner.estimate(
+                    pc, draws=runner.draws(r_inst))[0])
     return RTs, scales, rng, chunks
 
 
@@ -291,7 +410,8 @@ def build_parser() -> argparse.ArgumentParser:
         "<ckpt_path>/<cat>/params_best.npz; where <ckpt_path>/<cat> is the repo's "
         "checkpoints/<cat> (or a link to it) and has no .npz, with "
         "cppf_tpu_torch/assets/<cat>_params_best.npz, the export of its params_best. "
-        "A category without weights is skipped.")
+        "A category without weights is skipped. With <ckpt_path>/laptop_aux (its "
+        "params_best.npz) laptops take the segmenter's up axis.")
     ap.add_argument("--seg_dir", default="data/nocs_seg")
     ap.add_argument("--nocs_dir", default="data/nocs")
     ap.add_argument("--out_dir", default="data/nocs_prediction")
@@ -320,17 +440,22 @@ def main(argv=None):
     if args.max_frames:
         final_results = final_results[: args.max_frames]
     runners = load_runners(args)
-    laptop_aux = "laptop" in runners and os.path.isdir(os.path.join(args.ckpt_path,
-                                                                    "laptop_aux"))
+    segmenter = load_segmenter(args.ckpt_path, args.device) if "laptop" in runners else None
     rng = threefry.key(args.seed)
     frames = []
     for res in final_results:
-        # the colour image serves only the laptop segmenter, which is not ported
-        depth = read_png(os.path.join(args.nocs_dir, res["image_path"][5:]) + "_depth.png")
+        path = os.path.join(args.nocs_dir, res["image_path"][5:])
+        depth = read_png(path + "_depth.png")
         groups = frame_crops(depth, res, runners, args.bbox_mask)
+        laptop = None
+        if segmenter is not None:
+            # the colour image serves only the segmenter
+            img = (read_png(path + "_color.png")[:, :, :3]
+                   if isinstance(segmenter, SegmenterRunner) else None)
+            laptop = LaptopFrame(segmenter, img, frame_masks(res, args.bbox_mask))
         res["pred_RTs"], res["pred_scales"], rng, chunks = infer_frame(
             groups, len(res["pred_bboxes"]), runners, rng, args.serial, args.max_batch,
-            laptop_aux)
+            laptop)
         frames.append(chunks)
         out_path = result_path(args.out_dir, res)
         with open(out_path, "wb") as f:

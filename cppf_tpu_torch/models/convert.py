@@ -1,9 +1,13 @@
-"""Carry the flax encoder weights across to the torch modules.
+"""Carry the flax weights across to the torch modules: the two encoders
+and the laptop segmenter.
 
 Mapping, leaf by leaf (module paths keep the flax names):
     Dense.kernel [in, out]   → Linear.weight [out, in] (transposed)
     Dense.bias               → Linear.bias
     LayerNorm.scale / .bias  → LayerNorm.weight / .bias
+    Conv.kernel [kh, kw, in, out] (HWIO) → Conv2d.weight [out, in, kh, kw]
+    Conv.bias                → Conv2d.bias
+    InstanceNorm.scale / .bias / .mean / .var → weight / bias / mean / var
 
 The weights travel as a flat ``.npz`` (``scripts/export_torch_assets.py``
 writes it from the orbax checkpoint, :func:`save_npz_params` from the torch
@@ -20,6 +24,7 @@ import torch
 from torch import nn
 
 from cppf_tpu_torch.models.encoders import PointEncoder, PPFEncoder
+from cppf_tpu_torch.models.segmenter import FCNResNet50
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
@@ -74,13 +79,55 @@ def modules_to_flat_params(point: nn.Module, ppf: nn.Module) -> Dict[str, np.nda
     return flat
 
 
+def _save_flat(path: str, flat: Dict[str, np.ndarray]) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+
+
 def save_npz_params(path: str, point: nn.Module, ppf: nn.Module) -> None:
     """Write both encoders' weights as the flat ``.npz`` that
     :func:`load_npz_params` reads."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp.npz"
-    np.savez(tmp, **modules_to_flat_params(point, ppf))
-    os.replace(tmp, path)
+    _save_flat(path, modules_to_flat_params(point, ppf))
+
+
+_SEG_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "mean",
+             "var": "var"}
+
+
+def segmenter_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """The segmenter's flax tree ``{"params": ...}`` (nested numpy) → the
+    state_dict of ``models/segmenter.py::FCNResNet50``: conv kernels HWIO →
+    OIHW, norm ``scale`` → ``weight``; each array keeps its dtype."""
+    sd = {}
+    for path, arr in _flatten(params["params"]).items():
+        *mod, leaf = path
+        if leaf == "kernel":
+            arr = arr.transpose(3, 2, 0, 1)
+        sd[".".join(mod + [_SEG_LEAF[leaf]])] = torch.from_numpy(np.array(arr))
+    return sd
+
+
+def segmenter_flat_params(model: FCNResNet50) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`segmenter_state_dict`, flattened:
+    {``"params/layer1_0/conv1/kernel"``: array, ...}."""
+    flat = {}
+    for name, t in model.state_dict().items():
+        *mod, leaf = name.split(".")
+        arr = t.detach().cpu().numpy()
+        if leaf == "weight" and arr.ndim == 4:
+            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        elif leaf == "weight":
+            leaf = "scale"
+        flat["/".join(["params", *mod, leaf])] = np.ascontiguousarray(arr, np.float32)
+    return flat
+
+
+def save_segmenter_npz(path: str, model: FCNResNet50) -> None:
+    """Write the segmenter's weights as the flat ``.npz`` that
+    ``SegmenterRunner`` and :func:`load_npz_params` read."""
+    _save_flat(path, segmenter_flat_params(model))
 
 
 def load_npz_params(path: str) -> dict:

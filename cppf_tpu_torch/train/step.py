@@ -20,6 +20,7 @@ from torch import nn
 from cppf_tpu_torch.config import Config
 from cppf_tpu_torch.models.convert import make_encoders, params_to_state_dicts
 from cppf_tpu_torch.models.encoders import PointEncoder, PPFEncoder
+from cppf_tpu_torch.models.segmenter import InstanceNorm
 from cppf_tpu_torch.ops.knn import knn_indices
 from cppf_tpu_torch.train.losses import ppf_losses, ppf_regression_losses
 
@@ -76,16 +77,18 @@ def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
 
 @torch.no_grad()
 def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
-    """flax's default init in place: Dense kernels lecun-normal (a normal
-    of variance 1/fan_in truncated at ±2σ), biases 0, LayerNorm scale 1 and
-    bias 0.  The layers draw in the order of ``named_modules``."""
+    """flax's default init in place: Dense and Conv kernels lecun-normal (a
+    normal of variance 1/fan_in truncated at ±2σ; a conv's fan_in is
+    kh·kw·in), biases 0, LayerNorm and InstanceNorm scale 1 and bias 0.
+    The layers draw in the order of ``named_modules``."""
     for m in module.modules():
-        if isinstance(m, nn.Linear):
-            std = (1.0 / m.in_features) ** 0.5 / _TRUNC_STD
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            std = (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNC_STD
             nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
                                   generator=generator)
-            nn.init.zeros_(m.bias)
-        elif isinstance(m, nn.LayerNorm):
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.LayerNorm, InstanceNorm)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
 

@@ -52,10 +52,31 @@ With ``--sun_scans`` it writes instead ``cppf_tpu_torch/assets/sun_scans/``:
   ``cppf_tpu.eval.sunrgbd_eval.main`` on that output: ``<cat>_iou_aps``,
   ``<cat>_pose_aps``, ``<cat>_pose_pred_matches``, ``<cat>_pose_gt_matches``.
 
+With ``--laptop_aux`` it writes ``<ckpt_path>/laptop_aux/params_best.npz``:
+the laptop segmenter's orbax ``params_best`` as flat arrays (164, 32 947 266
+parameters, 131.8 MB; gitignored), which the port's ``SegmenterRunner``
+and its NOCS driver read.
+
+With ``--laptop_frame`` it writes ``cppf_tpu_torch/assets/nocs_laptop_frame/``,
+a rendered NOCS frame of ``LAPTOP_LAYOUT`` (a mug, a laptop from
+``random_laptop``, a bowl; ``render_nocs_frame``) and the JAX driver's run
+on it at full width with ``--seed 0`` and the laptop segmenter on its real
+weights (a checkpoint tree linking ``checkpoints/{mug,laptop,bowl,
+laptop_aux}``): ``real/``, ``results_real_scene1_0000.pkl.gz`` as for
+``--nocs_frame``, and ``jax_driver.npz`` with ``pred_RTs``, ``pred_scales``,
+``T``, ``up``, ``right`` of each instance, the laptop's instance index
+``laptop``, its keys ``r_inst`` and ``r_plane`` (uint32 [2]), its
+segmenter ``crop`` [224, 224, 3], the label map ``labels`` [224, 224],
+``idxs_resized`` [n, 2], ``laptop_up``, its pose before the override
+(``before_T``, ``before_R``, ``before_scale``) and after it (``after_*``),
+and ``seed``.
+
 Usage (needs JAX; runs on the CPU):
     python scripts/export_torch_assets.py [--category bowl] [--n_views 4] [--seed 0]
     python scripts/export_torch_assets.py --nocs_frame   (~5 min)
     python scripts/export_torch_assets.py --sun_scans    (~2 min)
+    python scripts/export_torch_assets.py --laptop_aux   (~10 s)
+    python scripts/export_torch_assets.py --laptop_frame
 """
 from __future__ import annotations
 
@@ -289,6 +310,102 @@ def export_nocs_frame(seed: int = 0):
     print(f"wrote {out}: {size} bytes", flush=True)
 
 
+def export_laptop_aux(ckpt_path: str):
+    from cppf_tpu.train.checkpoints import load_params
+
+    aux_dir = os.path.join(ckpt_path, "laptop_aux")
+    flat = flatten_tree(load_params(aux_dir, name="params_best"))
+    path = os.path.join(aux_dir, "params_best.npz")
+    np.savez(path, **flat)
+    print(f"wrote {len(flat)} arrays, {sum(a.size for a in flat.values())} parameters to "
+          f"{path}", flush=True)
+
+
+# the laptop frame: the laptop between a mug and a bowl, so that the driver
+# poses it (twice, with the segmenter's up axis) between two singletons
+LAPTOP_LAYOUT = (("mug", -0.32, 0.14, 0.95), ("laptop", 0.02, 0.02, 1.10),
+                 ("bowl", 0.34, 0.16, 0.92))
+
+
+def export_laptop_frame(seed: int = 0):
+    """The JAX driver on the laptop frame, its laptop path recorded: the
+    runner's two ``estimate`` calls on the laptop, the segmenter's input and
+    labels, and ``laptop_up_from_aux``'s arguments and result."""
+    from cppf_tpu.eval import nocs_inference
+    from cppf_tpu.models import segmenter
+
+    rec = {}
+    real_estimate = nocs_inference.CategoryRunner.estimate
+    real_up = nocs_inference.laptop_up_from_aux
+    real_predict = segmenter.SegmenterRunner.predict
+
+    def estimate(self, rng, pc_raw, laptop_up=None):
+        out = real_estimate(self, rng, pc_raw, laptop_up)
+        if self.cfg.category == "laptop":
+            rec["after" if laptop_up is not None else "before"] = out[0]
+            rec["r_inst"] = np.asarray(rng, np.uint32)
+        return out
+
+    def predict(self, rgb):
+        rec["crop"], rec["labels"] = np.asarray(rgb, np.float32), real_predict(self, rgb)
+        return rec["labels"]
+
+    def laptop_up(img, depth_mask_idxs, pc, pre, seg, rng):
+        rec["r_plane"], rec["mask_idxs"] = np.asarray(rng, np.uint32), depth_mask_idxs
+        rec["laptop_up"] = real_up(img, depth_mask_idxs, pc, pre, seg, rng)
+        return rec["laptop_up"]
+
+    out = os.path.join(ASSETS, "nocs_laptop_frame")
+    nocs_inference.CategoryRunner.estimate = estimate
+    nocs_inference.laptop_up_from_aux = laptop_up
+    segmenter.SegmenterRunner.predict = predict
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            seg_dir, nocs_dir, record = render_nocs_frame(tmp, LAPTOP_LAYOUT, seed)
+            ckpt = link_checkpoints(os.path.join(tmp, "checkpoints"),
+                                    [c for c, *_ in LAPTOP_LAYOUT] + ["laptop_aux"])
+            pred_dir = os.path.join(tmp, "pred")
+            nocs_inference.main(["--seg_dir", seg_dir, "--nocs_dir", nocs_dir, "--out_dir",
+                                 pred_dir, "--ckpt_path", ckpt, "--seed", str(seed)])
+            with open(os.path.join(pred_dir, "results_real_scene_1_0000.pkl"), "rb") as f:
+                pred = pickle.load(f)
+            shutil.rmtree(out, ignore_errors=True)
+            shutil.copytree(os.path.join(nocs_dir, "real"), os.path.join(out, "real"))
+    finally:
+        nocs_inference.CategoryRunner.estimate = real_estimate
+        nocs_inference.laptop_up_from_aux = real_up
+        segmenter.SegmenterRunner.predict = real_predict
+    if rec.get("laptop_up") is None or "after" not in rec:
+        raise SystemExit("the JAX driver did not override the laptop's up axis on this frame")
+    with gzip.open(os.path.join(out, "results_real_scene1_0000.pkl.gz"), "wb") as f:
+        pickle.dump(record, f)
+    rows, cols = rec["mask_idxs"]
+    bbox = np.array([[rows.min(), rows.max()], [cols.min(), cols.max()]])
+    idxs = np.clip(((np.stack([rows, cols], -1) - bbox[:, 0]) * (224 / (bbox[:, 1] - bbox[:, 0])))
+                   .astype(np.int64), 0, 223)
+    T, up, right = frame_axes(pred["pred_RTs"])
+    arrays = dict(pred_RTs=pred["pred_RTs"], pred_scales=pred["pred_scales"], T=T, up=up,
+                  right=right, laptop=np.int32([c for c, *_ in LAPTOP_LAYOUT].index("laptop")),
+                  r_inst=rec["r_inst"], r_plane=rec["r_plane"], crop=rec["crop"],
+                  labels=rec["labels"].astype(np.uint8), idxs_resized=idxs.astype(np.int16),
+                  laptop_up=np.asarray(rec["laptop_up"], np.float32), seed=np.int32(seed))
+    for when in ("before", "after"):
+        o = rec[when]
+        arrays.update({f"{when}_T": np.asarray(o.T, np.float32),
+                       f"{when}_R": np.asarray(o.R, np.float32),
+                       f"{when}_scale": np.asarray(o.scale, np.float32)})
+    np.savez_compressed(os.path.join(out, "jax_driver.npz"), **arrays)
+    gt = record["gt_RTs"][arrays["laptop"]]
+    lap_up = arrays["after_R"][:, 1]
+    print(f"laptop: {int((rec['labels'] == 0).sum())} base pixels of 224^2; laptop_up "
+          f"{arrays['laptop_up']}; up err against GT before "
+          f"{np.degrees(np.arccos(np.clip(arrays['before_R'][:, 1] @ gt[:3, 1] / np.linalg.norm(gt[:3, 1]), -1, 1))):.2f} deg, after "
+          f"{np.degrees(np.arccos(np.clip(lap_up @ gt[:3, 1] / np.linalg.norm(gt[:3, 1]), -1, 1))):.2f} deg; T err "
+          f"{np.linalg.norm(arrays['after_T'] - gt[:3, 3]) * 1e3:.1f} mm", flush=True)
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out) for f in fs)
+    print(f"wrote {out}: {size} bytes", flush=True)
+
+
 # the SUN scan set: a scan of 2 instances of each weighted SUN category,
 # then one that holds instances of two categories (the first's second
 # segment cut to SMALL_SEGMENT points, under the drivers' 200-point floor)
@@ -421,6 +538,10 @@ def main():
                     help="write assets/nocs_frame/ instead of a category's assets")
     ap.add_argument("--sun_scans", action="store_true",
                     help="write assets/sun_scans/ instead of a category's assets")
+    ap.add_argument("--laptop_aux", action="store_true",
+                    help="write <ckpt_path>/laptop_aux/params_best.npz, the segmenter's weights")
+    ap.add_argument("--laptop_frame", action="store_true",
+                    help="write assets/nocs_laptop_frame/ instead of a category's assets")
     args = ap.parse_args()
 
     import jax
@@ -431,6 +552,12 @@ def main():
         return
     if args.sun_scans:
         export_sun_scans(args.seed)
+        return
+    if args.laptop_aux:
+        export_laptop_aux(args.ckpt_path)
+        return
+    if args.laptop_frame:
+        export_laptop_frame(args.seed)
         return
     from cppf_tpu.eval.nocs_inference import CategoryRunner
     from cppf_tpu.train.checkpoints import load_params

@@ -16,7 +16,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "cppf_tpu", "cv2", "PIL")
 PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "cppf_tpu_torch", "**", "*.py"),
                               recursive=True)) + [os.path.join(ROOT, "chip_smoke.py"),
                                                   os.path.join(ROOT, "scripts",
-                                                               "parallel_smoke.py")]
+                                                               "parallel_smoke.py"),
+                                                  os.path.join(ROOT, "scripts",
+                                                               "laptop_smoke.py")]
 
 
 def _imported_modules(path):
@@ -48,7 +50,8 @@ def test_port_file_list_is_complete():
                    "data/synthetic.py", "data/native.py", "data/mesh.py", "core/binning.py",
                    "utils/meters.py", "parallel/mesh.py", "parallel/pose.py",
                    "parallel/input_pipeline.py", "parallel/train_step.py",
-                   "parallel/launch.py"):
+                   "parallel/launch.py", "data/resize.py", "data/exr.py",
+                   "data/laptop_aux.py", "models/segmenter.py", "train/laptop_aux.py"):
         assert f"cppf_tpu_torch/{module}" in names
 
 

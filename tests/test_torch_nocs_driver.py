@@ -10,8 +10,8 @@ scales rtol 1e-5; batched, ``--serial`` and ``--bbox_mask``.
 
 Also here: the batched runner against one-instance calls on the same keys,
 the ``anchor_t`` post-step against the JAX runner's, and the driver's
-refusals (no CUDA, the laptop segmenter, a checkpoint directory without
-its own weights)."""
+refusals (no CUDA, a checkpoint directory without its own weights).  The
+laptop path with its segmenter is in test_torch_nocs_laptop.py."""
 import importlib.util
 import os
 import pickle
@@ -317,23 +317,6 @@ def test_checkpoint_without_its_own_weights_is_skipped(tmp_path, monkeypatch):
     args = port.build_parser().parse_args(["--ckpt_path", str(ckpt), "--device", "cpu"])
     assert list(port.load_runners(args)) == ["mug"]
     assert loaded == [os.path.join(ASSETS, "mug_params_best.npz")]
-
-
-def test_laptop_with_segmenter_checkpoint_raises(tmp_path):
-    """A laptop instance with ``<ckpt_path>/laptop_aux`` present raises
-    (the segmenter override is not ported); without it the laptop is posed
-    alone, without the override."""
-    tmp = str(tmp_path)
-    seg_dir, nocs_dir, _ = export.render_nocs_frame(tmp, (("laptop", 0.0, 0.05, 0.9),), seed=1)
-    ckpt = _checkpoint_tree(os.path.join(tmp, "checkpoints"), ["laptop"])
-    args = ["--seg_dir", seg_dir, "--nocs_dir", nocs_dir, "--ckpt_path", ckpt,
-            "--device", "cpu", *WIDTH]
-    chunks = port.main(args + ["--out_dir", os.path.join(tmp, "a")])
-    assert [(c.category, c.instances, c.batched) for c in chunks[0]] == [("laptop", 1, False)]
-    assert not np.allclose(_load(os.path.join(tmp, "a"))["pred_RTs"][0], np.eye(4))
-    os.makedirs(os.path.join(ckpt, "laptop_aux"))
-    with pytest.raises(NotImplementedError, match="A9"):
-        port.main(args + ["--out_dir", os.path.join(tmp, "b")])
 
 
 def test_normals_of_collinear_rows_are_ill_conditioned():
