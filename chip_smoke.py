@@ -157,6 +157,30 @@ Phases:
    CPU: every T within 1 cm and up within 5° of the CPU's; the laptop's T
    and up against GT, the warm frame loop with the override and without
    it, and both peak kernels held and timed on the laptop instance.
+15. the zero-shot model (``eval/contrast_val.py``, the trainer's
+   regression head, ``eval/zero_shot.py::main``) at the width of
+   ``checkpoints/bowl_reg``: (a) the committed ``params_zs`` scored on the
+   proposal-contrast val scene as the trainer scores it (500 000 pairs, 36
+   rotations, threshold 10, seed 0; launch counts reset just before:
+   ``dense_hist_pairs`` once, nothing else): the scene's depth equal to
+   JAX's stored run (``assets/contrast_val_bowl.npz``) to the bit, hits and
+   false positives equal, the mean contrast within ``VAL_CONTRAST_RTOL``,
+   the peak voxel near each GT center the same; ms a validation by stage;
+   ``dense_hist``'s pairs front end held and timed on the scene's own
+   pairs as in phase 6; (b) the same scene at 150 000 pairs on the CPU and
+   on the card: hits and false equal, contrast within
+   ``VAL_CONTRAST_RTOL``; (c) ``train/loop.py::train`` from the committed
+   ``params_zs`` with a validation after each of 3 epochs of 2 steps (launch
+   counts reset just before: ``dense_hist_pairs`` once a validation,
+   nothing else): finite losses, 3 lines of ``zs_metrics.jsonl``, a
+   ``params_zs.npz`` that reloads into encoders scoring the logged best;
+   ms a regression train step; (d) the CLI in this process at 5 M pairs on
+   the demo PNGs, first on ``checkpoints/bowl_reg`` (its exported weights):
+   exactly 2 detections, within 4 cm of the bowls and within 1 cm and 5° of
+   the stored JAX detection, ``dense_hist_pairs`` once a 2^20-pair chunk;
+   then on (c)'s run; each PNG reads back, equals the colour frame outside
+   the drawn box pixels, is red on them, and is drawn within 2 px of every
+   projected corner; s a CLI run.
 
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose, of one zero-shot frame,
@@ -796,15 +820,9 @@ def profile_pose(runner, pc_raw):
     device_profile(lambda: runner.estimate(pc_raw), "one warm pose")
 
 
-def zero_shot_stages(encoders, cfg, z, n_pairs, device, prop_thresh=50.0, contrib_thresh=12):
-    """The zero-shot path stage by stage on the demo frame, each stage
-    synchronised.  Returns (HeatmapState, detections, {stage: seconds},
-    the network cloud's point count)."""
-    from cppf_tpu_torch.eval import zero_shot as zs
-
-    rng = np.random.default_rng(0)
-    times = {}
-
+def _timer(device, times):
+    """``timed(name, fn)``: runs ``fn``, its seconds (synchronised on the
+    card) into ``times[name]``."""
     def timed(name, fn):
         if device != "cpu":
             torch.cuda.synchronize()
@@ -814,9 +832,18 @@ def zero_shot_stages(encoders, cfg, z, n_pairs, device, prop_thresh=50.0, contri
             torch.cuda.synchronize()
         times[name] = time.perf_counter() - t0
         return out
+    return timed
+
+
+def heatmap_stages(encoders, cfg, depth, intrinsics, n_pairs, device, num_rots, timed):
+    """Stages 1-3 of ``zero_shot_heatmap`` one by one, each through
+    ``timed``.  Returns (HeatmapState, the network cloud's point count)."""
+    from cppf_tpu_torch.eval import zero_shot as zs
+
+    rng = np.random.default_rng(0)
 
     def prep():
-        clouds = zs.frame_clouds(z["depth"], z["intrinsics"], cfg.res, cfg.knn, rng, device)
+        clouds = zs.frame_clouds(depth, intrinsics, cfg.res, cfg.knn, rng, device)
         pc, nrm = clouds.high_pc[clouds.lo_idx], clouds.high_normal[clouds.lo_idx]
         return clouds, pc, nrm, zs.sample_pairs(pc, nrm, n_pairs, rng)
 
@@ -825,13 +852,26 @@ def zero_shot_stages(encoders, cfg, z, n_pairs, device, prop_thresh=50.0, contri
         preds = timed("network (SPRIN + PPF head)",
                       lambda: zs.frame_predictions(*encoders, clouds, pairs))
         grid, corner, dims = timed("heatmap (ppf_vote_dense)", lambda: zs.frame_heatmap(
-            pc, preds[:, :2].contiguous(), pairs, cfg.res, 72))
-        hm = zs.HeatmapState(pc, nrm, pairs, preds, grid, corner, dims)
+            pc, preds[:, :2].contiguous(), pairs, cfg.res, num_rots))
+    return zs.HeatmapState(pc, nrm, pairs, preds, grid, corner, dims), clouds.high_pc.shape[0]
+
+
+def zero_shot_stages(encoders, cfg, z, n_pairs, device, prop_thresh=50.0, contrib_thresh=12):
+    """The zero-shot path stage by stage on the demo frame, each stage
+    synchronised.  Returns (HeatmapState, detections, {stage: seconds},
+    the network cloud's point count)."""
+    from cppf_tpu_torch.eval import zero_shot as zs
+
+    times = {}
+    timed = _timer(device, times)
+    hm, n_high = heatmap_stages(encoders, cfg, z["depth"], z["intrinsics"], n_pairs, device, 72,
+                                timed)
+    with torch.no_grad():
         dets = timed("detect (proposals, re-rank, back-vote, axes)",
                      lambda: zs.detect_from_heatmap(hm, cfg, prop_thresh=prop_thresh,
                                                     contrib_thresh=contrib_thresh,
                                                     plane_u=z["plane_u"]))
-    return hm, dets, times, clouds.high_pc.shape[0]
+    return hm, dets, times, n_high
 
 
 def _dense_taps(votes, c, pool):
@@ -853,13 +893,12 @@ def _dense_taps(votes, c, pool):
 DENSE_CHUNK = 1 << 20  # pairs a plain-version call: the zero-shot path's own chunk
 
 
-def _dense_plain(params, frame, grid_shape, kw, dtype=torch.float32, votes=None):
+def _dense_plain(params, frame, grid_shape, kw, dtype=torch.float32, votes=None, n_rots=72):
     """dense_hist's plain version on the votes of ``params`` (or on
     ``votes``), made and summed one pair chunk at a time, in ``dtype``."""
     from cppf_tpu_torch.ops import vote_hist as vh
 
     out = torch.zeros((kw["cx"], kw["cy"], kw["cz"]), dtype=dtype, device=params.device)
-    n_rots = 72
     for s in range(0, params.shape[0], DENSE_CHUNK):
         if votes is None:
             v = vh._plain_votes(params[s:s + DENSE_CHUNK], frame, grid_shape, n_rots)
@@ -869,7 +908,7 @@ def _dense_plain(params, frame, grid_shape, kw, dtype=torch.float32, votes=None)
     return out
 
 
-def dense_record(params, frame, grid_shape, pool, label, adaptive=True, timed=True):
+def dense_record(params, frame, grid_shape, pool, label, adaptive=True, timed=True, n_rots=72):
     """Both front ends of dense_hist against the plain version on the votes
     of ``params`` in one grid: the pairs front end (one launch over every
     pair) and the votes front end (one launch over their flat votes), each
@@ -884,12 +923,14 @@ def dense_record(params, frame, grid_shape, pool, label, adaptive=True, timed=Tr
 
     c = [-(-g // p) for g, p in zip(grid_shape, pool)]
     kw = dict(cx=c[0], cy=c[1], cz=c[2], px=pool[0], py=pool[1], pz=pool[2])
-    pkw = dict(n_rots=72, grid_shape=grid_shape, **kw)
+    pkw = dict(n_rots=n_rots, grid_shape=grid_shape, **kw)
     votes = [torch.cat(t) for t in zip(*(
-        [a.contiguous() for a in vh._plain_votes(params[s:s + DENSE_CHUNK], frame, grid_shape, 72)]
+        [a.contiguous() for a in vh._plain_votes(params[s:s + DENSE_CHUNK], frame, grid_shape,
+                                                 n_rots)]
         for s in range(0, params.shape[0], DENSE_CHUNK)))]
-    expect = _dense_plain(params, frame, grid_shape, kw, votes=votes)
-    exact = _dense_plain(params, frame, grid_shape, kw, torch.float64, votes=votes).float()
+    expect = _dense_plain(params, frame, grid_shape, kw, votes=votes, n_rots=n_rots)
+    exact = _dense_plain(params, frame, grid_shape, kw, torch.float64, votes=votes,
+                         n_rots=n_rots).float()
     rec = {}
     for prefix, fn, tight in (("", lambda: vh.dense_hist_pairs(params, frame, **pkw), not adaptive),
                               ("votes_", lambda: vh.dense_hist(*votes, **kw), True)):
@@ -922,15 +963,16 @@ def dense_record(params, frame, grid_shape, pool, label, adaptive=True, timed=Tr
     votes_ms, ms = cuda_ms_turns([lambda: vh.dense_hist(*votes, **kw, out=buf),
                                   lambda: vh.dense_hist_pairs(params, frame, **pkw, out=buf)])
     rec.update(ms=ms, votes_ms=votes_ms, atomics=atomics, live=n_live, V=V,
-               plain_ms=cuda_ms(lambda: _dense_plain(params, frame, grid_shape, kw)),
+               plain_ms=cuda_ms(lambda: _dense_plain(params, frame, grid_shape, kw,
+                                                      n_rots=n_rots)),
                votes_plain_ms=cuda_ms(lambda: _dense_plain(params, frame, grid_shape, kw,
-                                                            votes=votes)))
+                                                            votes=votes, n_rots=n_rots)))
     ids, vals = _dense_taps(votes, c, pool)
     del votes
     flat = torch.zeros(cells, device=w.device)
     rec["library_ms"] = cuda_ms(lambda: flat.index_add_(0, ids, vals))
     del ids, vals
-    pair_bytes, pair_ops, _ = _pairs_work(params, 72, n_live)
+    pair_bytes, pair_ops, _ = _pairs_work(params, n_rots, n_live)
     _set_bound(rec, "votes_", 4 * V + 6 * 4 * n_live + 4 * cells, splat_ops)
     _set_bound(rec, "", pair_bytes + 4 * cells, pair_ops + splat_ops)
     print(f"kernel dense_hist [{label}, grid {tuple(c)}, pool {pool}, {params.shape[0]} pairs, "
@@ -2421,6 +2463,276 @@ def parallel_phase(smi):
     return records, all_launches["bowl"][0], all_launches
 
 
+# ---- phase 15: the zero-shot model's contrast validation, training, CLI ----
+VAL_ASSET = "contrast_val_bowl.npz"
+VAL_PAIRS = 500_000           # the trainer's proposal_contrast_score arguments
+VAL_ROTS = 36
+VAL_CHECK_PAIRS = 150_000     # CPU against CUDA, the threshold scaled with them
+VAL_CHECK_THRESH = 10.0 * VAL_CHECK_PAIRS / VAL_PAIRS
+# of the mean boundary contrast at the hits, against JAX's stored CPU run and
+# between the CPU and the card: the card's KNN, normals and network round
+# otherwise than XLA's CPU code (PPF logits 4.6e-5 apart, a normal ~1e-4)
+VAL_CONTRAST_RTOL = 1e-2
+ZS_EPOCHS = 3
+ZS_STEPS = 2                  # an epoch of phase 15's trainer (batch 2)
+CLI_CORNER_PX = 2.0
+DEMO_COLOR = os.path.join(ROOT, "data", "demo", "0000_color.png")
+DEMO_DEPTH = os.path.join(ROOT, "data", "demo", "0000_depth.png")
+
+
+def _zs_train_config():
+    """``checkpoints/bowl_reg/config.yaml``, the zero-shot model's training
+    snapshot (batch 2, 200 000 pairs a sample, Adam 1e-3 with decay 1e-4,
+    the regression head), its contrast validation after every epoch."""
+    from cppf_tpu_torch.config import load_config
+
+    cfg = load_config("bowl", snapshot=os.path.join(ROOT, "checkpoints", "bowl_reg",
+                                                    "config.yaml"))
+    check((cfg.batch_size, cfg.npoint_pad, cfg.npoint_max, cfg.knn, cfg.res, cfg.train_pairs,
+           cfg.out_dim, cfg.cls_bins, cfg.contrast_val_every, cfg.opt.lr,
+           cfg.opt.weight_decay) == (2, 4096, 10000, 60, 0.004, 200000, 9, False, 10, 1e-3,
+                                     1e-4), f"phase 15 not at bowl_reg's width: {cfg}")
+    cfg.contrast_val_every = 1
+    cfg.max_epoch = ZS_EPOCHS
+    return cfg
+
+
+def validation_stages(encoders, cfg, depth, centers, device):
+    """One contrast validation stage by stage (``proposal_contrast_score``
+    split), each synchronised.  Returns (HeatmapState, scores, the peak
+    voxel near each GT center, {stage: seconds})."""
+    from cppf_tpu_torch.data.shapenet import TRAIN_INTRINSICS
+    from cppf_tpu_torch.eval.contrast_val import contrast_scores
+
+    times = {}
+    timed = _timer(device, times)
+    hm, _ = heatmap_stages(encoders, cfg, depth, TRAIN_INTRINSICS, VAL_PAIRS, device,
+                           VAL_ROTS, timed)
+    scores, peaks = timed("host score (smoothing, contrast, proposals)", lambda: contrast_scores(
+        hm.grid, hm.corner, cfg.res, centers))
+    return hm, scores, peaks, times
+
+
+def _scores_agree(got, want, what):
+    d = abs(got["zs_mean_contrast"] - want["zs_mean_contrast"]) / max(
+        abs(want["zs_mean_contrast"]), 1e-12)
+    check(got["zs_hits"] == want["zs_hits"] and got["zs_false"] == want["zs_false"],
+          f"{what}: hits/false {got['zs_hits']}/{got['zs_false']}, not "
+          f"{want['zs_hits']}/{want['zs_false']}")
+    check(d <= VAL_CONTRAST_RTOL, f"{what}: mean contrast {got['zs_mean_contrast']} is "
+          f"{d:.2e} of {want['zs_mean_contrast']} off (> {VAL_CONTRAST_RTOL})")
+    return d
+
+
+def _box_mask(shape, dets):
+    """The pixels the CLI paints for ``dets`` and each detection's
+    projected corners."""
+    from cppf_tpu_torch.eval import viz
+    from cppf_tpu_torch.eval import zero_shot as zs
+
+    mask = np.zeros(shape[:2], bool)
+    corners = []
+    for d in dets:
+        proj = zs.detection_box(d)
+        corners.append(proj)
+        for i, j in zs.CLI_EDGES:
+            mask |= viz.line_mask(shape, proj[i], proj[j], 2)
+    return mask, corners
+
+
+def cli_run(ckpt, out, what):
+    """``python -m cppf_tpu_torch.eval.zero_shot --ckpt <ckpt>`` in this
+    process on the demo frame at full width (5 M pairs); its PNG must read
+    back, equal the colour frame outside the painted pixels and be red on
+    them, and be drawn within ``CLI_CORNER_PX`` of every projected corner
+    inside the image.  Returns (detections, seconds, launches)."""
+    from cppf_tpu_torch.data.png import read_png
+    from cppf_tpu_torch.eval import zero_shot as zs
+    from cppf_tpu_torch.ops import vote_hist as vh
+
+    vh.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dets, img = zs.main(["--ckpt", ckpt, "--color", DEMO_COLOR, "--depth", DEMO_DEPTH,
+                         "--out", out])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(vh.LAUNCHES)
+    png, color = read_png(out), read_png(DEMO_COLOR)
+    check(png.shape == color.shape and np.array_equal(png, img), f"{what}: the PNG does not "
+          f"read back as the drawn image")
+    mask, corners = _box_mask(png.shape, dets)
+    check(np.array_equal(png[~mask], color[~mask]), f"{what}: the PNG differs from the colour "
+          f"frame outside the boxes")
+    check(bool((png[mask] == [255, 0, 0]).all()), f"{what}: a box pixel is not red")
+    drawn = np.argwhere(mask)[:, ::-1]
+    far = 0.0
+    for proj in corners:
+        for c in proj:
+            if 0 <= c[0] < png.shape[1] and 0 <= c[1] < png.shape[0]:
+                far = max(far, float(np.min(np.linalg.norm(drawn - c, axis=1))))
+    check(far <= CLI_CORNER_PX, f"{what}: a projected corner is {far:.1f} px from the drawing")
+    print(f"phase 15 (d) {what}: {len(dets)} detections in {secs:.3f} s, {int(mask.sum())} "
+          f"pixels drawn, every corner within {far:.1f} px of them; launches {launches}",
+          flush=True)
+    return dets, secs, launches
+
+
+def zero_shot_train_phase(smi):
+    """Phase 15: the zero-shot model's proposal-contrast validation, its
+    training on the card and its command line.  Returns (the record of
+    ``dense_hist``'s pairs front end on the val scene, the launches of the
+    trainer's run)."""
+    import tempfile
+
+    from cppf_tpu_torch.data.shapenet import ShapeNetRenderDataset
+    from cppf_tpu_torch.eval import contrast_val as cv
+    from cppf_tpu_torch.models.convert import ASSETS, load_encoders, load_npz_params
+    from cppf_tpu_torch.ops import vote_hist as vh
+    from cppf_tpu_torch.ops.voting import pair_vote_params
+    from cppf_tpu_torch.train import loop
+
+    device = "cuda"
+    cfg = _zs_train_config()
+    params = load_npz_params(os.path.join(ASSETS, "bowl_reg_params_zs.npz"))
+    encoders = load_encoders(params, 9, device)
+    z = dict(np.load(os.path.join(ASSETS, VAL_ASSET)))
+    jax_score = {k: z["jax_" + k].item() for k in ("zs_score", "zs_hits", "zs_false",
+                                                   "zs_mean_contrast")}
+
+    # (a) the committed params_zs on the val scene against JAX's stored run
+    t0 = time.perf_counter()
+    depth, centers = cv.make_val_scene("bowl")
+    render_s = time.perf_counter() - t0
+    check(np.array_equal(depth, z["depth"]), "phase 15: the val scene's depth is not JAX's")
+    check(np.array_equal(np.stack(centers), z["gt_centers"]),
+          "phase 15: the val scene's centers are not JAX's")
+    vh.reset_launches()
+    score = cv.proposal_contrast_score(depth, centers, encoders, cfg)
+    torch.cuda.synchronize()
+    launches = dict(vh.LAUNCHES)
+    check(launches["dense_hist_pairs"] == 1 and sum(launches.values()) == 1,
+          f"phase 15: a validation launched {launches}, not dense_hist_pairs once")
+    runs = [validation_stages(encoders, cfg, depth, centers, device) for _ in range(3)]
+    hm, staged, peaks, _ = runs[0]
+    d_jax = _scores_agree(score, jax_score, "phase 15 (a) against JAX")
+    _scores_agree(staged, score, "phase 15 (a) the staged validation")
+    check(np.array_equal(np.stack(peaks), z["jax_peaks"]),
+          f"phase 15: the peak voxels {np.stack(peaks).tolist()} are not JAX's "
+          f"{z['jax_peaks'].tolist()}")
+    stage_ms = {k: statistics.median(r[3][k] for r in runs) * 1e3 for k in runs[0][3]}
+    print(f"phase 15 (a) ({smi}): committed params_zs on the val scene ({VAL_PAIRS} pairs, "
+          f"{VAL_ROTS} rotations, {hm.point_idxs.shape[0]} after the degenerate filter, heatmap "
+          f"{tuple(int(d) for d in hm.dims)}): {json.dumps(score)}; JAX's {json.dumps(jax_score)} "
+          f"(contrast {d_jax:.2e} apart), peak voxels {np.stack(peaks).tolist()} = JAX's; "
+          f"depth equal to JAX's; launches {launches}", flush=True)
+    print(f"phase 15 (a) ({smi}): a validation by stage (median of 3, ms): scene render "
+          f"{render_s * 1e3:.2f} (once a run), " + ", ".join(
+              f"{k} {v:.2f}" for k, v in stage_ms.items())
+          + f"; total {sum(stage_ms.values()):.2f}", flush=True)
+    preds_tr = hm.preds[:, :2].contiguous()
+    n = hm.pc.shape[0]
+    vparams = pair_vote_params(hm.pc, preds_tr, torch.ones(n, device=device), hm.point_idxs,
+                               cfg.res, VAL_ROTS, True,
+                               torch.ones(hm.point_idxs.shape[0], dtype=torch.bool,
+                                          device=device))
+    frame = vh.vote_frame(torch.as_tensor(hm.corner, device=device), cfg.res,
+                          torch.as_tensor(hm.dims, device=device).float())
+    gshape = tuple(int(np.ceil(d / 8) * 8) for d in hm.dims)
+    record = dense_record(vparams, frame, gshape, (1, 1, 1), "val scene, unpooled",
+                          n_rots=VAL_ROTS)
+    del hm, runs, vparams
+
+    # (b) CPU (plain versions) against CUDA (kernels) on the same scene
+    t0 = time.perf_counter()
+    cpu = cv.proposal_contrast_score(depth, centers, params, cfg, n_pairs=VAL_CHECK_PAIRS,
+                                     prop_thresh=VAL_CHECK_THRESH, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    gpu = cv.proposal_contrast_score(depth, centers, encoders, cfg, n_pairs=VAL_CHECK_PAIRS,
+                                     prop_thresh=VAL_CHECK_THRESH)
+    d_cpu = _scores_agree(gpu, cpu, "phase 15 (b) cpu vs cuda")
+    print(f"phase 15 (b): cpu vs cuda at {VAL_CHECK_PAIRS} pairs, threshold "
+          f"{VAL_CHECK_THRESH}: {json.dumps(cpu)} / {json.dumps(gpu)} (contrast {d_cpu:.2e} "
+          f"apart; cpu run {cpu_s:.1f} s)", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) the trainer from the committed params_zs, a validation an epoch
+        out_dir = os.path.join(tmp, "bowl_reg")
+        vh.reset_launches()
+        t0 = time.perf_counter()
+        out = loop.train(cfg, out_dir=out_dir, epoch_len=ZS_STEPS * cfg.batch_size,
+                         device=device, init_params=params)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = dict(vh.LAUNCHES)
+        check(out["state"].step == ZS_EPOCHS * ZS_STEPS, f"{out['state'].step} steps")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        with open(os.path.join(out_dir, "zs_metrics.jsonl")) as f:
+            zs_rows = [json.loads(line) for line in f]
+        for row in rows:
+            _finite_comps({k: v for k, v in row.items() if k.startswith("loss")},
+                          "phase 15 epoch")
+        check(len(rows) == ZS_EPOCHS and len(zs_rows) == ZS_EPOCHS,
+              f"phase 15: {len(rows)} epochs and {len(zs_rows)} validations logged")
+        check(train_launches["dense_hist_pairs"] == ZS_EPOCHS
+              and sum(train_launches.values()) == ZS_EPOCHS,
+              f"phase 15: the trainer launched {train_launches}, not dense_hist_pairs once a "
+              f"validation")
+        zs_path = os.path.join(out_dir, "params_zs.npz")
+        check(os.path.exists(zs_path), "phase 15: the trainer wrote no params_zs.npz")
+        # the first best, as the trainer keeps a score only when it is higher
+        best = max(zs_rows, key=lambda r: r["zs_score"])
+        reloaded = load_encoders(load_npz_params(zs_path), 9, device)
+        again = cv.proposal_contrast_score(depth, centers, reloaded, cfg)
+        d_best = _scores_agree(again, best, "phase 15 (c) params_zs.npz against the logged best")
+        last = all(torch.equal(a, b) for m, r in zip((out["state"].point, out["state"].ppf),
+                                                      reloaded)
+                   for a, b in zip(m.parameters(), r.parameters()))
+        check(last == (best["epoch"] == ZS_EPOCHS - 1), f"phase 15: params_zs.npz is "
+              f"{'' if last else 'not '}the last epoch's weights, the best being epoch "
+              f"{best['epoch']}")
+        print(f"phase 15 (c) ({smi}): {ZS_EPOCHS} epochs of {ZS_STEPS} steps at batch "
+              f"{cfg.batch_size}, {cfg.train_pairs} pairs a sample, from the committed params_zs "
+              f"in {train_s:.2f} s; losses {[round(r['loss'], 6) for r in rows]}; validations "
+              f"{json.dumps(zs_rows)}; params_zs.npz reloaded scores {json.dumps(again)} "
+              f"(the logged best, epoch {best['epoch']}: contrast {d_best:.2e} apart); "
+              f"launches {train_launches}", flush=True)
+        ds = ShapeNetRenderDataset(cfg)
+        med, peak, _, _ = train_step_times(cfg, out["state"], ds)
+        step_ms = sum(med[k] for k in ("render", "draws", "prep", "step"))
+        print(f"phase 15 (c) ({smi}): warm ms a regression train step {step_ms:.2f} = "
+              f"host render {med['render']:.2f} + draws {med['draws']:.2f} + prep "
+              f"{med['prep']:.2f} + step {med['step']:.2f} (device {med['step_device']:.2f}); "
+              f"peak {peak / 2**30:.3f} GiB above the batch", flush=True)
+
+        # (d) the command line at full width: the repo's checkpoint, then the run's
+        demo = np.load(os.path.join(ASSETS, "demo_frame.npz"))
+        dets, cli_s, cli_launches = cli_run(os.path.join(ROOT, "checkpoints", "bowl_reg"),
+                                            os.path.join(tmp, "cli_asset.png"),
+                                            "checkpoints/bowl_reg")
+        check(len(dets) == 2, f"phase 15: the CLI gave {len(dets)} detections, not 2")
+        chunks = -(-int(demo["jax_n_pairs"]) // DENSE_CHUNK)
+        check(cli_launches["dense_hist_pairs"] == chunks
+              and sum(cli_launches.values()) == chunks,
+              f"phase 15: the CLI launched {cli_launches}, not dense_hist_pairs {chunks} times")
+        for dist, d in _match(dets, BOWL_CENTERS):
+            check(dist < 0.04, f"phase 15: a CLI detection is {dist * 1e3:.1f} mm from its bowl")
+        for T, R in zip(demo["jax_T"], demo["jax_R"]):
+            dist, d = _match(dets, [T])[0]
+            up = float(np.degrees(np.arccos(np.clip(d.R[:, 1] @ R[:, 1], -1, 1))))
+            print(f"phase 15 (d): against the JAX CPU detection at {np.round(T, 4)}: T "
+                  f"{dist * 1e3:.3f} mm, up {up:.3f} deg", flush=True)
+            check(dist < 0.01 and up < 5.0, "phase 15: a CLI detection is > 1 cm or > 5 deg "
+                  "from JAX's")
+        dets2, cli2_s, _ = cli_run(out_dir, os.path.join(tmp, "cli_run.png"),
+                                   "phase 15's trained params_zs.npz")
+        print(f"phase 15 (d) ({smi}): s a CLI run at {ZS_PAIRS} pairs (read, detect, draw, "
+              f"write): {cli_s:.3f} (checkpoints/bowl_reg), {cli2_s:.3f} (the trained run: "
+              f"{[np.round(d.T, 4).tolist() for d in dets2]})", flush=True)
+    return {"dense_hist": record}, train_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     ap.add_argument("--profile", action="store_true", help="profile one warm pose")
@@ -2585,14 +2897,23 @@ def main():
     lap_records, lap_launches = laptop_phase(smi, args.profile)
     print(f"phase 14 (laptop): {time.perf_counter() - t14:.1f} s", flush=True)
 
+    # ---- 15. the zero-shot model: contrast validation, training, the CLI ----
+    t15 = time.perf_counter()
+    zs_records, zs_train_launches = zero_shot_train_phase(smi)
+    print(f"phase 15 (zero-shot training and CLI): {time.perf_counter() - t15:.1f} s",
+          flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
     # comparisons, stands beside it under votes_ keys.  The peak kernels
-    # stand five times: on bowl's main path (phase 4), on the NOCS driver's
+    # stand six times: on bowl's main path (phase 4), on the NOCS driver's
     # frame (phase 10), on the SUN driver's scans (phase 11), in the
-    # trainer's decode validation (phase 12) and on one rank's shard of the
+    # trainer's decode validation (phase 12), on one rank's shard of the
     # pair-sharded pose (phase 13: rank 0's launches on bowl, every rank's
-    # by category beside them), each with the launches of its own run
+    # by category beside them) and on the laptop frame (phase 14);
+    # dense_hist twice: on the zero-shot path (phase 7) and in the zero-shot
+    # trainer's contrast validation (phase 15); each with the launches of
+    # its own run
     kernels = []
     paths = [("main path (phase 4; dense_hist: zero-shot, phase 7)", records, launches),
              ("nocs driver (phase 10)", nocs_records, nocs_launches),
@@ -2600,7 +2921,9 @@ def main():
              ("training decode-val (phase 12)", train_records, train_launches),
              ("pair-sharded pose (phase 13)", par_records, par_launches),
              ("laptop frame with the segmenter override (phase 14)", lap_records,
-              lap_launches)]
+              lap_launches),
+             ("zero-shot training's contrast validation (phase 15)", zs_records,
+              zs_train_launches)]
     for path, recs, counts in paths:
         for name, rec in recs.items():
             pairs = name + "_pairs" if name + "_pairs" in counts else name

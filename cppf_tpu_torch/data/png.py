@@ -1,11 +1,13 @@
-"""PNG decoding on ``zlib`` and numpy, for the frames the drivers read.
+"""PNG decoding and encoding on ``zlib`` and numpy, for the frames the
+drivers read and the pictures the zero-shot CLI writes.
 
 Handles what the NOCS and demo frames use: 8- and 16-bit greyscale (depth in
 millimetres), 8-bit RGB and RGBA (colour), grey with alpha, and every
 scanline filter (None, Sub, Up, Average, Paeth).  No palette, no bit depth
 below 8 and no Adam7 interlace: those raise.  16-bit samples come back as
 native ``uint16``; colour comes back in RGB(A) order (``cv2.imread`` gives
-BGR).
+BGR).  :func:`write_png` writes 8-bit grey, grey with alpha, RGB and RGBA
+and 16-bit grey, every scanline with filter 0 (None).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type → samples a pixel
+_COLOUR_TYPE = {c: t for t, c in _CHANNELS.items()}
 
 
 def read_png(path: str) -> np.ndarray:
@@ -112,3 +115,33 @@ def _unfilter_diagonals(lines: np.ndarray, bpp: int) -> np.ndarray:
         np.bitwise_and(fs[t] + pred, 0xFF, out=s[t + 2, bpp:])
     s = s[:, bpp:].reshape(-1, height, bpp)
     return s[y + x + 2, y].astype(np.uint8).reshape(height, -1)
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write ``img`` to ``path`` as a PNG: uint8 [H, W] (grey), [H, W, 2]
+    (grey and alpha), [H, W, 3] (RGB) or [H, W, 4] (RGBA), or uint16
+    [H, W] (grey).  ``read_png`` gives the array back."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    img = np.asarray(img)
+    channels = 1 if img.ndim == 2 else (img.shape[2] if img.ndim == 3 else 0)
+    if (img.dtype not in (np.uint8, np.uint16) or channels not in _COLOUR_TYPE
+            or (img.dtype == np.uint16 and channels != 1) or min(img.shape[:2], default=0) < 1):
+        raise ValueError(f"write_png writes uint8 grey, grey-alpha, RGB or RGBA and uint16 grey, "
+                         f"not {img.dtype} {img.shape}")
+    height, width = img.shape[:2]
+    depth = 8 * img.dtype.itemsize
+    rows = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img).view(np.uint8)
+    lines = np.concatenate([np.zeros((height, 1), np.uint8), rows.reshape(height, -1)], 1)
+    header = struct.pack(">IIBBBBB", width, height, depth, _COLOUR_TYPE[channels], 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(lines.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    """One chunk: length, type, body, and the CRC-32 of type and body."""
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))

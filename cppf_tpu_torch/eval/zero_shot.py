@@ -21,24 +21,35 @@ center-vote heatmap.  The stages, each a function so a caller can time it:
 
 Random draws: the jitter, the pair indices and the axis-vote permutation
 come from ``np.random.default_rng(seed)`` on the host in the JAX package's
-order, so both packages draw the same numbers for a seed.  The RANSAC
-uniforms of :func:`scene_planes` come from a seeded ``torch.Generator`` on
-the CPU (the same on every device) unless the caller injects them.
+order, and the RANSAC uniforms of :func:`scene_planes` are JAX's
+``uniform(PRNGKey(seed + k), (200, 3))`` (``core/threefry.py``) unless the
+caller injects them, so both packages draw the same numbers for a seed.
 Tensors live on the path's device; proposals, the heatmap's host copy and
 the detections are numpy, as in the JAX package.
+
+:func:`main` is the command-line entry point (``python -m
+cppf_tpu_torch.eval.zero_shot --ckpt ...``): detect on a PNG depth frame
+and draw the boxes on its colour frame.
 """
 from __future__ import annotations
 
+import argparse
 import logging
+import os
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from cppf_tpu_torch.core.geometry import backproject, fibonacci_sphere
+from cppf_tpu_torch.config import REPO_ROOT, load_config
+from cppf_tpu_torch.core import threefry
+from cppf_tpu_torch.core.geometry import (backproject, calculate_2d_projections, fibonacci_sphere,
+                                          get_3d_bbox, transform_coordinates_3d)
+from cppf_tpu_torch.data.png import read_png, write_png
 from cppf_tpu_torch.device import pin_float32, resolve_device
 from cppf_tpu_torch.eval.anchor import anchor_box_t
-from cppf_tpu_torch.models.convert import load_encoders
+from cppf_tpu_torch.eval.viz import draw_line
+from cppf_tpu_torch.models.convert import ASSETS, load_encoders, load_npz_params
 from cppf_tpu_torch.ops.knn import knn_indices
 from cppf_tpu_torch.ops.normals import estimate_normals
 from cppf_tpu_torch.ops.quantize import voxel_downsample_host
@@ -128,8 +139,9 @@ def extract_proposals_host(grid: np.ndarray, corner: np.ndarray, res: float,
 
 
 def plane_uniforms(seed: int, num_iterations: int = PLANE_ITERS) -> torch.Tensor:
-    """The RANSAC uniforms of one :func:`scene_planes` round (CPU draws)."""
-    return torch.rand((num_iterations, 3), generator=torch.Generator().manual_seed(seed))
+    """The RANSAC uniforms of one :func:`scene_planes` round: JAX's
+    ``uniform(PRNGKey(seed), (num_iterations, 3))``, drawn on the CPU."""
+    return threefry.draw_many([("uniform", threefry.key(seed), (num_iterations, 3))], "cpu")[0]
 
 
 def scene_planes(pc: torch.Tensor, fit_tol: float = 0.008, member_tol: float = 0.015,
@@ -536,3 +548,85 @@ def zero_shot_detect(depth: np.ndarray, encoders_or_params, cfg,
                                prop_thresh=prop_thresh, contrib_thresh=contrib_thresh,
                                seed=seed, nms_radius=nms_radius, anchor_t=anchor_t,
                                plane_u=plane_u)
+
+
+# the 12 edges of the get_3d_bbox corners, in the order the JAX CLI draws them
+CLI_EDGES = ((0, 1), (0, 2), (1, 3), (2, 3), (4, 5), (4, 6), (5, 7), (6, 7),
+             (0, 4), (1, 5), (2, 6), (3, 7))
+REPO_CKPT = os.path.join(REPO_ROOT, "checkpoints", "bowl_reg")
+
+
+def cli_weights(ckpt: str, params_name: Optional[str] = None) -> str:
+    """The ``.npz`` weights the CLI serves from the checkpoint directory
+    ``ckpt``: ``<params_name>.npz`` when named, else ``params_zs.npz`` (the
+    proposal-contrast selection), else ``params_best.npz``.  The repo's
+    own ``checkpoints/bowl_reg`` (or a link to it) holds only the JAX
+    package's checkpoints; its ``params_zs`` is served from
+    ``assets/bowl_reg_params_zs.npz``.  Raises ``FileNotFoundError``
+    otherwise."""
+    names = [params_name] if params_name else ["params_zs", "params_best"]
+    for name in names:
+        path = os.path.join(ckpt, f"{name}.npz")
+        if os.path.exists(path):
+            return path
+    if (os.path.isdir(ckpt) and os.path.realpath(ckpt) == os.path.realpath(REPO_CKPT)
+            and "params_zs" in names):
+        return os.path.join(ASSETS, "bowl_reg_params_zs.npz")
+    raise FileNotFoundError(f"no {' or '.join(n + '.npz' for n in names)} under {ckpt}")
+
+
+def detection_box(d: Detection) -> np.ndarray:
+    """The pixels [8, 2] of a detection's unit box (its scale over the
+    scale's norm, posed by ``RT``) in the demo camera."""
+    bbox3d = get_3d_bbox(d.scale / np.linalg.norm(d.scale), 0)
+    return calculate_2d_projections(transform_coordinates_3d(bbox3d, d.RT), DEMO_INTRINSICS)
+
+
+def draw_detections(img: np.ndarray, dets: Sequence[Detection]) -> np.ndarray:
+    """Each detection's :func:`detection_box` drawn on the RGB ``img`` in
+    red at thickness 2, in place."""
+    for d in dets:
+        proj = detection_box(d)
+        for i, j in CLI_EDGES:
+            draw_line(img, proj[i], proj[j], (255, 0, 0), 2)
+    return img
+
+
+def main(argv=None):
+    """Detect every bowl in a depth frame and draw the boxes on its colour
+    frame (counterpart of the JAX package's ``python -m
+    cppf_tpu.eval.zero_shot``).  Runs on ``cuda`` unless ``--device cpu``.
+    Returns (the detections, the drawn RGB image)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--ckpt", required=True, help="regression-variant checkpoint dir")
+    parser.add_argument("--color", default="data/demo/0000_color.png")
+    parser.add_argument("--depth", default="data/demo/0000_depth.png")
+    parser.add_argument("--out", default="zero_shot_vis.png")
+    parser.add_argument("--n_pairs", type=int, default=5000000)
+    parser.add_argument("--params_name", default=None,
+                        help="weights to load, <ckpt>/<name>.npz (default: params_zs if "
+                             "present, the proposal-contrast selection, else params_best)")
+    parser.add_argument("--device", default=None, help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+
+    snap = os.path.join(args.ckpt, "config.yaml")
+    cfg = load_config("bowl", snapshot=snap if os.path.exists(snap) else None)
+    cfg.cls_bins = False
+    params = load_npz_params(cli_weights(args.ckpt, args.params_name))
+
+    depth = read_png(args.depth)
+    dets = zero_shot_detect(depth, params, cfg, n_pairs=args.n_pairs, device=device)
+    print(f"{len(dets)} detections")
+    img = np.ascontiguousarray(read_png(args.color)[:, :, :3])
+    for d in dets:
+        print("T:", d.T, "scale:", d.scale)
+    draw_detections(img, dets)
+    write_png(args.out, img)
+    print(f"wrote {args.out}")
+    return dets, img
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO, force=True)
+    main()

@@ -6,7 +6,10 @@ uses: ``epoch<n>``, ``last``, ``best``, ``best_decode``.  The weights that
 inference serves go to ``<out_dir>/params_best.npz`` in the flat flax
 layout (``models/convert.py``), beside the config snapshot
 ``config.yaml``, so that ``CategoryRunner(category, ckpt_path=<parent of
-out_dir>)`` serves them when ``out_dir`` is named by the category.
+out_dir>)`` serves them when ``out_dir`` is named by the category; the
+zero-shot model's proposal-contrast selection goes beside them as
+``params_zs.npz``, which ``python -m cppf_tpu_torch.eval.zero_shot --ckpt
+<out_dir>`` serves first.
 """
 from __future__ import annotations
 
@@ -44,20 +47,20 @@ def load_train_state(ckpt_dir: str, state: TrainState, name: str) -> TrainState:
     return state
 
 
-def save_params(ckpt_dir: str, state: TrainState, cfg: Config) -> str:
-    """Write the weights as ``params_best.npz`` and the config snapshot
+def save_params(ckpt_dir: str, state: TrainState, cfg: Config, name: str = "params_best") -> str:
+    """Write the weights as ``<name>.npz`` and the config snapshot
     ``config.yaml``; returns the weights' path."""
-    path = os.path.join(ckpt_dir, "params_best.npz")
+    path = os.path.join(ckpt_dir, f"{name}.npz")
     save_npz_params(path, state.point, state.ppf)
     cfg.save(os.path.join(ckpt_dir, "config.yaml"))
     return path
 
 
-def load_params_into(ckpt_dir: str, state: TrainState) -> TrainState:
-    """Load ``params_best.npz`` into the encoders of ``state`` (a warm
-    start: the optimizer and step stay as they are)."""
+def load_params_into(ckpt_dir: str, state: TrainState, name: str = "params_best") -> TrainState:
+    """Load ``<name>.npz`` into the encoders of ``state`` (a warm start:
+    the optimizer and step stay as they are)."""
     point_sd, ppf_sd = params_to_state_dicts(load_npz_params(os.path.join(ckpt_dir,
-                                                                          "params_best.npz")))
+                                                                          f"{name}.npz")))
     state.point.load_state_dict(point_sd, strict=True)
     state.ppf.load_state_dict(ppf_sd, strict=True)
     return state

@@ -6,13 +6,18 @@ on the device — jitter, voxels, normals with random signs, pairs, targets,
 soft bins — and :func:`~cppf_tpu_torch.train.step.train_step` takes one
 Adam step.  Checkpoints: every 20 epochs, the last and the best-loss
 states, and ``params_best`` chosen by decode validation when it is on
-(``decode_val_every``), else by the loss.  A run resumes from its last
-state.
+(``decode_val_every``, the classification head), else by the loss.  The
+regression head (``cls_bins: false``, the zero-shot model) with
+``contrast_val_every`` > 0 is scored every that many epochs on the
+proposal-contrast scene (``eval/contrast_val.py``), each score appended to
+``zs_metrics.jsonl``, and ``params_zs`` written on a new best.  A run
+resumes from its last state.
 
 The random draws follow the JAX trainer's key schedule
 (``fold_in(PRNGKey(seed + 1), start_epoch)``, one split a step, one a
-validation; ``core/threefry.py``), so a run of the port meets the draws of
-the JAX run with the same config.
+decode validation; ``core/threefry.py``), so a run of the port meets the
+draws of the JAX run with the same config.  The contrast validation draws
+from its own ``np.random.default_rng(0)``, never from that key.
 
 Usage:
     python -m cppf_tpu_torch.train.loop category=bowl [max_epoch=200] [epoch_len=200] \\
@@ -162,16 +167,14 @@ def train(cfg: Config, out_dir: Optional[str] = None, epoch_len: Optional[int] =
     """The epoch loop.  ``init_params`` (a JAX params tree) replaces the
     flax-style init; ``device`` defaults to ``cuda``.  Writes
     ``metrics.jsonl`` (an epoch's mean components), ``decode_metrics.jsonl``,
-    the train states and ``params_best.npz`` with ``config.yaml`` under
-    ``out_dir``.  TF32 stays off (``pin_float32``): it trains in float32.
+    ``zs_metrics.jsonl``, the train states, ``params_best.npz`` and
+    ``params_zs.npz`` with ``config.yaml`` under ``out_dir``.  TF32 stays off (``pin_float32``): it trains in float32.
     Returns {"state", "best_loss", "history"}."""
     device = resolve_device(device)
     pin_float32()
     out_dir = out_dir or os.path.join(DEFAULT_ROOT, cfg.category)
     os.makedirs(out_dir, exist_ok=True)
     cfg.save(os.path.join(out_dir, "config.yaml"))
-    if cfg.contrast_val_every > 0 and not cfg.cls_bins:
-        raise NotImplementedError("contrast validation (eval/contrast_val.py) is not ported")
 
     ds = dataset or ShapeNetRenderDataset(cfg, seed=cfg.seed)
     if dataset is None:
@@ -208,6 +211,15 @@ def train(cfg: Config, out_dir: Optional[str] = None, epoch_len: Optional[int] =
         decode_val = DecodeValidator(cfg, device)
         best_dv = min(_read_jsonl(os.path.join(out_dir, "decode_metrics.jsonl"), "dv_score"),
                       default=math.inf)
+    val_scene = None
+    best_zs = -math.inf
+    zs_path = os.path.join(out_dir, "zs_metrics.jsonl")
+    if cfg.contrast_val_every > 0 and not cfg.cls_bins:
+        from cppf_tpu_torch.eval.contrast_val import make_val_scene
+
+        val_scene = make_val_scene(cfg.category)
+        # the standing best of an earlier run in this directory
+        best_zs = max(_read_jsonl(zs_path, "zs_score"), default=-math.inf)
     if start_epoch > 0:
         # the best loss so far, so that the first epoch after a resume
         # cannot replace params_best with a worse state
@@ -253,6 +265,19 @@ def train(cfg: Config, out_dir: Optional[str] = None, epoch_len: Optional[int] =
                 best_dv = dv["dv_score"]
                 checkpoints.save_params(out_dir, state, cfg)
                 checkpoints.save_train_state(out_dir, state, name="best_decode")
+        if val_scene is not None and (epoch + 1) % cfg.contrast_val_every == 0:
+            from cppf_tpu_torch.eval.contrast_val import proposal_contrast_score
+
+            zs = proposal_contrast_score(val_scene[0], val_scene[1], (state.point, state.ppf),
+                                         cfg, device=device)
+            zs["epoch"] = epoch
+            with open(zs_path, "a") as f:
+                f.write(json.dumps(zs) + "\n")
+            log.info("contrast val epoch %d: score=%.1f hits=%d false=%d", epoch, zs["zs_score"],
+                     zs["zs_hits"], zs["zs_false"])
+            if zs["zs_score"] > best_zs:
+                best_zs = zs["zs_score"]
+                checkpoints.save_params(out_dir, state, cfg, name="params_zs")
     return {"state": state, "best_loss": best_loss, "history": history}
 
 

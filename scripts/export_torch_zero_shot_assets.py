@@ -15,8 +15,19 @@ Writes two files into ``cppf_tpu_torch/assets/``:
   [k, 3], ``jax_score`` [k], and ``jax_n_pairs``, the pairs left after the
   degenerate-pair filter.
 
+With ``--contrast_val`` it writes ``contrast_val_bowl.npz`` instead: the
+proposal-contrast validation scene of ``cppf_tpu.eval.contrast_val``
+(``make_val_scene("bowl")``: ``depth``, uint16 millimetres, and
+``gt_centers`` [2, 3]) and JAX's CPU ``proposal_contrast_score`` of
+``checkpoints/bowl_reg/params_zs`` on it with the trainer's arguments
+(500 000 pairs, 36 rotations, threshold 10, seed 0) under the bowl_reg
+snapshot: ``jax_zs_score``, ``jax_zs_hits``, ``jax_zs_false``,
+``jax_zs_mean_contrast``, ``jax_peaks`` [2, 3] (the argmax of the smoothed
+heatmap within 5 cm of each GT center, the voxel the score reads) and the
+heatmap's ``jax_corner`` and ``jax_dims``.
+
 Usage (needs JAX and cv2; runs on the CPU, a few minutes):
-    python scripts/export_torch_zero_shot_assets.py
+    python scripts/export_torch_zero_shot_assets.py [--contrast_val]
 """
 from __future__ import annotations
 
@@ -34,7 +45,59 @@ CKPT = os.path.join(ROOT, "checkpoints", "bowl_reg")
 DEPTH = os.path.join(ROOT, "data", "demo", "0000_depth.png")
 
 
+def export_contrast_val():
+    """contrast_val_bowl.npz: the val scene and JAX's score of params_zs."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from scipy.ndimage import gaussian_filter
+
+    import cppf_tpu.eval.zero_shot as zs
+    from cppf_tpu.config import load_config
+    from cppf_tpu.eval.contrast_val import make_val_scene, proposal_contrast_score
+    from cppf_tpu.train.checkpoints import load_params
+
+    params = load_params(CKPT, "params_zs")
+    cfg = load_config("bowl", snapshot=os.path.join(CKPT, "config.yaml"))
+    cfg.cls_bins = False
+    depth, centers = make_val_scene("bowl")
+    heatmaps = []
+    heatmap = zs.zero_shot_heatmap
+
+    def recording_heatmap(*args, **kw):
+        heatmaps.append(heatmap(*args, **kw))
+        return heatmaps[-1]
+
+    zs.zero_shot_heatmap = recording_heatmap
+    t0 = time.perf_counter()
+    score = proposal_contrast_score(depth, centers, params, cfg)
+    print(f"JAX proposal_contrast_score: {score} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # the voxel the score reads at each GT center (contrast_val.py:122-130)
+    hm = heatmaps[0]
+    sm = gaussian_filter(hm.grid, sigma=1)
+    tol = max(1, int(round(0.05 / cfg.res)))
+    peaks = []
+    for c in centers:
+        loc_c = np.round((c - hm.corner) / cfg.res).astype(int)
+        lo = np.maximum(loc_c - tol, 0)
+        hi = np.minimum(loc_c + tol + 1, np.array(sm.shape))
+        sub = sm[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        peaks.append(lo + np.array(np.unravel_index(np.argmax(sub), sub.shape)))
+    print(f"peaks {peaks}, heatmap {hm.dims} at {hm.corner}", flush=True)
+    np.savez_compressed(
+        os.path.join(ASSETS, "contrast_val_bowl.npz"), depth=depth,
+        gt_centers=np.stack(centers), jax_zs_score=np.float64(score["zs_score"]),
+        jax_zs_hits=np.int64(score["zs_hits"]), jax_zs_false=np.int64(score["zs_false"]),
+        jax_zs_mean_contrast=np.float64(score["zs_mean_contrast"]),
+        jax_peaks=np.stack(peaks).astype(np.int64), jax_corner=np.asarray(hm.corner),
+        jax_dims=np.asarray(hm.dims))
+    print("wrote contrast_val_bowl.npz", flush=True)
+
+
 def main():
+    if "--contrast_val" in sys.argv[1:]:
+        return export_contrast_val()
     import cv2
     import jax
 

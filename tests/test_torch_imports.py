@@ -18,7 +18,9 @@ PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "cppf_tpu_torch", "**", "*.py")
                                                   os.path.join(ROOT, "scripts",
                                                                "parallel_smoke.py"),
                                                   os.path.join(ROOT, "scripts",
-                                                               "laptop_smoke.py")]
+                                                               "laptop_smoke.py"),
+                                                  os.path.join(ROOT, "scripts",
+                                                               "zero_shot_train_smoke.py")]
 
 
 def _imported_modules(path):
@@ -51,8 +53,27 @@ def test_port_file_list_is_complete():
                    "utils/meters.py", "parallel/mesh.py", "parallel/pose.py",
                    "parallel/input_pipeline.py", "parallel/train_step.py",
                    "parallel/launch.py", "data/resize.py", "data/exr.py",
-                   "data/laptop_aux.py", "models/segmenter.py", "train/laptop_aux.py"):
+                   "data/laptop_aux.py", "models/segmenter.py", "train/laptop_aux.py",
+                   "eval/contrast_val.py", "eval/viz.py", "train/multirun.py", "data/stats.py",
+                   "data/sunrgbd_synth.py", "ops/peaks.py", "utils/prof.py"):
         assert f"cppf_tpu_torch/{module}" in names
+    assert "scripts/zero_shot_train_smoke.py" in names
+
+
+def test_port_has_every_module_of_the_jax_package():
+    """Each module of cppf_tpu/ has its counterpart at the same path in the
+    port, but the Pallas kernels (ported as csrc/*.cu) and utils/cache.py
+    (JAX's compilation cache; the port caches its kernel builds in
+    _build/)."""
+    jax_root, port_root = os.path.join(ROOT, "cppf_tpu"), os.path.join(ROOT, "cppf_tpu_torch")
+    modules = {os.path.relpath(p, jax_root)
+               for p in glob.glob(os.path.join(jax_root, "**", "*.py"), recursive=True)}
+    unported = {m for m in modules
+                if m.startswith("ops/pallas/") or m == "utils/cache.py"}
+    assert unported == {"ops/pallas/__init__.py", "ops/pallas/vote_hist.py", "utils/cache.py"}
+    missing = sorted(m for m in modules - unported
+                     if not os.path.exists(os.path.join(port_root, m)))
+    assert not missing, f"no counterpart in cppf_tpu_torch/ of {missing}"
 
 
 def test_runner_needs_cuda_unless_told_cpu():

@@ -1,10 +1,12 @@
 """The port's training loop (train/loop.py, checkpoints.py, decode_val.py)
 against the JAX package's at the JAX tests' small size: the whole loop on
 JAX's init and key schedule, decode validation on the same weights and
-keys, checkpoints that resume and that the runner serves, the command line."""
+keys, the regression head's contrast validation and its params_zs,
+checkpoints that resume and that the runner serves, the command line."""
 import dataclasses
 import json
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -165,3 +167,126 @@ def test_trainer_renders_jax_sample_stream_at_any_seed(tmp_path, monkeypatch):
         np.testing.assert_array_equal(got.pc, want.pc)
         np.testing.assert_array_equal(got.bound, want.bound)
         assert got.scale == want.scale
+
+
+# the val scene cropped to its two bowls at 4 mm (rows 200-289, columns
+# 120-289 and 350-494), so that a contrast validation takes seconds on the
+# CPU; the pairs and the threshold scaled together (10 · 30 000 / 500 000)
+VAL_BOXES = ((slice(200, 290), slice(120, 290)), (slice(200, 290), slice(350, 495)))
+VAL_PAIRS, VAL_THRESH = 30000, 0.6
+
+
+def _reduced_validation(monkeypatch, module):
+    """``module``'s make_val_scene cropped to VAL_BOXES and its
+    proposal_contrast_score at VAL_PAIRS and VAL_THRESH (each trainer
+    imports both from the module when it runs)."""
+    make, score = module.make_val_scene, module.proposal_contrast_score
+
+    def make_val_scene(category):
+        depth, centers = make(category)
+        crop = np.zeros_like(depth)
+        for box in VAL_BOXES:
+            crop[box] = depth[box]
+        return crop, centers
+
+    def proposal_contrast_score(*args, **kw):
+        return score(*args, **dict(kw, n_pairs=VAL_PAIRS, prop_thresh=VAL_THRESH))
+
+    monkeypatch.setattr(module, "make_val_scene", make_val_scene)
+    monkeypatch.setattr(module, "proposal_contrast_score", proposal_contrast_score)
+
+
+def _record_saves(monkeypatch, ckpt_module, out_dir, saved):
+    """Record, for every params_zs that ``ckpt_module.save_params`` writes,
+    the epoch of the zs_metrics.jsonl line just written."""
+    save = ckpt_module.save_params
+
+    def save_params(*args, name="params_best", **kw):
+        if name == "params_zs":
+            with open(os.path.join(out_dir, "zs_metrics.jsonl")) as f:
+                saved.append(json.loads(f.readlines()[-1])["epoch"])
+        return save(*args, name=name, **kw)
+
+    monkeypatch.setattr(ckpt_module, "save_params", save_params)
+
+
+def _warm_start_dirs(tmp_path):
+    """A JAX and a port run directory, each holding the committed params_zs
+    as its params_best (both trainers' weights-only warm start), so that
+    the contrast validations score a model that finds the bowls."""
+    from cppf_tpu.train import checkpoints as checkpoints_j
+    from cppf_tpu_torch.models.convert import ASSETS, load_npz_params
+
+    dirs = tmp_path / "jax" / "bowl", tmp_path / "torch" / "bowl"
+    src = os.path.join(ASSETS, "bowl_reg_params_zs.npz")
+    checkpoints_j.save_params(str(dirs[0]), load_npz_params(src), name="params_best")
+    os.makedirs(dirs[1])
+    shutil.copy(src, dirs[1] / "params_best.npz")
+    return dirs
+
+
+def test_contrast_validation_matches_jax(tmp_path, monkeypatch):
+    """The regression head with contrast_val_every=1, two epochs of one step
+    from the committed params_zs: zs_metrics.jsonl equals JAX's (hits and
+    false positives exact, contrast and score to 1e-4 relative: the
+    network's float32 rounding), and params_zs is written at the same
+    epochs, each a new best."""
+    import cppf_tpu.eval.contrast_val as contrast_val_j
+    from cppf_tpu.train import checkpoints as checkpoints_j
+    from cppf_tpu_torch.eval import contrast_val
+
+    cfg_j, cfg = small_configs(cls_bins=False, contrast_val_every=1)
+    dir_j, dir_t = _warm_start_dirs(tmp_path)
+    saved_j, saved_t = [], []
+    for module in (contrast_val_j, contrast_val):
+        _reduced_validation(monkeypatch, module)
+    _record_saves(monkeypatch, checkpoints_j, str(dir_j), saved_j)
+    _record_saves(monkeypatch, checkpoints, str(dir_t), saved_t)
+    loop_j.train(cfg_j, out_dir=str(dir_j), epoch_len=2, resume=True)
+    loop.train(cfg, out_dir=str(dir_t), epoch_len=2, device="cpu", resume=True)
+
+    def rows(d):
+        with open(d / "zs_metrics.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    got, want = rows(dir_t), rows(dir_j)
+    assert [r["epoch"] for r in want] == [0, 1]
+    for g, w in zip(got, want, strict=True):
+        assert sorted(g) == sorted(w)
+        assert (g["epoch"], g["zs_hits"], g["zs_false"]) == (w["epoch"], w["zs_hits"], w["zs_false"])
+        for k in ("zs_mean_contrast", "zs_score"):
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-4, err_msg=k)
+    assert want[0]["zs_hits"] == 2
+    assert saved_t == saved_j and saved_j[0] == 0
+    assert os.path.exists(dir_t / "params_zs.npz")
+
+
+def test_contrast_validation_keeps_standing_best(tmp_path, monkeypatch):
+    """A run in a directory whose zs_metrics.jsonl already holds a better
+    score (an earlier run's, as after a resume) appends its own line but
+    writes no params_zs, as the JAX trainer reads the standing best from
+    that file (cppf_tpu/train/loop.py:184-189); params_zs.npz reloads
+    into the encoders."""
+    from cppf_tpu_torch.eval import contrast_val
+
+    _reduced_validation(monkeypatch, contrast_val)
+    _, cfg = small_configs(cls_bins=False, contrast_val_every=1, max_epoch=1)
+    _, dir_t = _warm_start_dirs(tmp_path)
+    standing = {"zs_score": 1e9, "zs_hits": 2, "zs_false": 0, "zs_mean_contrast": 1.0,
+                "epoch": 7}
+    with open(dir_t / "zs_metrics.jsonl", "w") as f:
+        f.write(json.dumps(standing) + "\n")
+    out = loop.train(cfg, out_dir=str(dir_t), epoch_len=2, device="cpu", resume=True)
+    with open(dir_t / "zs_metrics.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    assert lines[0] == standing and len(lines) == 2 and lines[1]["epoch"] == 0
+    assert not os.path.exists(dir_t / "params_zs.npz")
+
+    # the round trip of the weights the trainer writes as params_zs
+    checkpoints.save_params(str(dir_t), out["state"], cfg, name="params_zs")
+    fresh = step.init_train_state(dataclasses.replace(cfg, seed=5), "cpu")
+    checkpoints.load_params_into(str(dir_t), fresh, name="params_zs")
+    for a, b in zip(out["state"].point.parameters(), fresh.point.parameters()):
+        assert torch.equal(a, b)
+    for a, b in zip(out["state"].ppf.parameters(), fresh.ppf.parameters()):
+        assert torch.equal(a, b)

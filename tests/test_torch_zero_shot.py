@@ -162,8 +162,9 @@ def test_scene_planes_match(rng):
         want = jz.scene_planes(pc)
         got = tz.scene_planes(torch.from_numpy(pc), uniforms=_jax_uniforms(0))
         np.testing.assert_array_equal(got, want)
-    # the torch draws find the same table
+    # the default draws are JAX's: the same mask as JAX's
     got = tz.scene_planes(torch.from_numpy(scene))
+    np.testing.assert_array_equal(got, jz.scene_planes(scene))
     assert got[:3000].mean() > 0.9 and got[3000:].mean() < 0.3
 
 
