@@ -181,6 +181,42 @@ Phases:
    then on (c)'s run; each PNG reads back, equals the colour frame outside
    the drawn box pixels, is red on them, and is drawn within 2 px of every
    projected corner; s a CLI run.
+16. the pose flags that no category config turns on (``FLAG_CELLS``):
+   (a) each alone on view 0 at its category's full width
+   (``coplanar_halfspace``, ``pair_balance``, ``pair_sep_power`` and the
+   grid center mode under the gate on sofa, 3 cm, 136³; ``sharp_axis_votes``
+   and ``aux_align_weight`` on mug; ``subvoxel_refine`` and the grid center
+   mode on bowl) and (b) two sets on all 4 views (sofa: gate, separation,
+   balance, sub-voxel; mug: sharp, aligned, sub-voxel), each view on its
+   stored JAX run's draws against JAX's estimate with the same flags
+   (``assets/flag_views.npz``): T the same voxel, else both a maximum of
+   the port's gated grid within 1e-3; a sub-voxel T within
+   ``SUBVOXEL_T_TOL`` voxels of JAX's, with no such fallback, and off its voxel
+   centre wherever JAX's is (one of JAX's at least); on the same back-vote
+   survivor count as JAX's, up and right within ``AXIS_TOL_DEG`` of
+   JAX's, else a parted axis only as a near tie (``AXIS_TIE_FRAC``),
+   printed with its angle and the port's sphere counts at both winners;
+   per category, the median T, up and right errors against GT held to
+   phase 8's rule (twice JAX's + 5 voxels, JAX's + 15°); launch counts reset
+   before each pose: a gated center pass launches the votes front ends of
+   ``bound_projections`` once and of ``refine_window`` 1 to ``peak_rounds``
+   times, a grid pass ``dense_hist_pairs`` once (``dense_hist`` under the
+   gate), an ungated hier pass the pairs front ends, nothing else; the
+   votes front ends of all three kernels held against their plain versions
+   and float64 sums on sofa's gated votes with phase 3's limits and timed
+   beside their bounds and ``index_add_``; CPU against CUDA on identical
+   draws at 20 000 pairs for every cell (T, up, right to 1e-6, sub-voxel
+   T 1e-5); both sets over 4 gloo ranks of the card, equal to the one-rank
+   poses (T, up, right to 1e-6, survivors equal), every rank's launches
+   held to the same rule.
+17. the entry points (``cppf_tpu_torch/entry.py``): ``entry()`` on the
+   card (finite; the pairs front ends of both peak kernels, 1 and 1-2
+   launches; warm ms); ``dryrun_multichip(4)`` over 4 gloo ranks of the
+   card (a (2, 2) mesh), its step against one rank's step on the whole
+   batch (loss 1e-5 relative, gradients 1e-4 of each maximum, weights
+   1e-6); the pair-sharded step at phase 12's bowl training width on a
+   (2, 2) mesh (a sample a data rank, its 200 000 pairs over two pair
+   ranks) against one rank, the same limits, ms a step beside one rank's.
 
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose, of one zero-shot frame,
@@ -277,7 +313,8 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False, second_pass=False, rows=None):
+def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False, second_pass=False, rows=None,
+                     halfspace=False):
     """What ppf_vote_peak is given for one view, on the card: its arguments
     (``peak_args``), the pair-parameter block and grid frame that the pairs
     front ends read, the flat vote vectors that the votes front ends read
@@ -287,13 +324,17 @@ def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False, second_pass=Fal
     ``second_pass`` the point weights are those of ``asym_center_refine``'s
     second center pass, 0.05 + 0.95 · the radial asymmetry about the first
     pass's center and up axis.  ``rows`` (a slice) keeps those pairs only:
-    one rank's shard of the pair-sharded pose."""
+    one rank's shard of the pair-sharded pose.  With ``halfspace`` the votes
+    are those of a ``coplanar_halfspace`` center pass: the gate (returned
+    under "halfspace") drops the coplanar pairs' votes in front of their
+    surface, as the votes front ends receive them."""
     from cppf_tpu_torch.core.targets import radial_asymmetry_about
     from cppf_tpu_torch.ops.vote_hist import vote_frame
     from cppf_tpu_torch.ops.voting import (backvote, pair_vote_params, ppf_vote_peak,
                                            votes_from_pair_params)
     from cppf_tpu_torch.pipeline.pose import (PoseDraws, _vote_axis, coplanar_center_mask,
-                                              decode_translation, grid_frame, pair_predictions)
+                                              decode_translation, grid_frame, halfspace_gate,
+                                              pair_predictions)
     from cppf_tpu_torch.pipeline.preprocess import preprocess_cloud
 
     pcfg, cfg, dev = runner.pcfg, runner.cfg, runner.device
@@ -311,7 +352,9 @@ def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False, second_pass=Fal
         preds_tr = decode_translation(preds, draws.tr_gumbel, pcfg)
         corner, dims = grid_frame(pre.pc, pre.valid_mask, pcfg)
         probs = torch.ones(pre.pc.shape[0], device=dev)
-        mask = (coplanar_center_mask(pre.pc, pre.normals, idxs) if pcfg.filter_coplanar
+        # the gate takes precedence over the coplanar filter, as in the pose
+        mask = (coplanar_center_mask(pre.pc, pre.normals, idxs)
+                if pcfg.filter_coplanar and not halfspace
                 else torch.ones(idxs.shape[0], dtype=torch.bool, device=dev))
         if second_pass:
             peak, _ = ppf_vote_peak(pre.pc, preds_tr, probs, idxs, corner, pcfg.res, dims,
@@ -326,14 +369,15 @@ def main_path_inputs(runner, pc_raw, grid_shape, adaptive=False, second_pass=Fal
             probs = 0.05 + 0.95 * radial_asymmetry_about(pre.pc, T, up, pre.n_valid)
         if rows is not None:
             idxs, preds_tr, mask = idxs[rows], preds_tr[rows], mask[rows]
+        hs = halfspace_gate(pre.pc, pre.normals, idxs, pcfg) if halfspace else None
         params = pair_vote_params(pre.pc, preds_tr, probs, idxs, pcfg.res, pcfg.num_rots,
                                   adaptive, mask)
         f, r, w = votes_from_pair_params(params, corner, pcfg.res, dims.float(), grid_shape,
-                                         pcfg.num_rots)
+                                         pcfg.num_rots, halfspace=hs)
         peak_args = (pre.pc, preds_tr, probs, idxs, corner, pcfg.res, dims, grid_shape)
         peak, _ = ppf_vote_peak(*peak_args, n_rots=pcfg.num_rots, adaptive=adaptive,
-                                pair_mask=mask, max_rounds=1)
-    return dict(peak_args=peak_args, params=params, n_rots=pcfg.num_rots,
+                                pair_mask=mask, max_rounds=1, halfspace=hs)
+    return dict(peak_args=peak_args, params=params, n_rots=pcfg.num_rots, halfspace=hs,
                 frame=vote_frame(corner, pcfg.res, dims.float()), grid_shape=grid_shape,
                 votes=[a.reshape(-1).contiguous() for a in (*f, *r, w)],
                 o=(peak // 16 * 16).to(torch.int32))
@@ -423,12 +467,13 @@ def _set_bound(rec, prefix, bytes_, ops):
     rec[prefix + "bound_terms"] = f"bytes {t_bytes:.5f} ms, operations {t_ops:.5f} ms"
 
 
-def kernel_phase(inp, label, splat="trilinear", timed=True, adaptive=False):
+def kernel_phase(inp, label, splat="trilinear", timed=True, adaptive=False, pairs=True):
     """Hold both front ends of both peak kernels against the plain version
     on one view's inputs and, when ``timed``, time them in turns; returns
     their records for the kernels line: the unprefixed keys are the pairs
     front end's, which the main path launches, the ``votes_`` ones the votes
-    front end's."""
+    front end's.  Without ``pairs`` (the votes of a gated center pass, which
+    the pairs front ends cannot make) the votes front end alone."""
     from cppf_tpu_torch.ops import vote_hist as vh
     from cppf_tpu_torch.ops.voting import _poolf
 
@@ -452,7 +497,8 @@ def kernel_phase(inp, label, splat="trilinear", timed=True, adaptive=False):
         PyTorch's)."""
         expect, exact = plain_fn(votes), [t.float() for t in plain_fn(votes64)]
         rec = {}
-        for prefix, fn, tight in (("", pairs_fn, not adaptive), ("votes_", votes_fn, True)):
+        fronts = [("", pairs_fn, not adaptive)] if pairs else []
+        for prefix, fn, tight in fronts + [("votes_", votes_fn, True)]:
             end = "votes front end" if prefix else "pairs front end"
             got = fn()
             err, rel = _max_err(got, expect, f"{name} {label}, {end}")
@@ -497,20 +543,21 @@ def kernel_phase(inp, label, splat="trilinear", timed=True, adaptive=False):
 
     live = int((w != 0).sum())
     n_out = 3 * grid * bn
-    pair_bytes, pair_ops, voting = _pairs_work(params, inp["n_rots"], live)
+    if pairs:
+        pair_bytes, pair_ops, voting = _pairs_work(params, inp["n_rots"], live)
     rec = records["bound_projections"]
     ids, vals = _bound_taps(votes, grid, grid, bn, bn, pf, pf)
     out = torch.zeros(n_out, device=w.device)
-    votes_ms, ms = cuda_ms_turns([bound_votes, bound_pairs])
-    rec.update(ms=ms, votes_ms=votes_ms, plain_ms=cuda_ms(from_pairs(bound_plain)),
-               votes_plain_ms=cuda_ms(lambda: bound_plain(votes)),
-               library_ms=cuda_ms(lambda: out.index_add_(0, ids, vals)),
-               atomics=12 * live)
+    ms = cuda_ms_turns([bound_votes] + ([bound_pairs] if pairs else []))
+    rec.update(votes_ms=ms[0], votes_plain_ms=cuda_ms(lambda: bound_plain(votes)),
+               library_ms=cuda_ms(lambda: out.index_add_(0, ids, vals)), atomics=12 * live)
     del ids, vals
     # votes: w of every vote, the rest of the live ones; 6 hats, 3 weighted,
     # 12 products, 12 adds a live vote
     _set_bound(rec, "votes_", 4 * V + 6 * 4 * live + 4 * n_out, 31 * live)
-    _set_bound(rec, "", pair_bytes + 4 * n_out, pair_ops + 31 * live)
+    if pairs:
+        rec.update(ms=ms[1], plain_ms=cuda_ms(from_pairs(bound_plain)))
+        _set_bound(rec, "", pair_bytes + 4 * n_out, pair_ops + 31 * live)
 
     rec = records["refine_window"]
     ids, vals = _refine_taps(votes, o, w8)
@@ -519,23 +566,31 @@ def kernel_phase(inp, label, splat="trilinear", timed=True, adaptive=False):
     near = (lx >= -1) & (lx < w8) & (w != 0)
     inside = near & (fy - o[1] >= -1) & (fy - o[1] < w8) & (fz - o[2] >= -1) & (fz - o[2] < w8)
     n_near, n_in = int(near.sum()), int(inside.sum())
-    kept = vh.window_cull_plain(params, frame, o, w8) & voting
-    votes_ms, ms = cuda_ms_turns([refine_votes, refine_pairs])
-    rec.update(ms=ms, votes_ms=votes_ms, plain_ms=cuda_ms(from_pairs(refine_plain)),
-               votes_plain_ms=cuda_ms(lambda: refine_plain(votes)),
+    ms = cuda_ms_turns([refine_votes] + ([refine_pairs] if pairs else []))
+    rec.update(votes_ms=ms[0], votes_plain_ms=cuda_ms(lambda: refine_plain(votes)),
                library_ms=cuda_ms(lambda: out.index_add_(0, ids, vals)),
-               atomics=int((ids != w8 ** 3).sum()), culled_share=1 - int(kept.sum())
-               / max(int(voting.sum()), 1))
+               atomics=int((ids != w8 ** 3).sum()))
     del ids, vals
     # votes: fx of every vote, w/fy/fz of those in the window's x range, the
     # fractions of those that reach the window; 8 corners of 3 products and
     # an add for each of those.  pairs: 20 operations of the cull a voting
     # pair, one axis (8) a vote of a kept pair, the rest as the bound pass
     _set_bound(rec, "votes_", 4 * V + 3 * 4 * n_near + 3 * 4 * n_in + 4 * w8 ** 3, 8 * 4 * n_in)
-    m_kept = torch.clamp(params[:, 1].view(torch.int32), max=inp["n_rots"])[kept].sum().item()
-    _set_bound(rec, "", pair_bytes + 4 * w8 ** 3,
-               20 * int(voting.sum()) + 8 * m_kept + (16 + 6 + 32) * n_in)
+    if pairs:
+        kept = vh.window_cull_plain(params, frame, o, w8) & voting
+        m_kept = torch.clamp(params[:, 1].view(torch.int32), max=inp["n_rots"])[kept].sum().item()
+        rec.update(ms=ms[1], plain_ms=cuda_ms(from_pairs(refine_plain)),
+                   culled_share=1 - int(kept.sum()) / max(int(voting.sum()), 1))
+        _set_bound(rec, "", pair_bytes + 4 * w8 ** 3,
+                   20 * int(voting.sum()) + 8 * m_kept + (16 + 6 + 32) * n_in)
     for name, rec in records.items():
+        if not pairs:
+            print(f"kernel {name} [{label}, V={V}, live={live}]: votes front end "
+                  f"{rec['votes_ms']:.4f} ms (bound {rec['votes_bound_ms']:.5f} ms by "
+                  f"{rec['votes_bound_by']}: {rec['votes_bound_terms']}; plain "
+                  f"{rec['votes_plain_ms']:.4f} ms), index_add_ of the taps "
+                  f"{rec['library_ms']:.4f} ms", flush=True)
+            continue
         print(f"kernel {name} [{label}, V={V}, live={live}]: pairs front end {rec['ms']:.4f} ms "
               f"(bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}: {rec['bound_terms']}; "
               f"plain, votes made first, {rec['plain_ms']:.4f} ms), votes front end "
@@ -895,11 +950,14 @@ DENSE_CHUNK = 1 << 20  # pairs a plain-version call: the zero-shot path's own ch
 
 def _dense_plain(params, frame, grid_shape, kw, dtype=torch.float32, votes=None, n_rots=72):
     """dense_hist's plain version on the votes of ``params`` (or on
-    ``votes``), made and summed one pair chunk at a time, in ``dtype``."""
+    ``votes``, ``n_rots`` a pair), made and summed one pair chunk at a time,
+    in ``dtype``."""
     from cppf_tpu_torch.ops import vote_hist as vh
 
-    out = torch.zeros((kw["cx"], kw["cy"], kw["cz"]), dtype=dtype, device=params.device)
-    for s in range(0, params.shape[0], DENSE_CHUNK):
+    n_pairs = params.shape[0] if votes is None else votes[0].shape[0] // n_rots
+    out = torch.zeros((kw["cx"], kw["cy"], kw["cz"]), dtype=dtype,
+                      device=(params if votes is None else votes[0]).device)
+    for s in range(0, n_pairs, DENSE_CHUNK):
         if votes is None:
             v = vh._plain_votes(params[s:s + DENSE_CHUNK], frame, grid_shape, n_rots)
         else:
@@ -908,7 +966,8 @@ def _dense_plain(params, frame, grid_shape, kw, dtype=torch.float32, votes=None,
     return out
 
 
-def dense_record(params, frame, grid_shape, pool, label, adaptive=True, timed=True, n_rots=72):
+def dense_record(params, frame, grid_shape, pool, label, adaptive=True, timed=True, n_rots=72,
+                 votes=None):
     """Both front ends of dense_hist against the plain version on the votes
     of ``params`` in one grid: the pairs front end (one launch over every
     pair) and the votes front end (one launch over their flat votes), each
@@ -918,22 +977,26 @@ def dense_record(params, frame, grid_shape, pool, label, adaptive=True, timed=Tr
     turns beside the plain version and one index_add_ of the live taps, with
     both bounds.  Returns the record for the kernels line: unprefixed keys
     for the pairs front end, which the zero-shot path launches, ``votes_``
-    keys for the votes front end."""
+    keys for the votes front end.  Given ``votes`` and no ``params`` (the
+    votes of a gated center pass), the votes front end alone."""
     from cppf_tpu_torch.ops import vote_hist as vh
 
     c = [-(-g // p) for g, p in zip(grid_shape, pool)]
     kw = dict(cx=c[0], cy=c[1], cz=c[2], px=pool[0], py=pool[1], pz=pool[2])
     pkw = dict(n_rots=n_rots, grid_shape=grid_shape, **kw)
-    votes = [torch.cat(t) for t in zip(*(
-        [a.contiguous() for a in vh._plain_votes(params[s:s + DENSE_CHUNK], frame, grid_shape,
-                                                 n_rots)]
-        for s in range(0, params.shape[0], DENSE_CHUNK)))]
+    pairs = params is not None
+    if pairs:
+        votes = [torch.cat(t) for t in zip(*(
+            [a.contiguous() for a in vh._plain_votes(params[s:s + DENSE_CHUNK], frame,
+                                                     grid_shape, n_rots)]
+            for s in range(0, params.shape[0], DENSE_CHUNK)))]
     expect = _dense_plain(params, frame, grid_shape, kw, votes=votes, n_rots=n_rots)
     exact = _dense_plain(params, frame, grid_shape, kw, torch.float64, votes=votes,
                          n_rots=n_rots).float()
     rec = {}
-    for prefix, fn, tight in (("", lambda: vh.dense_hist_pairs(params, frame, **pkw), not adaptive),
-                              ("votes_", lambda: vh.dense_hist(*votes, **kw), True)):
+    fronts = ([("", lambda: vh.dense_hist_pairs(params, frame, **pkw), not adaptive)]
+              if pairs else [])
+    for prefix, fn, tight in fronts + [("votes_", lambda: vh.dense_hist(*votes, **kw), True)]:
         end = "votes front end" if prefix else "pairs front end"
         got = fn()
         err, rel = _max_err([got], [expect], f"dense_hist {label}, {end}")
@@ -960,11 +1023,10 @@ def dense_record(params, frame, grid_shape, pool, label, adaptive=True, timed=Tr
     del n_ax, taps
     cells = c[0] * c[1] * c[2]
     buf = torch.zeros(tuple(c), device=w.device)
-    votes_ms, ms = cuda_ms_turns([lambda: vh.dense_hist(*votes, **kw, out=buf),
-                                  lambda: vh.dense_hist_pairs(params, frame, **pkw, out=buf)])
-    rec.update(ms=ms, votes_ms=votes_ms, atomics=atomics, live=n_live, V=V,
-               plain_ms=cuda_ms(lambda: _dense_plain(params, frame, grid_shape, kw,
-                                                      n_rots=n_rots)),
+    ms = cuda_ms_turns([lambda: vh.dense_hist(*votes, **kw, out=buf)]
+                       + ([lambda: vh.dense_hist_pairs(params, frame, **pkw, out=buf)]
+                          if pairs else []))
+    rec.update(votes_ms=ms[0], atomics=atomics, live=n_live, V=V,
                votes_plain_ms=cuda_ms(lambda: _dense_plain(params, frame, grid_shape, kw,
                                                             votes=votes, n_rots=n_rots)))
     ids, vals = _dense_taps(votes, c, pool)
@@ -972,9 +1034,19 @@ def dense_record(params, frame, grid_shape, pool, label, adaptive=True, timed=Tr
     flat = torch.zeros(cells, device=w.device)
     rec["library_ms"] = cuda_ms(lambda: flat.index_add_(0, ids, vals))
     del ids, vals
-    pair_bytes, pair_ops, _ = _pairs_work(params, n_rots, n_live)
     _set_bound(rec, "votes_", 4 * V + 6 * 4 * n_live + 4 * cells, splat_ops)
+    if not pairs:
+        print(f"kernel dense_hist [{label}, grid {tuple(c)}, pool {pool}, V={V}, "
+              f"live={n_live}]: votes front end {ms[0]:.4f} ms (bound "
+              f"{rec['votes_bound_ms']:.5f} ms by {rec['votes_bound_by']}: "
+              f"{rec['votes_bound_terms']}; plain {rec['votes_plain_ms']:.4f} ms), index_add_ of "
+              f"the live taps {rec['library_ms']:.4f} ms", flush=True)
+        return rec
+    rec.update(ms=ms[1], plain_ms=cuda_ms(lambda: _dense_plain(params, frame, grid_shape, kw,
+                                                                n_rots=n_rots)))
+    pair_bytes, pair_ops, _ = _pairs_work(params, n_rots, n_live)
     _set_bound(rec, "", pair_bytes + 4 * cells, pair_ops + splat_ops)
+    votes_ms, ms = ms
     print(f"kernel dense_hist [{label}, grid {tuple(c)}, pool {pool}, {params.shape[0]} pairs, "
           f"V={V}, live={n_live}]: pairs front end {ms:.4f} ms (bound {rec['bound_ms']:.5f} ms by "
           f"{rec['bound_by']}: {rec['bound_terms']}; plain, votes made first, "
@@ -2175,7 +2247,11 @@ def parallel_pose_rank(rank, world_size, device, job):
     JAX draws remade here) on a (1, world_size) mesh, launch counts and
     collective traffic reset just before and read just after; then the
     warm time of a pose (host clock, the ranks started together by a
-    barrier).  Returns the poses (on the host), the counts and the times."""
+    barrier).  A job's entry may name its ``category`` (default: its key)
+    and pose ``flags`` set on the runner's PoseConfig (phase 16).  Returns
+    the poses (on the host), the counts and the times."""
+    import dataclasses
+
     import torch.distributed as dist
 
     from cppf_tpu_torch.eval.nocs_inference import CategoryRunner
@@ -2186,7 +2262,8 @@ def parallel_pose_rank(rank, world_size, device, job):
     mesh = make_mesh(world_size, shape=(1, world_size), device=device)
     out = {"collectives": probe_collectives(device, world_size) if job["probe"] else None}
     for cat, views in job["poses"].items():
-        runner = CategoryRunner(cat, device=device)
+        runner = CategoryRunner(views.get("category", cat), device=device)
+        runner.pcfg = dataclasses.replace(runner.pcfg, **views.get("flags", {}))
         pres = [{k: t.to(device) for k, t in v.items()} for v in views["pre"]]
         draws = [runner.draws(k) for k in views["keys"]]
 
@@ -2212,16 +2289,19 @@ def parallel_pose_rank(rank, world_size, device, job):
                 _sync(device)
                 times.append((time.perf_counter() - t0) * 1e3)
         out[cat] = dict(poses=[{k: t.cpu() for k, t in r._asdict().items()} for r in res],
-                        launches=launches, traffic=traffic, ms=statistics.median(times))
+                        launches=launches, traffic=traffic,
+                        ms=statistics.median(times) if times else None)
         del draws
     return out
 
 
 def dp_rank(rank, world_size, device, job):
-    """One rank of phase 13's data-parallel step: the flax-style init from
-    ``cfg.seed``, one ``data_parallel_train_step`` on the rank's samples of
-    the parent's batch (collective traffic counted), then the warm time of
-    a step (median of 3, the ranks started together by a barrier)."""
+    """One rank of phase 13's data-parallel step (and phase 17's
+    pair-sharded one: ``job["shape"]``, default (world_size, 1)): the
+    flax-style init from ``cfg.seed``, one ``data_parallel_train_step`` on
+    the rank's share of the parent's batch (collective traffic counted),
+    then the warm time of a step (median of 3, the ranks started together by
+    a barrier)."""
     import torch.distributed as dist
 
     from cppf_tpu_torch.device import pin_float32
@@ -2230,7 +2310,7 @@ def dp_rank(rank, world_size, device, job):
     from cppf_tpu_torch.train import step
 
     pin_float32()
-    mesh = make_mesh(world_size, shape=(world_size, 1), device=device)
+    mesh = make_mesh(world_size, shape=job.get("shape", (world_size, 1)), device=device)
     cfg = job["cfg"]
     statics = step.TrainStatics.from_config(cfg)
     state = step.init_train_state(cfg, device)
@@ -2253,12 +2333,15 @@ def dp_rank(rank, world_size, device, job):
     return out
 
 
-def _dense_value_ok(runner, pre, draws, T, first_T):
-    """Whether ``T``, the sharded pose's center where it differs from the
-    one-rank ``first_T`` (one center pass), is a maximum of the one-rank
-    dense vote grid within KERNEL_RTOL (ROADMAP port rule 5)."""
-    from cppf_tpu_torch.ops.voting import ppf_vote
-    from cppf_tpu_torch.pipeline.pose import decode_translation, grid_frame, pair_predictions
+def _dense_value_ok(runner, pre, draws, held, other=None):
+    """Whether each center of ``held`` holds a maximum, within KERNEL_RTOL,
+    of the port's dense center-vote grid (ROADMAP port rule 5): the pose's
+    own pairs, gated and weighted as its center pass gates and weights them
+    (``center_vote_masks``).  ``other``, a center that need not, is shown
+    beside them."""
+    from cppf_tpu_torch.ops.voting import ppf_vote_dense
+    from cppf_tpu_torch.pipeline.pose import (center_vote_masks, decode_translation, grid_frame,
+                                              pair_predictions)
 
     pcfg = runner.pcfg
     with torch.no_grad():
@@ -2266,14 +2349,19 @@ def _dense_value_ok(runner, pre, draws, T, first_T):
                                        pre.normals, pre.n_valid, pcfg, draws.pair_u, pre.nbr_idx)
         preds_tr = decode_translation(preds, draws.tr_gumbel, pcfg)
         corner, dims = grid_frame(pre.pc, pre.valid_mask, pcfg)
-        grid = ppf_vote(pre.pc, preds_tr, torch.ones(pre.pc.shape[0], device=pre.pc.device), idxs,
-                        corner, pcfg.res, dims, pcfg.grid_shape, n_rots=pcfg.num_rots)
-    vals = [float(grid[tuple(torch.round((t.to(corner.device) - corner) / pcfg.res).long())])
-            for t in (T, first_T)]
+        mask, _, hs = center_vote_masks(pre.pc, pre.normals, idxs, pcfg)
+        grid = ppf_vote_dense(pre.pc, preds_tr, torch.ones(pre.pc.shape[0], device=pre.pc.device),
+                              idxs, corner, pcfg.res, dims, pcfg.grid_shape, n_rots=pcfg.num_rots,
+                              pair_mask=mask, halfspace=hs)
     top = float(grid.max())
-    print(f"  sharded center {T.tolist()} holds {vals[0]:.6f} votes, the one-rank one "
-          f"{vals[1]:.6f}, the grid's maximum {top:.6f}", flush=True)
-    return vals[0] >= top * (1 - KERNEL_RTOL)
+    vals = []
+    for t in list(held) + ([] if other is None else [other]):
+        ijk = torch.round((torch.as_tensor(t, device=corner.device) - corner) / pcfg.res).long()
+        vals.append(float(grid[tuple(torch.clamp(ijk, min=0, max=pcfg.grid_shape[0] - 1))]))
+    print(f"    centers {[torch.as_tensor(t).tolist() for t in held]} hold {vals[:len(held)]} "
+          f"votes" + ("" if other is None else f", {other.tolist()} {vals[-1]:.6f}")
+          + f"; the grid's maximum {top:.6f}", flush=True)
+    return min(vals[:len(held)]) >= top * (1 - KERNEL_RTOL)
 
 
 def hold_sharded(cat, ranks, refs, runner, z, world_size, backend):
@@ -2300,7 +2388,7 @@ def hold_sharded(cat, ranks, refs, runner, z, world_size, backend):
         same_T = torch.equal(got["T"], want.T.cpu())
         if not same_T:
             check(passes == 1 and _dense_value_ok(runner, refs["pres"][i], refs["draws"][i],
-                                                  got["T"], want.T),
+                                                  [got["T"]], want.T),
                   f"{backend} {cat} view {i}: sharded T {got['T'].tolist()} is neither the "
                   f"one-rank {want.T.tolist()} nor a maximum of its grid")
         d = {k: float((got[k] - getattr(want, k).cpu()).abs().max()) for k in ("T", "up", "right")}
@@ -2461,6 +2549,403 @@ def parallel_phase(smi):
                                             runner.pcfg.grid_shape, rows=rows),
                            f"bowl 64^3, rank 0's {rows.stop - rows.start} of {p} pairs")
     return records, all_launches["bowl"][0], all_launches
+
+
+# ---- phase 16: the pose flags no config turns on; phase 17: entry points ----
+_SOFA_SET = {"coplanar_halfspace": True, "pair_sep_power": 2.0, "pair_balance": 1.0,
+             "subvoxel_refine": True}
+_MUG_SET = {"sharp_axis_votes": True, "aux_align_weight": True, "subvoxel_refine": True}
+# (name, category, flags, views): each setting alone on view 0, two sets on
+# all four; scripts/export_torch_assets.py --flags stores JAX's estimates of
+# each in assets/flag_views.npz
+FLAG_CELLS = (
+    ("halfspace", "sofa", {"coplanar_halfspace": True}, (0,)),
+    ("balance", "sofa", {"pair_balance": 1.0}, (0,)),
+    ("sep", "sofa", {"pair_sep_power": 2.0}, (0,)),
+    ("grid_halfspace", "sofa", {"center_mode": "grid", "coplanar_halfspace": True}, (0,)),
+    ("sharp", "mug", {"sharp_axis_votes": True}, (0,)),
+    ("align", "mug", {"aux_align_weight": True}, (0,)),
+    ("subvoxel", "bowl", {"subvoxel_refine": True}, (0,)),
+    ("grid", "bowl", {"center_mode": "grid"}, (0,)),
+    ("sofa_set", "sofa", _SOFA_SET, (0, 1, 2, 3)),
+    ("mug_set", "mug", _MUG_SET, (0, 1, 2, 3)),
+)
+
+
+FLAG_CPU_PAIRS = 20_000       # phase 16 (c): phase 9's CPU = CUDA width
+# phase 16: an axis on the same back-vote survivor count as JAX's pose is
+# JAX's sphere point (1.5° apart); the right axis's orthonormalisation
+# leaves ~0.02°.  With other survivors (float rounding upstream of the
+# vote, amplified by the subsample's CDF: ROADMAP §C) an axis may part, but
+# only as a near tie: on the port's own sphere counts, JAX's direction
+# holds at least 1 - AXIS_TIE_FRAC of the winner's votes.  The largest
+# shortfall recorded on such a part is 3.9 % (sofa view 2's right axis,
+# 920 of 957, when the stratified sample's CDF was rounded otherwise)
+AXIS_TOL_DEG = 0.1
+AXIS_TIE_FRAC = 0.05
+# a sub-voxel center against JAX's, in voxels: on equal survivors the
+# Gauss-Newton steps differ only by the order of their sums (the port's in
+# float64, JAX's in float32), 6.5e-6 m at most on the CPU at full width
+# (mug, 4 mm voxels); a hundredth of a voxel is far below a refine's step
+# off the voxel centre, so a skipped refine cannot pass
+SUBVOXEL_T_TOL = 0.01
+SHARDED_FLAG_CELLS = ("sofa_set", "mug_set")
+
+
+def flag_launches_ok(pcfg, launches, n_poses=1):
+    """Whether ``launches`` are those of ``n_poses`` poses at ``pcfg``: a
+    center pass launches, under ``coplanar_halfspace``, the votes front end
+    of ``bound_projections`` once and of ``refine_window`` 1 to
+    ``peak_rounds`` times (``center_mode`` hier) or of ``dense_hist`` once
+    (grid); without the gate the pairs front ends likewise; nothing else of
+    ``vote_hist.cu``."""
+    n = (2 if pcfg.asym_center_refine else 1) * n_poses
+    gated = pcfg.coplanar_halfspace
+    if pcfg.center_mode == "grid":
+        want = {"dense_hist" if gated else "dense_hist_pairs": n}
+        return all(launches[k] == want.get(k, 0) for k in launches)
+    bound, window = (("bound_projections", "refine_window") if gated else
+                     ("bound_projections_pairs", "refine_window_pairs"))
+    return (launches[bound] == n and n <= launches[window] <= pcfg.peak_rounds * n
+            and sum(launches.values()) == launches[bound] + launches[window])
+
+
+def axis_margins(runner, pc_raw, draws, want_axes):
+    """The margins of a parted axis (ROADMAP §C): the pose run again with its
+    sphere counts captured (``rot_vote_sphere_count``'s calls: up, then
+    right), and for each axis of ``want_axes`` (JAX's up and right, or None)
+    the counts at the port's winning sphere direction and at JAX's."""
+    from cppf_tpu_torch.pipeline import pose as pose_mod
+
+    real, counts = pose_mod.rot_vote_sphere_count, []
+
+    def capture(*args, **kwargs):
+        counts.append(real(*args, **kwargs))
+        return counts[-1]
+
+    pose_mod.rot_vote_sphere_count = capture
+    try:
+        runner.estimate(pc_raw, draws=draws)
+    finally:
+        pose_mod.rot_vote_sphere_count = real
+    sphere = runner.sphere.cpu().numpy()
+    out = []
+    for c, want in zip(counts, want_axes):
+        if want is None:
+            continue
+        c = c.cpu().numpy()
+        j = int(np.argmax(np.abs(sphere @ want)))
+        out.append((float(c.max()), float(c[j])))
+    return out
+
+
+def gated_kernel_records(inp, label):
+    """Phase 16: the votes front ends of the three kernels on the votes of a
+    gated center pass (``main_path_inputs(..., halfspace=True)``), held and
+    timed as phases 3 and 6 hold and time them (``kernel_phase``,
+    ``dense_record``).  Returns their records for the kernels line, marked
+    as votes front ends."""
+    recs = kernel_phase(inp, label, pairs=False)
+    recs["dense_hist"] = dense_record(None, None, inp["grid_shape"], (1, 1, 1), label,
+                                      n_rots=inp["n_rots"], votes=inp["votes"])
+    return {name: dict(front="votes", library_ms=rec["library_ms"],
+                       **{k[len("votes_"):]: v for k, v in rec.items() if k.startswith("votes_")})
+            for name, rec in recs.items()}
+
+
+def flags_phase(smi):
+    """Phase 16 (see the docstring).  Returns (the votes front ends'
+    records on sofa's gated votes, the launches of (a)'s poses)."""
+    import dataclasses
+    import tempfile
+
+    from cppf_tpu_torch.eval.nocs_inference import CategoryRunner
+    from cppf_tpu_torch.models.convert import ASSETS
+    from cppf_tpu_torch.ops import vote_hist as vh
+    from cppf_tpu_torch.parallel.launch import run_ranks
+    from cppf_tpu_torch.pipeline.pose import PoseDraws, grid_frame
+
+    stored = np.load(os.path.join(ASSETS, "flag_views.npz"))
+    runners, views, refs, errors_by_cat, refined = {}, {}, {}, {}, []
+    totals = {k: 0 for k in vh.LAUNCHES}
+    for name, cat, flags, idx in FLAG_CELLS:
+        if cat not in runners:
+            runners[cat] = CategoryRunner(cat)
+            views[cat] = np.load(os.path.join(ASSETS, f"{cat}_views.npz"))
+        runner, z = runners[cat], views[cat]
+        keys = view_keys(z)
+        base = runner.pcfg
+        g = runner.cfg.resolved_grid_edge()
+        check(base.n_pairs == 100000 and base.num_rots == 72 and base.grid_shape == (g, g, g),
+              f"phase 16 {cat}: not full width: {base}")
+        runner.pcfg = pcfg = dataclasses.replace(base, **flags)
+        try:
+            outs, pres, draws, rows = [], [], [], []
+            for i in idx:
+                d = runner.draws(keys[i])
+                torch.cuda.synchronize()
+                vh.reset_launches()
+                out, pre = runner.estimate(z[f"pc_{i}"], draws=d)
+                torch.cuda.synchronize()
+                launches = dict(vh.LAUNCHES)
+                for k in totals:
+                    totals[k] += launches[k]
+                check(flag_launches_ok(pcfg, launches),
+                      f"phase 16 {name} view {i}: launched {launches}")
+                T = out.T.cpu().numpy()
+                T_j = stored[f"{name}_T_{i}"]
+                dT = float(np.abs(T - T_j).max())
+                tol = SUBVOXEL_T_TOL * pcfg.res if pcfg.subvoxel_refine else 1e-5
+                up_d = _angle(out.up.cpu().numpy(), stored[f"{name}_up_{i}"])
+                right_d = (_angle(out.right.cpu().numpy(), stored[f"{name}_right_{i}"])
+                           if runner.cfg.regress_right else None)
+                e = category_errors(T, out.up.cpu().numpy(), out.right.cpu().numpy(),
+                                    out.scale.cpu().numpy(), z, i, runner.cfg)
+                je = category_errors(T_j, stored[f"{name}_up_{i}"],
+                                     stored[f"{name}_right_{i}"] if runner.cfg.regress_right
+                                     else None, stored[f"{name}_scale_{i}"], z, i, runner.cfg)
+                print(f"  phase 16 {name} ({cat}) view {i}: port minus JAX: T {dT * 1e3:.4f} mm "
+                      f"(tolerance {tol * 1e3:.4f}), up {up_d:.4f} deg, right "
+                      f"{right_d if right_d is None else round(right_d, 4)} deg, survivors "
+                      f"{int(out.n_filtered)} / {int(stored[f'{name}_n_filtered_{i}'])}; "
+                      f"against GT: port T {e[0] * 1e3:.2f} mm up {e[1]:.2f} deg, JAX T "
+                      f"{je[0] * 1e3:.2f} mm up {je[1]:.2f} deg; launches "
+                      f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+                same_inputs = int(out.n_filtered) == int(stored[f"{name}_n_filtered_{i}"])
+                if up_d > AXIS_TOL_DEG or (right_d or 0.0) > AXIS_TOL_DEG:
+                    check(not same_inputs, f"phase 16 {name} view {i}: the axes part from "
+                          f"JAX's on the same back-vote survivor count")
+                    jr = stored[f"{name}_right_{i}"] if runner.cfg.regress_right else None
+                    margins = axis_margins(runner, z[f"pc_{i}"], d,
+                                           (stored[f"{name}_up_{i}"], jr))
+                    print(f"    parted axes: up {up_d:.3f} deg, right {right_d} deg from JAX's, "
+                          f"the survivors differing; the port's sphere counts at its winner and "
+                          f"at JAX's (up, right): {margins}", flush=True)
+                    for (top, at_jax), deg in zip(margins, (up_d, right_d)):
+                        check(deg <= AXIS_TOL_DEG or at_jax >= (1 - AXIS_TIE_FRAC) * top,
+                              f"phase 16 {name} view {i}: a parted axis is no near tie: JAX's "
+                              f"direction holds {at_jax} of the winner's {top} votes")
+                if pcfg.subvoxel_refine:
+                    # off the voxel lattice of the center vote: a refined T
+                    corner = grid_frame(pre.pc, pre.valid_mask, pcfg)[0].double().cpu().numpy()
+                    off, off_j = (float(np.abs(t - corner - np.round((t - corner) / pcfg.res)
+                                               * pcfg.res).max()) for t in (T, T_j))
+                    print(f"    sub-voxel T off its voxel centre: port {off * 1e3:.4f} mm, JAX "
+                          f"{off_j * 1e3:.4f} mm", flush=True)
+                    check(dT <= tol, f"phase 16 {name} view {i}: sub-voxel T {T.tolist()} is "
+                          f"{dT} m from JAX's {T_j.tolist()}")
+                    check(off_j <= 2 * tol or off > tol, f"phase 16 {name} view {i}: T sits on "
+                          f"a voxel centre where JAX's refined T left it")
+                    refined.append(off_j > 2 * tol)
+                elif dT > tol:
+                    check(_dense_value_ok(runner, pre, d, [out.T, T_j]),
+                          f"phase 16 {name} view {i}: T {T.tolist()} is not JAX's {T_j.tolist()}")
+                outs.append(out), pres.append(pre), draws.append(d), rows.append((e, je))
+            errors_by_cat.setdefault(cat, []).extend(rows)
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runner.estimate(z[f"pc_{idx[0]}"], draws=draws[0])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            print(f"phase 16 ({smi}) {name} ({cat}, {flags}): warm "
+                  f"{statistics.median(times):.2f} ms/pose (view {idx[0]}, median of 3)",
+                  flush=True)
+            refs[name] = dict(outs=outs, pres=pres, keys=[keys[i] for i in idx])
+            del draws
+        finally:
+            runner.pcfg = base
+    print(f"phase 16: launches of (a) and (b)'s poses: {totals}", flush=True)
+    check(any(refined), "phase 16: no sub-voxel pose of JAX's left its voxel centre")
+    for cat, rows in errors_by_cat.items():
+        med = [_median([r[0][k] for r in rows]) for k in range(3)]
+        jmed = [_median([r[1][k] for r in rows]) for k in range(3)]
+        print(f"phase 16 {cat}: {len(rows)} flagged poses, median T / up / right error "
+              f"against GT {med}, JAX's {jmed}", flush=True)
+        # phase 8's rule
+        check(med[0] <= 2 * jmed[0] + 5 * runners[cat].cfg.res,
+              f"phase 16 {cat}: median T error {med[0] * 1e3:.1f} mm > twice JAX's "
+              f"{jmed[0] * 1e3:.1f} mm + 5 voxels")
+        for k, axis in ((1, "up"), (2, "right")):
+            check(np.isnan(jmed[k]) or med[k] <= jmed[k] + 15.0,
+                  f"phase 16 {cat}: median {axis} error {med[k]:.1f} deg > JAX's "
+                  f"{jmed[k]:.1f} + 15 deg")
+
+    # the votes front ends on sofa's gated votes
+    sofa = runners["sofa"]
+    base = sofa.pcfg
+    sofa.pcfg = dataclasses.replace(base, coplanar_halfspace=True)
+    try:
+        inp = main_path_inputs(sofa, views["sofa"]["pc_0"], base.grid_shape, halfspace=True)
+    finally:
+        sofa.pcfg = base
+    records = gated_kernel_records(inp, f"sofa {base.grid_shape[0]}^3, half-space gate")
+    del inp
+
+    # CPU = CUDA on identical draws at FLAG_CPU_PAIRS pairs
+    cpus = {}
+    for name, cat, flags, idx in FLAG_CELLS:
+        runner, z = runners[cat], views[cat]
+        cpu = cpus.setdefault(cat, CategoryRunner(cat, device="cpu"))
+        base = runner.pcfg
+        pcfg = dataclasses.replace(base, n_pairs=FLAG_CPU_PAIRS, **flags)
+        cpu.pcfg = runner.pcfg = pcfg
+        try:
+            d = PoseDraws.sample(pcfg, torch.Generator().manual_seed(16), "cpu",
+                                 n_raw=runner.cfg.npoint_max)
+            out_cpu = cpu.estimate(z["pc_1"], draws=d)[0]
+            out_gpu = runner.estimate(z["pc_1"], draws=d.to("cuda"))[0]
+        finally:
+            runner.pcfg = base
+        diff = {k: float((getattr(out_cpu, k) - getattr(out_gpu, k).cpu()).abs().max())
+                for k in ("T", "up", "right")}
+        print(f"phase 16 cpu vs cuda, {name} ({cat}), {FLAG_CPU_PAIRS} pairs, identical draws: "
+              f"{diff}, survivors {int(out_cpu.n_filtered)} vs {int(out_gpu.n_filtered)}",
+              flush=True)
+        check(diff["T"] <= (1e-5 if pcfg.subvoxel_refine else 1e-6)
+              and max(diff["up"], diff["right"]) <= 1e-6,
+              f"phase 16 {name}: CPU and CUDA poses differ: {diff}")
+
+    # the two sets over 4 gloo ranks of the card against the one-rank poses
+    jobs = {}
+    for name, cat, flags, idx in FLAG_CELLS:
+        if name in SHARDED_FLAG_CELLS:
+            jobs[name] = dict(category=cat, flags=flags, keys=refs[name]["keys"],
+                              pre=[dict(pc=p.pc.cpu(), normals=p.normals.cpu(),
+                                        n_valid=p.n_valid.cpu(), nbr_idx=p.nbr_idx.cpu())
+                                   for p in refs[name]["pres"]])
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        ranks = run_ranks(parallel_pose_rank, "gloo", ["cuda:0"] * PARALLEL_RANKS,
+                          dict(poses=jobs, probe=False, reps=0), work, RANK_TIMEOUT_S)
+    for name, cat, flags, idx in FLAG_CELLS:
+        if name not in jobs:
+            continue
+        pcfg = dataclasses.replace(runners[cat].pcfg, **flags)
+        for r, ro in enumerate(ranks):
+            check(flag_launches_ok(pcfg, ro[name]["launches"], len(idx)),
+                  f"phase 16 {name}: rank {r} launched {ro[name]['launches']}")
+            for i in range(len(idx)):
+                for k, v in ro[name]["poses"][i].items():
+                    check(torch.equal(v, ranks[0][name]["poses"][i][k]),
+                          f"phase 16 {name} view {i}: rank {r}'s {k} differs from rank 0's")
+        for i, want in enumerate(refs[name]["outs"]):
+            got = ranks[0][name]["poses"][i]
+            d = {k: float((got[k] - getattr(want, k).cpu()).abs().max())
+                 for k in ("T", "up", "right")}
+            print(f"  phase 16 {name} view {i}, {PARALLEL_RANKS} gloo ranks against one: {d}, "
+                  f"survivors {int(got['n_filtered'])} / {int(want.n_filtered)}", flush=True)
+            check(max(d.values()) <= 1e-6 and int(got["n_filtered"]) == int(want.n_filtered),
+                  f"phase 16 {name} view {i}: the sharded pose differs from one rank's: {d}")
+    print(f"phase 16 ({smi}): both sets over {PARALLEL_RANKS} gloo ranks of one card equal the "
+          f"one-rank poses; launches a rank "
+          f"{json.dumps({n: ranks[0][n]['launches'] for n in jobs})}"
+          f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return records, totals
+
+
+def entry_phase(smi):
+    """Phase 17 (see the docstring)."""
+    import tempfile
+
+    from cppf_tpu_torch import entry as entry_t
+    from cppf_tpu_torch.data.shapenet import ShapeNetRenderDataset
+    from cppf_tpu_torch.core import threefry
+    from cppf_tpu_torch.ops import vote_hist as vh
+    from cppf_tpu_torch.parallel.launch import run_ranks
+    from cppf_tpu_torch.train import loop, step
+
+    fn, args = entry_t.entry()
+    fn(*args)
+    torch.cuda.synchronize()
+    vh.reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(vh.LAUNCHES)
+    check(all(bool(torch.isfinite(v.float()).all()) for v in out),
+          "phase 17: entry() gave a non-finite pose")
+    check(launches["bound_projections_pairs"] == 1 and 1 <= launches["refine_window_pairs"] <= 2
+          and sum(launches.values()) == launches["bound_projections_pairs"]
+          + launches["refine_window_pairs"], f"phase 17: entry() launched {launches}")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"phase 17 ({smi}): entry() on the card: T {out.T.tolist()}, survivors "
+          f"{int(out.n_filtered)}, launches {launches}; warm {statistics.median(times):.2f} ms "
+          f"(median of 3)", flush=True)
+
+    # dryrun_multichip(4): a (2, 2) mesh of gloo ranks on the card
+    t0 = time.perf_counter()
+    ranks = entry_t.dryrun_multichip(4, backend="gloo", devices=["cuda:0"] * 4)
+    dry_s = time.perf_counter() - t0
+    cfg = entry_t.dryrun_config()
+    batch = entry_t.dryrun_batch(cfg, 2, 2).to("cuda")
+    single = step.init_train_state(cfg, "cuda")
+    comps = step.train_step(single, batch, step.TrainStatics.from_config(cfg))
+    ps = single.opt.param_groups[0]["params"]
+    _hold_step(ranks, float(comps["loss"]), [p.grad.cpu() for p in ps],
+               [p.detach().cpu() for p in ps], "phase 17 dryrun_multichip(4)")
+    print(f"phase 17 ({smi}): dryrun_multichip(4), mesh {ranks[0]['mesh']} of gloo ranks on one "
+          f"card, equals one rank's step on the whole batch; the sharded pose T "
+          f"{ranks[0]['pose']['T'].tolist()}; {dry_s:.1f} s", flush=True)
+
+    # the pair-sharded step at bowl's training width on a (2, 2) mesh
+    cfg = _train_config()
+    ds = ShapeNetRenderDataset(cfg, seed=2)
+    samples = [ds.sample() for _ in range(cfg.batch_size)]
+    draws = loop.BatchDraws.from_jax_key(threefry.key(17), cfg.batch_size, cfg, "cuda")
+    batch = loop.build_batch(cfg, draws, samples, cfg.npoint_pad, "cuda")
+    statics = step.TrainStatics.from_config(cfg)
+    single = step.init_train_state(cfg, "cuda")
+    ps = single.opt.param_groups[0]["params"]
+    single.opt.zero_grad()
+    loss, _ = step.loss_fn(single, batch, statics)
+    loss.backward()
+    grads = [p.grad.cpu() for p in ps]
+    single.opt.step()
+    weights = [p.detach().cpu() for p in ps]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.train_step(single, batch, statics)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        pair = run_ranks(dp_rank, "gloo", ["cuda:0"] * 4,
+                         dict(cfg=cfg, batch=batch.to("cpu"), shape=(2, 2)), work, RANK_TIMEOUT_S)
+        pair_s = time.perf_counter() - t0
+    _hold_step(pair, loss.item(), grads, weights, "phase 17 pair-sharded step")
+    print(f"phase 17 ({smi}): pair-sharded step on a (2, 2) mesh of gloo ranks on one card "
+          f"({pair[0]['samples']} sample a rank, {cfg.train_pairs // 2} of its "
+          f"{cfg.train_pairs} pairs), equal to one rank's on the batch of {cfg.batch_size}; warm "
+          f"{pair[0]['ms']:.2f} ms a step (rank 0; one-card gloo) against one rank's "
+          f"{statistics.median(times):.2f}; collectives a step {json.dumps(pair[0]['traffic'])}; "
+          f"{pair_s:.1f} s", flush=True)
+    return launches
+
+
+def _hold_step(ranks, loss, grads, weights, what):
+    """Every rank's step equal to rank 0's weights, and rank 0's to the
+    one-rank step: loss 1e-5 relative, gradients 1e-4 of each tensor's
+    maximum, weights 1e-6."""
+    for r in ranks[1:]:
+        check(all(torch.equal(a, b) for a, b in zip(r["weights"], ranks[0]["weights"])),
+              f"{what}: ranks hold different weights after the step")
+    got = ranks[0]
+    dl = abs(float(got["comps"]["loss"]) - loss) / abs(loss)
+    dg = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+             for a, b in zip(got["grads"], grads))
+    dw = max(float((a - b).abs().max()) for a, b in zip(got["weights"], weights))
+    print(f"  {what}: loss {float(got['comps']['loss']):.6f} / {loss:.6f} (rel {dl:.2e}), "
+          f"gradients within {dg:.2e} of each maximum, weights {dw:.2e}", flush=True)
+    check(dl < 1e-5 and dg < 1e-4 and dw < 1e-6, f"{what}: differs from one rank's step")
 
 
 # ---- phase 15: the zero-shot model's contrast validation, training, CLI ----
@@ -2903,6 +3388,16 @@ def main():
     print(f"phase 15 (zero-shot training and CLI): {time.perf_counter() - t15:.1f} s",
           flush=True)
 
+    # ---- 16. the pose flags no config turns on, and their sharded forms -----
+    t16 = time.perf_counter()
+    flag_records, flag_launches = flags_phase(smi)
+    print(f"phase 16 (pose flags): {time.perf_counter() - t16:.1f} s", flush=True)
+
+    # ---- 17. the entry points: entry(), dryrun_multichip, pair-sharded step --
+    t17 = time.perf_counter()
+    entry_launches = entry_phase(smi)
+    print(f"phase 17 (entry points): {time.perf_counter() - t17:.1f} s", flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
     # comparisons, stands beside it under votes_ keys.  The peak kernels
@@ -2913,7 +3408,10 @@ def main():
     # by category beside them) and on the laptop frame (phase 14);
     # dense_hist twice: on the zero-shot path (phase 7) and in the zero-shot
     # trainer's contrast validation (phase 15); each with the launches of
-    # its own run
+    # its own run.  Phase 16's records are the votes front ends, which its
+    # gated center passes launch (sofa's gated votes): their launches are
+    # those of the votes front ends, and the pairs front ends' stand beside
+    # them (the flags' ungated and grid passes)
     kernels = []
     paths = [("main path (phase 4; dense_hist: zero-shot, phase 7)", records, launches),
              ("nocs driver (phase 10)", nocs_records, nocs_launches),
@@ -2923,9 +3421,20 @@ def main():
              ("laptop frame with the segmenter override (phase 14)", lap_records,
               lap_launches),
              ("zero-shot training's contrast validation (phase 15)", zs_records,
-              zs_train_launches)]
+              zs_train_launches),
+             ("pose flags, votes front ends under the half-space gate (phase 16)", flag_records,
+              flag_launches)]
     for path, recs, counts in paths:
         for name, rec in recs.items():
+            if rec.get("front") == "votes":
+                kernels.append(dict(name=name, path=path, route="cuda", front_end="votes",
+                                    source="cppf_tpu_torch/csrc/vote_hist.cu",
+                                    replaces=TPU_KERNELS[name], launches=counts[name],
+                                    pairs_launches=counts[name + "_pairs"],
+                                    **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                           "bound_ms", "bound_by",
+                                                           "library_ms")}))
+                continue
             pairs = name + "_pairs" if name + "_pairs" in counts else name
             k = dict(name=name, path=path, route="cuda",
                      source="cppf_tpu_torch/csrc/vote_hist.cu", replaces=TPU_KERNELS[name],
@@ -2941,6 +3450,10 @@ def main():
                 k["launches_per_rank"] = {cat: [c[pairs] for c in ranks]
                                           for cat, ranks in par_all.items()}
             kernels.append(k)
+    # entry() launches the pairs front ends of the peak kernels (phase 17)
+    for k in kernels:
+        if k["path"].startswith("main path") and k["name"] != "dense_hist":
+            k["entry_launches"] = entry_launches[k["name"] + "_pairs"]
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device,

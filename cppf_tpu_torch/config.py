@@ -65,8 +65,7 @@ class Config:
     decode_val_every: int = 0
     decode_val_poses: int = 6
     train_pairs: int = 200000
-    # inference-side flags (see cppf_tpu.pipeline.pose.PoseConfig); the port
-    # raises on those in pipeline/pose.py::UNPORTED_FLAGS unless they are off
+    # inference-side flags (see pipeline/pose.py::PoseConfig)
     sharp_axis_votes: bool = False
     aux_align_weight: bool = False
     asym_right_votes: bool = False

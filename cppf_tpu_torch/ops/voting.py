@@ -20,8 +20,8 @@ import torch
 
 from cppf_tpu_torch.core.geometry import cross
 from cppf_tpu_torch.ops.vote_hist import (bound_projections, bound_projections_pairs,
-                                          dense_hist_pairs, refine_window, refine_window_pairs,
-                                          vote_frame)
+                                          dense_hist, dense_hist_pairs, refine_window,
+                                          refine_window_pairs, vote_frame)
 
 TWO_PI = 6.283185307179586
 _BITS = {torch.float32: torch.int32, torch.float64: torch.int64}  # same-width integers
@@ -185,7 +185,7 @@ def ppf_vote_dense(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
                    grid_shape: Tuple[int, int, int], n_rots: int = 72, adaptive: bool = False,
                    pair_mask=None, splat: str = "trilinear",
                    pool: Tuple[int, int, int] = (1, 1, 1),
-                   pair_chunk: int = 1 << 20) -> torch.Tensor:
+                   pair_chunk: int = 1 << 20, halfspace=None) -> torch.Tensor:
     """Dense vote histogram [ceil(gx/px), ceil(gy/py), ceil(gz/pz)] through
     :func:`dense_hist_pairs` (cppf_tpu ops/voting.py:527-585): with ``pool``
     (1,1,1) it is :func:`ppf_vote`'s grid, else that grid pool-summed exactly.
@@ -194,18 +194,30 @@ def ppf_vote_dense(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
     :func:`pair_vote_params` block (48 bytes a pair) is added into one grid
     by one ``dense_hist_pairs`` launch, which makes the votes in registers,
     so no [P, R] vote vector exists on the card.  On the CPU the plain
-    version makes them (``votes_from_pair_params``) a chunk at a time."""
+    version makes them (``votes_from_pair_params``) a chunk at a time.
+
+    ``halfspace`` (per-pair rows, as :func:`_vote_coords`) gates the votes
+    before they are summed, which the pairs front end cannot: a chunk's
+    votes are then made by :func:`votes_from_pair_params` and summed by the
+    votes front end, :func:`dense_hist`."""
     cx, cy, cz = (-(-g // p) for g, p in zip(grid_shape, pool))
     out = torch.zeros((cx, cy, cz), dtype=torch.float32, device=pc.device)
-    frame = vote_frame(corner, res, grid_dims.to(pc.dtype))
+    dims_f = grid_dims.to(pc.dtype)
+    frame = vote_frame(corner, res, dims_f)
+    kw = dict(cx=cx, cy=cy, cz=cz, px=pool[0], py=pool[1], pz=pool[2], splat=splat, out=out)
     for s in range(0, point_idxs.shape[0], pair_chunk):
         sl = slice(s, s + pair_chunk)
         mask = (torch.ones(point_idxs[sl].shape[0], dtype=torch.bool, device=pc.device)
                 if pair_mask is None else pair_mask[sl])
-        dense_hist_pairs(pair_vote_params(pc, preds_tr[sl], probs, point_idxs[sl], res, n_rots,
-                                          adaptive, mask),
-                         frame, n_rots=n_rots, grid_shape=grid_shape, cx=cx, cy=cy, cz=cz,
-                         px=pool[0], py=pool[1], pz=pool[2], splat=splat, out=out)
+        params = pair_vote_params(pc, preds_tr[sl], probs, point_idxs[sl], res, n_rots,
+                                  adaptive, mask)
+        if halfspace is None:
+            dense_hist_pairs(params, frame, n_rots=n_rots, grid_shape=grid_shape, **kw)
+            continue
+        hs = (halfspace[0][sl], halfspace[1][sl], halfspace[2][sl], halfspace[3])
+        f, r, w = votes_from_pair_params(params, corner, res, dims_f, grid_shape, n_rots,
+                                         halfspace=hs)
+        dense_hist(*(a.reshape(-1) for a in (*f, *r, w)), **kw)
     return out
 
 
@@ -437,11 +449,12 @@ def sphere_bin_count(candidates, sphere_pts, cos_tol, chunk: int = 8192) -> torc
 
 
 def rot_vote_sphere_count(pc, preds_rot, point_idxs, sphere_pts, cos_tol, n_rots: int = 72,
-                          chunk: int = 1024) -> torch.Tensor:
+                          chunk: int = 1024, weights=None) -> torch.Tensor:
     """Cone-vote axis candidates binned on the sphere (cppf_tpu ops/voting.py
     :869-929): each pair's ``n_rots`` unit axes normalize(tan ψ·offset ± âb)
     count toward every sphere direction within ``cos_tol``.  Componentwise
-    per chunk of pairs; degenerate pairs count nothing."""
+    per chunk of pairs; degenerate pairs count nothing.  ``weights`` [P]
+    scales each pair's votes (``sharp_axis_votes``' confidences)."""
     s0, s1, s2 = (sphere_pts[:, k].to(torch.float32) for k in range(3))
     i = torch.arange(n_rots, dtype=pc.dtype, device=pc.device)
     ang = i * (TWO_PI / n_rots)
@@ -460,5 +473,91 @@ def rot_vote_sphere_count(pc, preds_rot, point_idxs, sphere_pts, cos_tol, n_rots
         ok = (~degenerate)[:, None]
         ux, uy, uz = (torch.where(ok, cmp / norm, 0.0).reshape(-1) for cmp in comps)
         cos = ux[:, None] * s0[None, :] + uy[:, None] * s1[None, :] + uz[:, None] * s2[None, :]
-        counts += (cos > cos_tol).to(torch.float32).sum(0)
+        hits = (cos > cos_tol).to(torch.float32)
+        if weights is not None:
+            wk = weights[s:s + chunk].to(torch.float32).repeat_interleave(n_rots)
+            hits = hits * wk[:, None]
+        counts += hits.sum(0)
     return counts
+
+
+# ---- sub-voxel center refinement (cppf_tpu ops/voting.py:671-777) ----------
+
+def center_refine_terms(pc, preds_tr, point_idxs, center, weights, cutoff,
+                        chunk: int = 1 << 18):
+    """Gauss-Newton normal-equation terms of the sub-voxel center solve: a
+    pair (a, b) with (proj_len, odist) puts the center o on a circle,
+    ``(a − o)·âb = proj_len`` (axial) and ``‖(a − o) − ((a − o)·âb)âb‖ =
+    odist`` (radial); a pair whose residuals' squared sum reaches
+    ``cutoff²`` (or a degenerate one) weighs 0.  Pairs go ``chunk`` at a
+    time, as :func:`backvote`.  Returns (H [3, 3], g [3], wsum): sums over
+    the pairs, so a pair-sharded caller all-reduces them.  The residuals are
+    float32, as JAX's; the sums are float64, so that their order (the
+    device's, the chunks', the ranks') does not reach the solve."""
+    f64 = dict(dtype=torch.float64, device=pc.device)
+    H, g, wsum = torch.zeros((3, 3), **f64), torch.zeros(3, **f64), torch.zeros((), **f64)
+    for s in range(0, point_idxs.shape[0], chunk):
+        a, ab_unit, degenerate, _ = pair_frames(pc, point_idxs[s:s + chunk])
+        proj_len, odist = preds_tr[s:s + chunk, 0], preds_tr[s:s + chunk, 1]
+        am = a - center
+        t = torch.sum(am * ab_unit, -1)
+        e_ax = t - proj_len
+        r = am - t[:, None] * ab_unit
+        rn = torch.linalg.norm(r, dim=-1)
+        e_rad = rn - odist
+        r_hat = r / (rn + 1e-9)[:, None]
+        w = (weights[s:s + chunk] * ~degenerate
+             * (e_ax * e_ax + e_rad * e_rad < cutoff * cutoff)).double()
+        u, r_hat, e_ax, e_rad = ab_unit.double(), r_hat.double(), e_ax.double(), e_rad.double()
+        H = H + (torch.einsum("p,pi,pj->ij", w, u, u)
+                 + torch.einsum("p,pi,pj->ij", w, r_hat, r_hat))
+        g = g + (torch.einsum("p,p,pi->i", w, e_ax, u)
+                 + torch.einsum("p,p,pi->i", w, e_rad, r_hat))
+        wsum = wsum + w.sum()
+    return H, g, wsum
+
+
+def center_refine_solve(H, g, wsum, c, min_pairs: float):
+    """One damped Gauss-Newton update of the center ``c`` from (reduced)
+    normal-equation terms, solved in their type and rounded to ``c``'s;
+    ``c`` unchanged where the step is not finite or fewer than
+    ``min_pairs`` pairs weigh in."""
+    eye = torch.eye(3, dtype=H.dtype, device=H.device)
+    H = H + 1e-4 * torch.trace(H) * eye + 1e-9
+    delta, info = torch.linalg.solve_ex(H, g)
+    ok = (info == 0) & torch.isfinite(delta).all() & (wsum >= min_pairs)
+    return torch.where(ok, (c + delta).to(c.dtype), c)
+
+
+def center_refine_cutoffs(res, iters: int, like: torch.Tensor) -> torch.Tensor:
+    """The annealed trim radii, from the back-vote band 3·res down to
+    0.75·res, of ``like``'s type and device."""
+    return (torch.linspace(3.0, 0.75, iters, dtype=like.dtype, device=like.device)
+            * _scalar(res, like))
+
+
+def center_refine_clamp(c, T_init, res):
+    """``c`` pulled into the 2·res trust region about the voted peak
+    ``T_init``; ``T_init`` where ``c`` is not finite."""
+    d = c - T_init
+    dn = torch.linalg.norm(d)
+    c = T_init + d * torch.clamp(2.0 * _scalar(res, c) / (dn + 1e-9), max=1.0)
+    return torch.where(torch.isfinite(c).all(), c, T_init)
+
+
+def center_refine(pc, preds_tr, point_idxs, T_init, pair_mask, res, iters: int = 3,
+                  min_pairs: float = 64.0, reduce_fn=None) -> torch.Tensor:
+    """Sub-voxel center (cppf_tpu ops/voting.py:745-777): ``iters``
+    Gauss-Newton steps on the circle constraints of the ``pair_mask`` pairs
+    (:func:`center_refine_terms`, trimmed at :func:`center_refine_cutoffs`),
+    clamped to 2·res about ``T_init``.  ``reduce_fn``, when given, sums the
+    terms over ranks each step (one call on H, g and wsum together)."""
+    w0 = pair_mask.to(pc.dtype)
+    c = T_init
+    for cutoff in center_refine_cutoffs(res, iters, pc):
+        H, g, wsum = center_refine_terms(pc, preds_tr, point_idxs, c, w0, cutoff)
+        if reduce_fn is not None:
+            both = reduce_fn(torch.cat([H.reshape(-1), g, wsum.reshape(1)]))
+            H, g, wsum = both[:9].reshape(3, 3), both[9:12], both[12]
+        c = center_refine_solve(H, g, wsum, c, min_pairs)
+    return center_refine_clamp(c, T_init, res)

@@ -32,7 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from cppf_tpu_torch.ops.voting import ppf_vote, ppf_vote_peak
+from cppf_tpu_torch.ops.voting import ppf_vote_dense, ppf_vote_peak
 
 DATA_AXIS = "data"
 PAIR_AXIS = "pair"
@@ -171,34 +171,50 @@ def shard_rows(n: int, mesh: PairMesh) -> slice:
     return slice(min(k * c, n), min((k + 1) * c, n))
 
 
+# the fields of a train Batch with a pair axis (dim 1), split over ``pair``
+PAIR_FIELDS = ("point_idxs", "tr_prob", "rot_prob", "aux", "aux_weight", "up_rot_weight")
+
+
 def shard_batch(batch, mesh: PairMesh):
-    """This rank's samples of a ``train/step.py::Batch``: B split evenly
-    over the data axis (the counterpart of ``shard_batch_spec``'s
-    ``P(DATA_AXIS)``); the pairs stay whole."""
+    """This rank's share of a ``train/step.py::Batch``: B split evenly over
+    the data axis (``shard_batch_spec``'s ``P(DATA_AXIS)``), and the pair
+    axis of each pair field (``PAIR_FIELDS``) split over the pair axis by
+    :func:`shard_rows` (``P(DATA_AXIS, PAIR_AXIS)``); the points stay whole
+    on every pair rank."""
     b_all = batch.pc.shape[0]
     if b_all % mesh.data:
         raise ValueError(f"a batch of {b_all} does not split over {mesh.data} data ranks")
     b = b_all // mesh.data
     i = mesh.coords[0]
-    return type(batch)(*(None if t is None else t[i * b:(i + 1) * b] for t in batch))
+    rows = shard_rows(batch.point_idxs.shape[1], mesh)
+    return type(batch)(*(None if t is None else
+                         t[i * b:(i + 1) * b, rows] if name in PAIR_FIELDS else
+                         t[i * b:(i + 1) * b]
+                         for name, t in zip(batch._fields, batch)))
 
 
-def _no_halfspace(halfspace) -> None:
-    if halfspace is not None:
-        raise NotImplementedError("coplanar_halfspace is not ported to the torch pipeline")
+def shard_halfspace(halfspace, rows: slice):
+    """This rank's rows of a per-pair half-space gate (a, n_out, gate,
+    margin); None stays None."""
+    if halfspace is None:
+        return None
+    a, n_out, gate, margin = halfspace
+    return a[rows], n_out[rows], gate[rows], margin
 
 
 def sharded_ppf_vote(mesh: PairMesh, pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
                      grid_shape: Tuple[int, int, int], n_rots: int = 72, adaptive: bool = False,
                      pair_mask=None, splat: str = "trilinear", halfspace=None) -> torch.Tensor:
     """The dense center-vote grid of every rank's pairs: this rank's
-    ``ppf_vote`` (``preds_tr``, ``point_idxs``, ``pair_mask``: its rows)
-    summed over the pair group.  Equal to the one-rank grid up to the order
-    of float sums."""
-    _no_halfspace(halfspace)
+    ``ppf_vote_dense`` (``preds_tr``, ``point_idxs``, ``pair_mask`` and
+    the ``halfspace`` rows: its own; on a CUDA tensor ``dense_hist``'s
+    kernel, pairs front end, or votes front end under the gate) summed over
+    the pair group.  Equal to the one-rank grid up to the order of float
+    sums."""
     mesh.check(pc, preds_tr, probs, point_idxs, corner, pair_mask)
-    local = ppf_vote(pc, preds_tr, probs, point_idxs, corner, res, grid_dims, grid_shape,
-                     n_rots=n_rots, adaptive=adaptive, pair_mask=pair_mask, splat=splat)
+    local = ppf_vote_dense(pc, preds_tr, probs, point_idxs, corner, res, grid_dims, grid_shape,
+                           n_rots=n_rots, adaptive=adaptive, pair_mask=pair_mask, splat=splat,
+                           halfspace=halfspace)
     return mesh.reduce(local)
 
 
@@ -207,14 +223,13 @@ def sharded_ppf_vote_peak(mesh: PairMesh, pc, preds_tr, probs, point_idxs, corne
                           adaptive: bool = False, pair_mask=None, splat: str = "trilinear",
                           max_rounds: int = 0, halfspace=None):
     """Branch-and-bound peak of the grid of every rank's pairs: this rank's
-    ``ppf_vote_peak`` (its rows, through the kernels on a CUDA tensor) with
-    each bound projection and each refine window summed over the pair group
-    (its ``reduce_fn``).  Every rank then holds the same sums and runs the
-    same refine loop.  Returns (idx [3] int32, peak), the same on every
-    rank; the peak voxel is the one-rank peak's up to the order of float
-    sums."""
-    _no_halfspace(halfspace)
+    ``ppf_vote_peak`` (its rows, and its rows of ``halfspace``; through the
+    kernels on a CUDA tensor) with each bound projection and each refine
+    window summed over the pair group (its ``reduce_fn``).  Every rank then
+    holds the same sums and runs the same refine loop.  Returns (idx [3]
+    int32, peak), the same on every rank; the peak voxel is the one-rank
+    peak's up to the order of float sums."""
     mesh.check(pc, preds_tr, probs, point_idxs, corner, pair_mask)
     return ppf_vote_peak(pc, preds_tr, probs, point_idxs, corner, res, grid_dims, grid_shape,
                          n_rots=n_rots, adaptive=adaptive, pair_mask=pair_mask, splat=splat,
-                         max_rounds=max_rounds, reduce_fn=mesh.reduce)
+                         max_rounds=max_rounds, reduce_fn=mesh.reduce, halfspace=halfspace)

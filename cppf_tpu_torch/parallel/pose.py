@@ -19,25 +19,33 @@ of every pair crosses between the ranks as:
 - the numerator and count of the aux BCEs and of the masked scale mean,
   all-reduced (so these sums differ from one device's by float order).
 
+- the center vote's gates (``center_vote_masks``: the coplanar filter
+  with its 5 % guard, the half-space gate, the separation weights from the
+  quantile of every pair's separation) are computed over every pair on
+  every rank, each rank then taking its rows;
+- ``subvoxel_refine``'s normal equations (H [3, 3], g [3], the weight
+  sum), all-reduced once a Gauss-Newton step (``sharded_center_refine``);
+- ``center_mode="grid"``: the rank's dense grid, all-reduced
+  (``sharded_ppf_vote``).
+
 No rank ever holds another's ``[P, out_dim]`` predictions.  The draws
 (``PoseDraws``) are the one-device pose's, the same on every rank: from one
 JAX key (``PoseDraws.from_jax_key``) the ranks reproduce
-``cppf_tpu.parallel.pose.sharded_estimate_pose(mesh, key, ...)``.
-``subvoxel_refine`` (and with it ``sharded_center_refine``), a grid center
-mode and ``coplanar_halfspace`` are not ported: ``PoseConfig.from_config``
-raises on them.
+``cppf_tpu.parallel.pose.sharded_estimate_pose(mesh, key, ...)``.  Every
+flag of the one-device pose runs here.
 """
 from __future__ import annotations
 
 import torch
 
-from cppf_tpu_torch.ops.voting import backvote, rot_vote_sphere_count
-from cppf_tpu_torch.parallel.mesh import PairMesh, shard_rows, sharded_ppf_vote_peak
+from cppf_tpu_torch.ops.voting import backvote, center_refine, grid_argmax, rot_vote_sphere_count
+from cppf_tpu_torch.parallel.mesh import (PairMesh, shard_halfspace, shard_rows,
+                                          sharded_ppf_vote, sharded_ppf_vote_peak)
 from cppf_tpu_torch.pipeline.pose import (AxisDraws, PairStages, PoseConfig, PoseDraws,
                                           PoseResult, _aux_sign, _axis_angles,
                                           _axis_subsample, _masked_mean, _pick_axis,
-                                          coplanar_center_mask, decode_pose, decode_translation,
-                                          grid_frame, pair_predictions)
+                                          center_vote_masks, decode_pose, decode_translation,
+                                          grid_frame, pair_predictions, sharp_weights)
 
 
 def sharded_ppf_head(mesh: PairMesh, ppf_encoder, pc, pc_normal, feat, point_idxs):
@@ -58,14 +66,27 @@ def sharded_backvote(mesh: PairMesh, pc, preds_tr, point_idxs, corner, res, grid
     return mesh.gather_rows(hit, n_pairs)
 
 
+def sharded_center_refine(mesh: PairMesh, pc, preds_tr, point_idxs, T_init, pair_mask, res,
+                          iters: int = 3, min_pairs: float = 64.0) -> torch.Tensor:
+    """``ops/voting.py::center_refine`` of every rank's pairs: this rank's
+    rows (``preds_tr``, ``point_idxs``, ``pair_mask``) give its normal
+    equations, and one all-reduce a Gauss-Newton step sums H [3, 3], g [3]
+    and the weight sum over the pair group, so that every rank solves the
+    same system.  The same T on every rank."""
+    mesh.check(pc, preds_tr, point_idxs, T_init, pair_mask)
+    return center_refine(pc, preds_tr, point_idxs, T_init, pair_mask, res, iters=iters,
+                         min_pairs=min_pairs, reduce_fn=mesh.reduce)
+
+
 def sharded_sphere_histogram(mesh: PairMesh, pc, angles, sub_idxs, sphere_pts, cos_tol,
-                             n_rots: int = 72) -> torch.Tensor:
+                             n_rots: int = 72, weights=None) -> torch.Tensor:
     """Sphere counts [n_sphere] of the cone votes of every rank's
-    subsampled pairs: this rank's (``angles``, ``sub_idxs``) counted, then
-    summed over the pair group."""
-    mesh.check(pc, angles, sub_idxs, sphere_pts)
+    subsampled pairs: this rank's (``angles``, ``sub_idxs``, ``weights``,
+    e.g. ``sharp_axis_votes``' confidences) counted, then summed over the
+    pair group."""
+    mesh.check(pc, angles, sub_idxs, sphere_pts, weights)
     return mesh.reduce(rot_vote_sphere_count(pc, angles, sub_idxs, sphere_pts, cos_tol,
-                                             n_rots=n_rots))
+                                             n_rots=n_rots, weights=weights))
 
 
 def _vote_axis_sharded(mesh: PairMesh, pc, pc_normal, point_idxs, pair_mask, angle_logits,
@@ -80,15 +101,16 @@ def _vote_axis_sharded(mesh: PairMesh, pc, pc_normal, point_idxs, pair_mask, ang
     sub = _axis_subsample(pair_mask, pair_weights, draws.sub_u)
     own = (sub >= rows.start) & (sub < rows.stop)
     mine = sub[own]
-    angles, cos_tol = _axis_angles(angle_logits[mine - rows.start], draws.gumbel[own], pcfg,
-                                   pc.dtype)
-    counts = sharded_sphere_histogram(mesh, pc, angles, point_idxs[mine], sphere_pts, cos_tol,
-                                      n_rots=pcfg.num_rots)
+    logits = angle_logits[mine - rows.start]
+    angles, cos_tol = _axis_angles(logits, draws.gumbel[own], pcfg, pc.dtype)
+    counts = sharded_sphere_histogram(
+        mesh, pc, angles, point_idxs[mine], sphere_pts, cos_tol, n_rots=pcfg.num_rots,
+        weights=sharp_weights(logits) if pcfg.sharp_axis_votes else None)
     aux_mask = pair_mask[rows].to(pc.dtype)
     if pair_weights is not None:
         aux_mask = aux_mask * pair_weights[rows]
     signed_bce = _aux_sign(pc, pc_normal, point_idxs[rows], aux_logits, aux_mask,
-                           reduce_fn=mesh.reduce)
+                           reduce_fn=mesh.reduce, align_weight=pcfg.aux_align_weight)
     return _pick_axis(counts, sphere_pts, pcfg, signed_bce, prior_gate)
 
 
@@ -103,20 +125,32 @@ def sharded_vote_pose(mesh: PairMesh, pc, pc_normal, point_idxs, preds, n_valid,
     preds_tr = decode_translation(preds, draws.tr_gumbel[:, rows], pcfg)
     res = torch.tensor(pcfg.res, dtype=pc.dtype, device=pc.device)
     corner, grid_dims = grid_frame(pc, valid_mask, pcfg)
-    # the 5 % guard of the coplanar mask is a mean over every pair
-    center_mask = (coplanar_center_mask(pc, pc_normal, point_idxs)[rows]
-                   if pcfg.filter_coplanar else None)
+    # the coplanar filter's 5 % guard and the separation quantile read every
+    # pair: computed whole on every rank, then cut to the rank's rows
+    center_mask, base_mask, halfspace = center_vote_masks(pc, pc_normal, point_idxs, pcfg)
+    center_mask = None if center_mask is None else center_mask[rows]
+    base_mask = None if base_mask is None else base_mask[rows]
+    halfspace = shard_halfspace(halfspace, rows)
+    vote_kw = dict(n_rots=pcfg.num_rots, adaptive=pcfg.adaptive_voting, splat=pcfg.splat,
+                   pair_mask=center_mask, halfspace=halfspace)
 
     def center_peak(weights):
+        if pcfg.center_mode == "grid":
+            grid = sharded_ppf_vote(mesh, pc, preds_tr, weights, idxs, corner, res, grid_dims,
+                                    pcfg.grid_shape, **vote_kw)
+            return grid_argmax(grid, corner, res), grid.max()
         peak_idx, peak = sharded_ppf_vote_peak(
             mesh, pc, preds_tr, weights, idxs, corner, res, grid_dims, pcfg.grid_shape,
-            n_rots=pcfg.num_rots, adaptive=pcfg.adaptive_voting, splat=pcfg.splat,
-            max_rounds=pcfg.peak_rounds, pair_mask=center_mask)
+            max_rounds=pcfg.peak_rounds, **vote_kw)
         return corner + peak_idx.to(pc.dtype) * pcfg.res, peak
 
     def consistent_pairs(center):
         return sharded_backvote(mesh, pc, preds_tr, idxs, corner, res, grid_dims, center,
                                 3.0 * pcfg.res, n_rots=pcfg.num_rots, n_pairs=n_pairs)
+
+    def refine_center(center, pair_mask):
+        mask = pair_mask[rows] if base_mask is None else pair_mask[rows] & base_mask
+        return sharded_center_refine(mesh, pc, preds_tr, idxs, center, mask, res)
 
     def vote_axis(pair_mask, angle_logits, aux_logits, axis_draws, pair_weights=None,
                   prior_gate=None):
@@ -127,7 +161,7 @@ def sharded_vote_pose(mesh: PairMesh, pc, pc_normal, point_idxs, preds, n_valid,
     def scale_mean(scale_pred, pair_mask):
         return _masked_mean(scale_pred, pair_mask[rows], dim=0, reduce_fn=mesh.reduce)
 
-    stages = PairStages(center_peak, consistent_pairs, vote_axis, scale_mean)
+    stages = PairStages(center_peak, consistent_pairs, refine_center, vote_axis, scale_mean)
     return decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg, draws, stages)
 
 

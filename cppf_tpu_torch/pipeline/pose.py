@@ -4,13 +4,24 @@
     → center-vote peak → back-vote filter → axis vote on the sphere
     → aux-bit sign → R/T/S assembly
 
-Ported branches: every one that a category config turns on — the regressed
-right axis (``regress_right``, with ``asym_right_votes`` and
-``geo_right_sign``), the second center pass ``asym_center_refine``, the
-coplanar center filter ``filter_coplanar``, the top-K axis decode
-``axis_topk`` and the laptop plane override.  :meth:`PoseConfig.from_config`
-raises ``NotImplementedError`` on the flags that no config turns on
-(``UNPORTED_FLAGS``).
+Every branch of the JAX pipeline is ported: the regressed right axis
+(``regress_right``, with ``asym_right_votes`` and ``geo_right_sign``), the
+second center pass ``asym_center_refine``, the coplanar center filter
+``filter_coplanar`` and its vote-preserving form ``coplanar_halfspace``,
+the stratified pair sample ``pair_balance``, the separation-weighted center
+vote ``pair_sep_power``, the confidence-weighted cone votes
+``sharp_axis_votes``, the aligned aux BCE ``aux_align_weight``, the
+sub-voxel center ``subvoxel_refine``, the top-K axis decode ``axis_topk``,
+the dense-grid center ``center_mode="grid"`` and the laptop plane
+override.  Left out: the JAX ``PoseConfig``'s ``up_sym``/``right_sym``,
+which its pipeline never reads, and ``pose_f32``, whose float32 pinning the
+port always applies (``device.pin_float32``).
+
+On the card the center vote runs through the kernels of
+``csrc/vote_hist.cu``: the pairs front ends of ``bound_projections`` and
+``refine_window`` (``center_mode="hier"``) or of ``dense_hist``
+(``"grid"``), and their votes front ends when ``coplanar_halfspace`` gates
+the votes, which only a vote made outside the kernel can be.
 
 Random draws are injectable (:class:`PoseDraws`): JAX and torch give
 different numbers from one seed, so a test hands both the same uniforms and
@@ -30,19 +41,18 @@ from cppf_tpu_torch.core.geometry import (assemble_rotation, cross, fibonacci_sp
                                           orthonormal_right)
 from cppf_tpu_torch.core.targets import radial_asymmetry_about
 from cppf_tpu_torch.ops.knn import knn_indices
-from cppf_tpu_torch.ops.voting import backvote, ppf_vote_peak, rot_vote_sphere_count
+from cppf_tpu_torch.ops.voting import (backvote, center_refine, grid_argmax, ppf_vote_dense,
+                                       ppf_vote_peak, rot_vote_sphere_count)
 
-# Config flags of the JAX pipeline that this port does not run yet, with
-# the value that means "off".
-UNPORTED_FLAGS = {
-    "coplanar_halfspace": False, "pair_balance": 0.0, "pair_sep_power": 0.0,
-    "sharp_axis_votes": False, "aux_align_weight": False, "subvoxel_refine": False,
-}
+CENTER_MODES = ("hier", "grid")
+_STRATA_HASH = 256  # hash-table size of pair_balance's orientation bins (a power of two)
+_SCAN_BLOCK = 16  # the base length of XLA's rewrite of a cumulative sum
 
 
 @dataclass(frozen=True)
 class PoseConfig:
-    """Static pipeline parameters (the ported subset of the JAX PoseConfig)."""
+    """Static pipeline parameters (the JAX PoseConfig's, less ``up_sym``,
+    ``right_sym`` and ``pose_f32``; see the module docstring)."""
 
     tr_num_bins: int = 32
     rot_num_bins: int = 36
@@ -59,9 +69,28 @@ class PoseConfig:
     adaptive_voting: bool = False
     grid_shape: Tuple[int, int, int] = (64, 64, 64)
     splat: str = "trilinear"
+    # "hier": the branch-and-bound peak (ppf_vote_peak); "grid": the dense
+    # histogram (ppf_vote_dense) and its argmax
+    center_mode: str = "hier"
     peak_rounds: int = 2
     scale_multiplier: float = 2.0
     filter_coplanar: bool = False
+    # coplanar pairs vote only behind their surface: candidates more than
+    # halfspace_margin voxels in front of it (toward the camera) are dropped;
+    # takes precedence over filter_coplanar
+    coplanar_halfspace: bool = False
+    halfspace_margin: float = 2.0
+    # pair sample stratified by normal orientation, a point weighted
+    # 1 / count(its bin)^pair_balance (0: uniform)
+    pair_balance: float = 0.0
+    # center votes weighted by clip(sep / q75(sep), 0, 1)^pair_sep_power (0: off)
+    pair_sep_power: float = 0.0
+    # cone votes weighted by the confidence of the pair's angle bins
+    sharp_axis_votes: bool = False
+    # aux BCE of each pair weighted by |n_canon · axis|
+    aux_align_weight: bool = False
+    # Gauss-Newton sub-voxel center on the back-vote survivors
+    subvoxel_refine: bool = False
     asym_right_votes: bool = False
     asym_center_refine: bool = False
     geo_right_sign: bool = False
@@ -76,9 +105,6 @@ class PoseConfig:
 
     @classmethod
     def from_config(cls, cfg, n_pairs: Optional[int] = None, scale_multiplier: float = 2.0):
-        on = [k for k, off in UNPORTED_FLAGS.items() if getattr(cfg, k) != off]
-        if on:
-            raise NotImplementedError(f"flags not ported to the torch pipeline: {on}")
         g = cfg.resolved_grid_edge()
         return cls(
             tr_num_bins=cfg.tr_num_bins, rot_num_bins=cfg.rot_num_bins,
@@ -90,7 +116,14 @@ class PoseConfig:
             filter_coplanar=cfg.filter_coplanar, asym_right_votes=cfg.asym_right_votes,
             asym_center_refine=cfg.asym_center_refine, geo_right_sign=cfg.geo_right_sign,
             geo_right_dir=cfg.geo_right_dir, axis_topk=cfg.axis_topk,
+            coplanar_halfspace=cfg.coplanar_halfspace, pair_balance=cfg.pair_balance,
+            pair_sep_power=cfg.pair_sep_power, sharp_axis_votes=cfg.sharp_axis_votes,
+            aux_align_weight=cfg.aux_align_weight, subvoxel_refine=cfg.subvoxel_refine,
         )
+
+    def __post_init__(self):
+        if self.center_mode not in CENTER_MODES:
+            raise ValueError(f"center_mode must be one of {CENTER_MODES}, got {self.center_mode!r}")
 
     def sphere_points(self) -> np.ndarray:
         n = int(4 * np.pi / (self.angle_prec / 180 * np.pi))
@@ -213,15 +246,34 @@ def _bce_logits(logits, targets, mask, reduce_fn=None):
     return _masked_mean(loss, mask, reduce_fn=reduce_fn)
 
 
+def cumsum_xla(x: torch.Tensor) -> torch.Tensor:
+    """Prefix sums of the float32 vector ``x`` in the order of XLA's CPU
+    ``jnp.cumsum``, so equal to its results to the bit, on any device:
+    blocks of 16 summed left to right, the blocks' totals scanned the same
+    way, each total added to the running sums of the blocks after it.  A
+    CDF that searchsorted inverts then picks JAX's indices; a running or a
+    float64 sum rounds otherwise in the last bit, and a uniform on a step
+    then takes the neighbour."""
+    n = x.shape[0]
+    m = -(-n // _SCAN_BLOCK)
+    rows = torch.nn.functional.pad(x, (0, m * _SCAN_BLOCK - n)).reshape(m, _SCAN_BLOCK)
+    for j in range(1, _SCAN_BLOCK):
+        rows[:, j] += rows[:, j - 1]
+    if m > 1:
+        rows[1:] += cumsum_xla(rows[:, -1])[:-1, None]
+    return rows.reshape(-1)[:n]
+
+
 def _axis_subsample(pair_mask, pair_weights, sub_u) -> torch.Tensor:
     """[S] indices of the pairs whose cone votes an axis takes: ``sub_u``
     inverted through the CDF of the surviving pairs (all pairs when none
     survives), weighted by ``pair_weights``."""
     any_alive = pair_mask.any()
     keep = (pair_mask | ~any_alive).to(torch.float32)
-    if pair_weights is not None:
-        keep = keep * pair_weights
-    cdf = torch.cumsum(keep, 0)
+    if pair_weights is None:
+        cdf = torch.cumsum(keep, 0)  # whole numbers: exact in any order
+    else:
+        cdf = cumsum_xla(keep * pair_weights)
     u = sub_u * cdf[-1]
     return torch.clamp(torch.searchsorted(cdf, u, right=True), 0, pair_mask.shape[0] - 1)
 
@@ -235,11 +287,13 @@ def _axis_angles(angle_logits, gumbel, pcfg: PoseConfig, dtype):
     return angles, cos_tol.item()
 
 
-def _aux_sign(pc, pc_normal, point_idxs, aux_logits, aux_mask, reduce_fn=None):
+def _aux_sign(pc, pc_normal, point_idxs, aux_logits, aux_mask, reduce_fn=None,
+              align_weight: bool = False):
     """``signed_bce(cand)`` → (±cand, its BCE): the sign whose aux-bit
     targets (the pair's canonical normal on the side of ``cand``) the
     logits of ``point_idxs``' pairs fit better; ``reduce_fn`` as in
-    :func:`_bce_logits`."""
+    :func:`_bce_logits`.  With ``align_weight`` (``aux_align_weight``) a
+    pair's BCE weighs |n_canon · cand| more."""
     idx = point_idxs.long()
     ab = pc[idx[:, 0]] - pc[idx[:, 1]]
     ab_unit = ab / (torch.linalg.norm(ab, dim=-1, keepdim=True) + 1e-7)
@@ -247,9 +301,11 @@ def _aux_sign(pc, pc_normal, point_idxs, aux_logits, aux_mask, reduce_fn=None):
     n_canon = n_a * torch.where(torch.sum(n_a * ab_unit, -1, keepdim=True) < 0, -1.0, 1.0)
 
     def signed_bce(cand):
-        target = (torch.sum(n_canon * cand, -1) > 0).to(pc.dtype)
-        up_loss = _bce_logits(aux_logits, target, aux_mask, reduce_fn)
-        down_loss = _bce_logits(aux_logits, 1.0 - target, aux_mask, reduce_fn)
+        align = torch.sum(n_canon * cand, -1)
+        target = (align > 0).to(pc.dtype)
+        mask = aux_mask * torch.abs(align) if align_weight else aux_mask
+        up_loss = _bce_logits(aux_logits, target, mask, reduce_fn)
+        down_loss = _bce_logits(aux_logits, 1.0 - target, mask, reduce_fn)
         return torch.where(down_loss < up_loss, -cand, cand), torch.minimum(up_loss, down_loss)
 
     return signed_bce
@@ -281,6 +337,15 @@ def _pick_axis(counts, sphere_pts, pcfg: PoseConfig, signed_bce, prior_gate=None
     return torch.stack(signed)[torch.argmin(bce)]
 
 
+def sharp_weights(angle_logits) -> torch.Tensor:
+    """``sharp_axis_votes``' weight of each row of angle-bin logits: the
+    largest softmax probability rescaled so that a uniform distribution
+    weighs 0 and a one-hot one 1."""
+    probs = torch.softmax(angle_logits, -1)
+    uniform = 1.0 / angle_logits.shape[-1]
+    return torch.clamp((probs.amax(-1) - uniform) / (1.0 - uniform), 0.0, 1.0)
+
+
 def _vote_axis(pc, pc_normal, point_idxs, pair_mask, angle_logits, aux_logits, sphere_pts,
                pcfg: PoseConfig, draws: AxisDraws, pair_weights=None,
                prior_gate=None) -> torch.Tensor:
@@ -289,16 +354,20 @@ def _vote_axis(pc, pc_normal, point_idxs, pair_mask, angle_logits, aux_logits, s
 
     ``pair_weights`` [P] biases the subsample and weights the aux BCE (see
     the JAX PoseConfig.asym_right_votes); ``axis_topk`` and ``prior_gate``
-    as in :func:`_pick_axis`."""
+    as in :func:`_pick_axis`; ``sharp_axis_votes`` weights the cone votes
+    by :func:`sharp_weights`, ``aux_align_weight`` the aux BCE by the
+    alignment with the candidate."""
     sub = _axis_subsample(pair_mask, pair_weights, draws.sub_u)
     angles_sub, cos_tol = _axis_angles(angle_logits[sub], draws.gumbel, pcfg, pc.dtype)
+    vote_w = sharp_weights(angle_logits[sub]) if pcfg.sharp_axis_votes else None
     counts = rot_vote_sphere_count(pc, angles_sub, point_idxs[sub], sphere_pts, cos_tol,
-                                   n_rots=pcfg.num_rots)
+                                   n_rots=pcfg.num_rots, weights=vote_w)
     aux_mask = pair_mask.to(pc.dtype)
     if pair_weights is not None:
         aux_mask = aux_mask * pair_weights
     return _pick_axis(counts, sphere_pts, pcfg,
-                      _aux_sign(pc, pc_normal, point_idxs, aux_logits, aux_mask), prior_gate)
+                      _aux_sign(pc, pc_normal, point_idxs, aux_logits, aux_mask,
+                                align_weight=pcfg.aux_align_weight), prior_gate)
 
 
 def up_prior_gate(sphere_pts, pcfg: PoseConfig):
@@ -325,9 +394,30 @@ def _protrusion_centroid(pc, T_est, up, n_valid, asym):
     return h_dir, gate
 
 
-def sample_pair_indices(pair_u: torch.Tensor, n_valid) -> torch.Tensor:
-    """[n_pairs, 2] uniform pair sample over the valid points."""
-    return torch.minimum((pair_u * n_valid).to(torch.int32), n_valid - 1)
+def sample_pair_indices(pair_u: torch.Tensor, n_valid, pc_normal=None,
+                        pair_balance: float = 0.0) -> torch.Tensor:
+    """[n_pairs, 2] pair sample over the valid points from the uniforms
+    ``pair_u`` (cppf_tpu pipeline/pose.py:420-454): uniform, or with
+    ``pair_balance`` α > 0 stratified by orientation.  A point's normal,
+    its sign folded to make its largest component positive, falls in one of
+    5³ bins (components rounded to halves, hashed to 256 slots), and the
+    point weighs 1 / count(its bin)^α; the uniforms are inverted through the
+    CDF of those weights, summed as JAX sums it (:func:`cumsum_xla`)."""
+    if pair_balance <= 0:
+        return torch.minimum((pair_u * n_valid).to(torch.int32), n_valid - 1)
+    n = pc_normal.shape[0]
+    valid = (torch.arange(n, device=pc_normal.device) < n_valid).to(pc_normal.dtype)
+    lead = torch.argmax(torch.abs(pc_normal), -1)
+    sign = torch.sign(pc_normal.gather(1, lead[:, None])[:, 0])
+    nrm = pc_normal * torch.where(sign == 0, 1.0, sign)[:, None]
+    q = torch.round(nrm * 2.0).to(torch.int32)
+    h = ((q[:, 0] * 25 + q[:, 1] * 5 + q[:, 2]) & (_STRATA_HASH - 1)).long()
+    counts = torch.zeros(_STRATA_HASH, dtype=pc_normal.dtype,
+                         device=pc_normal.device).index_add_(0, h, valid)
+    w = valid / torch.clamp(counts[h], min=1.0) ** pair_balance
+    cdf = cumsum_xla(w)
+    idx = torch.searchsorted(cdf, pair_u * cdf[-1], right=True).to(torch.int32)
+    return torch.clamp(idx, 0, n - 1)
 
 
 def pair_predictions(point_encoder, ppf_encoder, pc, pc_normal, n_valid, pcfg: PoseConfig,
@@ -337,7 +427,7 @@ def pair_predictions(point_encoder, ppf_encoder, pc, pc_normal, n_valid, pcfg: P
     valid_mask = torch.arange(pc.shape[0], device=pc.device) < n_valid
     nbr = nbr_idx if nbr_idx is not None else knn_indices(pc, pcfg.knn, valid_mask)
     feat = point_encoder(pc, pc_normal, nbr, valid_mask)
-    point_idxs = sample_pair_indices(pair_u, n_valid)
+    point_idxs = sample_pair_indices(pair_u, n_valid, pc_normal, pcfg.pair_balance)
     return point_idxs, ppf_encoder(pc, pc_normal, feat, point_idxs)
 
 
@@ -366,21 +456,72 @@ def grid_frame(pc, valid_mask, pcfg: PoseConfig):
     return corner, torch.minimum(grid_dims, cap)
 
 
-def coplanar_center_mask(pc, pc_normal, point_idxs) -> torch.Tensor:
-    """[P] bool center-vote mask of ``filter_coplanar``: False for a pair
-    whose normals are parallel and both ⟂ its axis (its vote circle also
-    hits the center mirrored across the shared plane), unless that would
-    keep under 5 % of the pairs, when every pair votes."""
+def _coplanar(pc, pc_normal, point_idxs):
+    """(coplanar [P] bool, n1 [P, 3], a [P, 3]): a pair is coplanar when its
+    normals are parallel and both ⟂ its axis (its vote circle also hits the
+    center mirrored across the shared plane)."""
     idx = point_idxs.long()
     n1 = pc_normal[idx[:, 0]]
     n2 = pc_normal[idx[:, 1]]
-    ab = pc[idx[:, 0]] - pc[idx[:, 1]]
+    a = pc[idx[:, 0]]
+    ab = a - pc[idx[:, 1]]
     abu = ab / (torch.linalg.norm(ab, dim=-1, keepdim=True) + 1e-7)
     coplanar = ((torch.abs(torch.sum(n1 * n2, -1)) > 0.9)
                 & (torch.abs(torch.sum(abu * n1, -1)) < 0.1)
                 & (torch.abs(torch.sum(abu * n2, -1)) < 0.1))
-    keep = ~coplanar
+    return coplanar, n1, a
+
+
+def coplanar_center_mask(pc, pc_normal, point_idxs) -> torch.Tensor:
+    """[P] bool center-vote mask of ``filter_coplanar``: False for a
+    coplanar pair (:func:`_coplanar`), unless that would keep under 5 % of
+    the pairs, when every pair votes."""
+    keep = ~_coplanar(pc, pc_normal, point_idxs)[0]
     return keep | (torch.mean(keep.to(pc.dtype)) < 0.05)
+
+
+def quantile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
+    """The ``q`` quantile of the vector ``x``, interpolated linearly between
+    its sorted neighbours with jnp.quantile's arithmetic."""
+    xs = torch.sort(x).values
+    pos = torch.tensor(q, dtype=x.dtype) * torch.tensor(x.shape[0] - 1, dtype=x.dtype)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    high_w = pos - low
+    low_w = 1.0 - high_w
+    return xs[int(low)] * low_w.to(x.device) + xs[int(high)] * high_w.to(x.device)
+
+
+def halfspace_gate(pc, pc_normal, point_idxs, pcfg: PoseConfig):
+    """``coplanar_halfspace``'s gate (a [P, 3], n_out [P, 3], coplanar [P]
+    bool, margin): each pair's first normal turned toward the camera at the
+    origin, so that a coplanar pair votes only where (cand − a)·n_out ≤
+    halfspace_margin · res, behind its surface."""
+    coplanar, n1, a = _coplanar(pc, pc_normal, point_idxs)
+    n_out = torch.where(torch.sum(n1 * a, -1, keepdim=True) > 0, -n1, n1)
+    margin = torch.tensor(pcfg.halfspace_margin * pcfg.res, dtype=pc.dtype, device=pc.device)
+    return a, n_out, coplanar, margin
+
+
+def center_vote_masks(pc, pc_normal, point_idxs, pcfg: PoseConfig):
+    """What gates the center votes of the pairs ``point_idxs`` (all of
+    them: the 5 % guard and the separation quantile read every pair):
+    (center_mask [P] bool or float weights, or None for every pair;
+    base_mask [P] bool of ``filter_coplanar``, or None; the
+    ``coplanar_halfspace`` gate, or None)."""
+    base_mask = halfspace = None
+    if pcfg.coplanar_halfspace:
+        halfspace = halfspace_gate(pc, pc_normal, point_idxs, pcfg)
+    elif pcfg.filter_coplanar:
+        base_mask = coplanar_center_mask(pc, pc_normal, point_idxs)
+    center_mask = base_mask
+    if pcfg.pair_sep_power > 0:
+        idx = point_idxs.long()
+        sep = torch.linalg.norm(pc[idx[:, 0]] - pc[idx[:, 1]], dim=-1)
+        sep_ref = quantile_linear(sep, 0.75)
+        sep_w = torch.clamp(sep / torch.clamp(sep_ref, min=1e-6), 0.0, 1.0)
+        sep_w = sep_w ** pcfg.pair_sep_power
+        center_mask = sep_w if base_mask is None else base_mask * sep_w
+    return center_mask, base_mask, halfspace
 
 
 class PairStages(NamedTuple):
@@ -389,6 +530,9 @@ class PairStages(NamedTuple):
 
     - ``center_peak(weights [N])`` → (T [3], peak) of the center vote;
     - ``consistent_pairs(T)`` → [P] bool back-vote mask of every pair;
+    - ``refine_center(T, pair_mask)`` → the sub-voxel T of
+      ``subvoxel_refine`` from the back-vote survivors ``pair_mask`` [P]
+      (those ``filter_coplanar`` keeps);
     - ``vote_axis(pair_mask, angle_logits, aux_logits, draws, pair_weights,
       prior_gate)`` → axis [3], the logits being columns of ``preds``;
     - ``scale_mean(scale_pred, pair_mask)`` → [3] mean log-scale of the
@@ -399,6 +543,7 @@ class PairStages(NamedTuple):
 
     center_peak: Callable
     consistent_pairs: Callable
+    refine_center: Callable
     vote_axis: Callable
     scale_mean: Callable
 
@@ -410,19 +555,28 @@ def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseC
     preds_tr = decode_translation(preds, draws.tr_gumbel, pcfg)
     res = torch.tensor(pcfg.res, dtype=pc.dtype, device=pc.device)
     corner, grid_dims = grid_frame(pc, valid_mask, pcfg)
-    center_mask = (coplanar_center_mask(pc, pc_normal, point_idxs) if pcfg.filter_coplanar
-                   else None)
+    center_mask, base_mask, halfspace = center_vote_masks(pc, pc_normal, point_idxs, pcfg)
+
+    vote_kw = dict(n_rots=pcfg.num_rots, adaptive=pcfg.adaptive_voting, splat=pcfg.splat,
+                   pair_mask=center_mask, halfspace=halfspace)
 
     def center_peak(weights):
-        peak_idx, peak = ppf_vote_peak(
-            pc, preds_tr, weights, point_idxs, corner, res, grid_dims, pcfg.grid_shape,
-            n_rots=pcfg.num_rots, adaptive=pcfg.adaptive_voting, splat=pcfg.splat,
-            max_rounds=pcfg.peak_rounds, pair_mask=center_mask)
+        if pcfg.center_mode == "grid":
+            grid = ppf_vote_dense(pc, preds_tr, weights, point_idxs, corner, res, grid_dims,
+                                  pcfg.grid_shape, **vote_kw)
+            return grid_argmax(grid, corner, res), grid.max()
+        peak_idx, peak = ppf_vote_peak(pc, preds_tr, weights, point_idxs, corner, res,
+                                       grid_dims, pcfg.grid_shape, max_rounds=pcfg.peak_rounds,
+                                       **vote_kw)
         return corner + peak_idx.to(pc.dtype) * pcfg.res, peak
 
     def consistent_pairs(center):
         return backvote(pc, preds_tr, point_idxs, corner, res, grid_dims, center,
                         3.0 * pcfg.res, n_rots=pcfg.num_rots)[1]
+
+    def refine_center(center, pair_mask):
+        mask = pair_mask if base_mask is None else pair_mask & base_mask
+        return center_refine(pc, preds_tr, point_idxs, center, mask, res)
 
     def vote_axis(pair_mask, angle_logits, aux_logits, axis_draws, pair_weights=None,
                   prior_gate=None):
@@ -432,7 +586,7 @@ def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseC
     def scale_mean(scale_pred, pair_mask):
         return _masked_mean(scale_pred, pair_mask, dim=0)
 
-    stages = PairStages(center_peak, consistent_pairs, vote_axis, scale_mean)
+    stages = PairStages(center_peak, consistent_pairs, refine_center, vote_axis, scale_mean)
     return decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg, draws, stages,
                        laptop_up, laptop_up_valid)
 
@@ -456,6 +610,8 @@ def decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
     # --- center voting ------------------------------------------------------
     T_est, grid_max = stages.center_peak(probs)
     pair_mask = stages.consistent_pairs(T_est)
+    if pcfg.subvoxel_refine:
+        T_est = stages.refine_center(T_est, pair_mask)
 
     # --- orientation axes ---------------------------------------------------
     up = stages.vote_axis(pair_mask, up_logits, up_aux, draws.up,
@@ -469,6 +625,8 @@ def decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
         u_h, gate = _protrusion_centroid(pc, T_est, up, n_valid, asym_c)
         T_est = torch.where(gate, T_est + torch.dot(T_ref - T_est, u_h) * u_h, T_est)
         pair_mask = stages.consistent_pairs(T_est)
+        if pcfg.subvoxel_refine:
+            T_est = stages.refine_center(T_est, pair_mask)
 
     if pcfg.regress_right:
         right_w = asym = None

@@ -22,7 +22,7 @@ from cppf_tpu_torch.models.convert import make_encoders, params_to_state_dicts
 from cppf_tpu_torch.models.encoders import PointEncoder, PPFEncoder
 from cppf_tpu_torch.models.segmenter import InstanceNorm
 from cppf_tpu_torch.ops.knn import knn_indices
-from cppf_tpu_torch.train.losses import ppf_losses, ppf_regression_losses
+from cppf_tpu_torch.train.losses import PairDenominators, ppf_losses, ppf_regression_losses
 
 # flax's lecun_normal: a normal truncated at ±2σ, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -113,10 +113,13 @@ def init_train_state(cfg: Config, device, params: Optional[dict] = None) -> Trai
     return TrainState(point, ppf, opt, 0)
 
 
-def loss_fn(state: TrainState, batch: Batch, statics: TrainStatics):
+def loss_fn(state: TrainState, batch: Batch, statics: TrainStatics, denoms=None):
     """(mean over the batch of the per-sample totals, dict of each
     component's mean).  A sample: KNN on its points, the point encoder, the
-    pair head on its pairs, the losses."""
+    pair head on its pairs, the losses.  ``denoms`` [B, 4]
+    (``losses.pair_denominators`` summed over the pair ranks), when given,
+    makes each term this rank's rows' share of the term of the whole
+    sample (``ppf_losses``)."""
     totals, comps = [], []
     n = batch.pc.shape[1]
     arange = torch.arange(n, device=batch.pc.device)
@@ -127,17 +130,18 @@ def loss_fn(state: TrainState, batch: Batch, statics: TrainStatics):
         feat = state.point(pc, normals, nbr, valid)
         preds = state.ppf(pc, normals, feat, batch.point_idxs[i])
         aux_w = None if batch.aux_weight is None else batch.aux_weight[i]
+        den = None if denoms is None else PairDenominators(*denoms[i])
         if statics.cls_bins:
             up_w = None if batch.up_rot_weight is None else batch.up_rot_weight[i]
             total, comp = ppf_losses(
                 preds, batch.tr_prob[i], batch.rot_prob[i], batch.aux[i],
                 batch.scale_target[i], statics.tr_num_bins, statics.rot_num_bins,
                 statics.regress_right, aux_weight=aux_w, up_rot_weight=up_w,
-                right_aux_boost=statics.right_aux_boost)
+                right_aux_boost=statics.right_aux_boost, denoms=den)
         else:
             total, comp = ppf_regression_losses(preds, batch.tr_prob[i], batch.rot_prob[i],
                                                 batch.aux[i], batch.scale_target[i],
-                                                aux_weight=aux_w)
+                                                aux_weight=aux_w, denoms=den)
         totals.append(total)
         comps.append(comp)
     mean = {k: torch.stack([c[k] for c in comps]).mean() for k in comps[0]}

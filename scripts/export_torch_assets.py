@@ -71,12 +71,22 @@ segmenter ``crop`` [224, 224, 3], the label map ``labels`` [224, 224],
 (``before_T``, ``before_R``, ``before_scale``) and after it (``after_*``),
 and ``seed``.
 
+With ``--flags`` it writes ``cppf_tpu_torch/assets/flag_views.npz``: for
+each cell of ``chip_smoke.FLAG_CELLS`` (pose flags that no category config
+turns on, alone or in sets, on a category's committed views) the JAX
+``CategoryRunner.estimate`` on the CPU at the category's full width with
+the cell's flags set on its PoseConfig, on the key of the view's stored
+JAX run (``chip_smoke.view_keys``): ``<cell>_T_i``, ``<cell>_up_i``, ``<cell>_scale_i``,
+``<cell>_n_filtered_i`` and ``<cell>_right_i`` where the category
+regresses its right axis.
+
 Usage (needs JAX; runs on the CPU):
     python scripts/export_torch_assets.py [--category bowl] [--n_views 4] [--seed 0]
     python scripts/export_torch_assets.py --nocs_frame   (~5 min)
     python scripts/export_torch_assets.py --sun_scans    (~2 min)
     python scripts/export_torch_assets.py --laptop_aux   (~10 s)
     python scripts/export_torch_assets.py --laptop_frame
+    python scripts/export_torch_assets.py --flags         (~5 min)
 """
 from __future__ import annotations
 
@@ -528,6 +538,43 @@ def export_sun_scans(seed: int = 0):
     print(f"wrote {out}: {size} bytes", flush=True)
 
 
+def export_flag_views(ckpt_path: str):
+    """``assets/flag_views.npz`` (see the module docstring)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    import chip_smoke
+    from cppf_tpu.eval.nocs_inference import CategoryRunner
+
+    class Args:
+        num_rots = 72
+        angle_prec = 1.5
+        adaptive_voting = False
+        ckpt_name = None
+
+    runners, out = {}, {}
+    for name, cat, flags, views in chip_smoke.FLAG_CELLS:
+        if cat not in runners:
+            runners[cat] = (CategoryRunner(cat, ckpt_path, Args),
+                            np.load(os.path.join(ASSETS, f"{cat}_views.npz")))
+        runner, z = runners[cat]
+        keys = chip_smoke.view_keys(z)
+        base = runner.pcfg
+        runner.pcfg = dataclasses.replace(base, **flags)
+        for i in views:
+            res, _ = runner.estimate(jnp.asarray(np.array(keys[i], np.uint32)), z[f"pc_{i}"])
+            _store(out, f"{name}_", i, res, runner.cfg.regress_right)
+            out[f"{name}_n_filtered_{i}"] = np.int32(res.n_filtered)
+            t_err = float(np.linalg.norm(np.asarray(res.T) - z[f"T_{i}"]))
+            print(f"{name} ({cat}) view {i}: T err {t_err * 1000:.1f} mm, T moved "
+                  f"{np.linalg.norm(np.asarray(res.T) - z[f'jax_T_{i}']) * 1000:.2f} mm from "
+                  f"the unflagged estimate, survivors {int(res.n_filtered)}", flush=True)
+        runner.pcfg = base
+    np.savez_compressed(os.path.join(ASSETS, "flag_views.npz"), **out)
+    print(f"wrote {len(out)} arrays to flag_views.npz", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--category", default="bowl")
@@ -542,6 +589,8 @@ def main():
                     help="write <ckpt_path>/laptop_aux/params_best.npz, the segmenter's weights")
     ap.add_argument("--laptop_frame", action="store_true",
                     help="write assets/nocs_laptop_frame/ instead of a category's assets")
+    ap.add_argument("--flags", action="store_true",
+                    help="write assets/flag_views.npz, JAX's estimates under the pose flags")
     args = ap.parse_args()
 
     import jax
@@ -558,6 +607,9 @@ def main():
         return
     if args.laptop_frame:
         export_laptop_frame(args.seed)
+        return
+    if args.flags:
+        export_flag_views(args.ckpt_path)
         return
     from cppf_tpu.eval.nocs_inference import CategoryRunner
     from cppf_tpu.train.checkpoints import load_params

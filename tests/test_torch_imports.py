@@ -20,7 +20,9 @@ PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "cppf_tpu_torch", "**", "*.py")
                                                   os.path.join(ROOT, "scripts",
                                                                "laptop_smoke.py"),
                                                   os.path.join(ROOT, "scripts",
-                                                               "zero_shot_train_smoke.py")]
+                                                               "zero_shot_train_smoke.py"),
+                                                  os.path.join(ROOT, "scripts",
+                                                               "flags_smoke.py")]
 
 
 def _imported_modules(path):
@@ -55,9 +57,10 @@ def test_port_file_list_is_complete():
                    "parallel/launch.py", "data/resize.py", "data/exr.py",
                    "data/laptop_aux.py", "models/segmenter.py", "train/laptop_aux.py",
                    "eval/contrast_val.py", "eval/viz.py", "train/multirun.py", "data/stats.py",
-                   "data/sunrgbd_synth.py", "ops/peaks.py", "utils/prof.py"):
+                   "data/sunrgbd_synth.py", "ops/peaks.py", "utils/prof.py", "entry.py"):
         assert f"cppf_tpu_torch/{module}" in names
     assert "scripts/zero_shot_train_smoke.py" in names
+    assert "scripts/flags_smoke.py" in names
 
 
 def test_port_has_every_module_of_the_jax_package():

@@ -7,10 +7,15 @@ points, knn 16, 2048 pairs, JAX's draws) and the training tests' width
 
 One group of each size runs everything its ranks are asked here
 (``torch_parallel.parallel_checks``), while the parent compiles the JAX
-sharded programs in threads.  JAX's sharded pose runs once a category, on
-a (1, 2) mesh for bowl and table and a (1, 4) one for mug and laptop (its
-mesh size moves only the order of its float sums): both port group sizes
-are held to that run."""
+sharded programs in threads.  JAX's sharded pose runs once a job, on a
+(1, 2) or a (1, 4) mesh (its mesh size moves only the order of its float
+sums): both port group sizes are held to that run.  The jobs are four
+categories on their committed views, bowl with each of three pose flags,
+and tests/test_parallel.py:52-110's flag sets (grid and hier center modes)
+on its synthetic mug with JAX's random init.  The train step runs on a
+(2, 1) and a (1, 2) mesh of the 2-rank group and a (1, 4) and a (2, 2) one
+of the 4-rank group."""
+import dataclasses
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -27,9 +32,9 @@ from cppf_tpu.parallel.mesh import _factor as _factor_j
 from cppf_tpu.parallel.mesh import make_mesh as make_mesh_j
 from cppf_tpu.parallel.mesh import sharded_ppf_vote as sharded_ppf_vote_j
 from cppf_tpu.parallel.pose import sharded_estimate_pose as sharded_estimate_pose_j
+from cppf_tpu.pipeline.pose import PoseConfig as PoseConfigJ
 from cppf_tpu.train import step as step_j
 from cppf_tpu.train.checkpoints import load_params
-from cppf_tpu_torch.models.convert import ASSETS, load_encoders, load_npz_params
 from cppf_tpu_torch.ops.voting import _poolf, ppf_vote, ppf_vote_peak
 from cppf_tpu_torch.parallel.launch import run_ranks
 from cppf_tpu_torch.parallel.mesh import PairMesh, _factor, shard_rows
@@ -40,15 +45,28 @@ from torch_training import jax_batch, jax_params, small_configs, torch_batch
 torch.set_num_threads(1)
 
 SEED = 7
-# category → (view, points, JAX mesh's pair ranks)
-POSES = {"bowl": (0, 512, 2), "mug": (0, 512, 4), "table": (1, 2048, 2),
-         "laptop": (0, 512, 4)}
+# job → (category, view, points, JAX mesh's pair ranks, flags); view None is
+# tests/test_parallel.py:52-110's synthetic mug with JAX's random init
+POSE_FLAGS = ("subvoxel_refine", "sharp_axis_votes", "coplanar_halfspace")
+FLAG_SETS = {
+    center_mode: dict(rot_subsample=512, num_rots=16, knn=16, center_mode=center_mode,
+                      grid_shape=(48, 48, 48), subvoxel_refine=True,
+                      filter_coplanar=center_mode == "grid",
+                      coplanar_halfspace=center_mode == "hier", axis_topk=3, up_prior_deg=60.0,
+                      geo_right_sign=True, geo_right_dir="direct", sharp_axis_votes=True)
+    for center_mode in ("grid", "hier")}
+POSES = {"bowl": ("bowl", 0, 512, 2, {}), "mug": ("mug", 0, 512, 4, {}),
+         "table": ("table", 1, 2048, 2, {}), "laptop": ("laptop", 0, 512, 4, {}),
+         **{f"bowl_{f}": ("bowl", 0, 512, 2, {f: True}) for f in POSE_FLAGS},
+         **{f"mug_{m}": ("mug", None, 1024, 4, FLAG_SETS[m]) for m in FLAG_SETS}}
 SIZES = (2, 4)
+MESHES = {2: ((2, 1), (1, 2)), 4: ((1, 4), (2, 2))}
 
 
 def _vote_problem():
     """tests/test_parallel.py's pair-sharded vote: 64 points, 1024 pairs
-    aimed at the cloud's mean, 1 cm voxels, 24³, 16 rotations."""
+    aimed at the cloud's mean, 1 cm voxels, 24³, 16 rotations; and a
+    half-space gate of random directions on half the pairs, 1 cm margin."""
     rng = np.random.default_rng(0)
     n, p = 64, 1024
     pc = (rng.uniform(size=(n, 3)) * 0.2).astype(np.float32)
@@ -59,27 +77,67 @@ def _vote_problem():
     proj = np.sum((a - center) * u, -1)
     odist = np.linalg.norm(a - center - proj[:, None] * u, axis=-1)
     corner = pc.min(0)
+    n_out = rng.normal(size=(p, 3)).astype(np.float32)
+    n_out /= np.linalg.norm(n_out, axis=-1, keepdims=True)
     return dict(pc=pc, preds_tr=np.stack([proj, odist], -1).astype(np.float32),
                 probs=np.ones(n, np.float32), idxs=idxs, corner=corner, res=0.01,
                 dims=((pc.max(0) - corner) / 0.01).astype(np.int32) + 1,
-                grid_shape=(24, 24, 24), n_rots=16)
+                grid_shape=(24, 24, 24), n_rots=16,
+                halfspace=(a, n_out, rng.uniform(size=p) < 0.5, 0.01))
 
 
-def _pose_job(category):
-    view, n_points, _ = POSES[category]
-    raw, _ = ts.view(category, view)
-    pcfg_j, pcfg_t, cfg = ts.small_configs(category)
-    pre = ts.preprocess(raw, cfg.res, n_points)
+def _synthetic_mug(flags):
+    """tests/test_parallel.py:52-110's instance: 1500 samples of the mug
+    primitive, 1024 points at knn 16, JAX's random init from keys 1 and 2,
+    mug's PoseConfig at 2048 pairs with ``flags``.  Returns (pre, params,
+    JAX PoseConfig, port PoseConfig, out_dim)."""
+    from cppf_tpu.data.synthetic import PRIMITIVES, sample_surface
+    from cppf_tpu.pipeline.pose import make_models
+    from cppf_tpu.pipeline.preprocess import preprocess_cloud as preprocess_j
+
+    cfg_j = ts.load_config_j("mug")
+    pc_cam = sample_surface(PRIMITIVES["mug"](), 1500, np.random.default_rng(0)) \
+        .astype(np.float32) + np.float32([0.05, -0.02, 0.6])
+    pad = np.zeros((2048, 3), np.float32)
+    pad[:1500] = pc_cam
+    pre = preprocess_j(jax.random.PRNGKey(0), jnp.asarray(pad), 1500, cfg_j.res,
+                       npoint_pad=1024, knn=16)
+    point_enc, ppf_enc = make_models(cfg_j)
+    p_pt = point_enc.init(jax.random.PRNGKey(1), pre.pc, pre.normals, pre.nbr_idx)
+    feat = point_enc.apply(p_pt, pre.pc, pre.normals, pre.nbr_idx)
+    p_pf = ppf_enc.init(jax.random.PRNGKey(2), pre.pc, pre.normals, feat,
+                        jnp.zeros((8, 2), jnp.int32))
+    params = jax.tree.map(np.asarray, {"point": p_pt, "ppf": p_pf})
+    pcfg_j = dataclasses.replace(PoseConfigJ.from_config(cfg_j, n_pairs=2048), **flags)
+    pcfg_t = dataclasses.replace(PoseConfig.from_config(ts.load_config("mug"), n_pairs=2048),
+                                 **flags)
+    return pre, params, pcfg_j, pcfg_t, cfg_j.out_dim
+
+
+def _pose_job(name):
+    category, view, n_points, _, flags = POSES[name]
+    params = None
+    if view is None:
+        pre, params, pcfg_j, pcfg_t, out_dim = _synthetic_mug(flags)
+    else:
+        raw, _ = ts.view(category, view)
+        pcfg_j, pcfg_t, cfg = ts.small_configs(category)
+        pcfg_j = dataclasses.replace(pcfg_j, **flags)
+        pcfg_t = dataclasses.replace(pcfg_t, **flags)
+        pre = ts.preprocess(raw, cfg.res, n_points)
+        out_dim = cfg.out_dim
     key = jax.random.PRNGKey(SEED)
-    return dict(category=category, out_dim=cfg.out_dim, pc=np.asarray(pre.pc),
+    return dict(category=category, out_dim=out_dim, pc=np.asarray(pre.pc), params=params,
                 normals=np.asarray(pre.normals), n_valid=np.asarray(pre.n_valid),
                 nbr_idx=np.asarray(pre.nbr_idx), sphere=pcfg_t.sphere_points(), pcfg=pcfg_t,
-                draws=ts.jax_draws(key, pcfg_t)), (pcfg_j, pre, key)
+                draws=ts.jax_draws(key, pcfg_t)), (pcfg_j, pre, key, params)
 
 
-def _jax_pose(category, pcfg_j, pre, key):
-    params = load_params(os.path.join(ts.ROOT, "checkpoints", category), "params_best")
-    w = POSES[category][2]
+def _jax_pose(name, pcfg_j, pre, key, params):
+    if params is None:
+        params = load_params(os.path.join(ts.ROOT, "checkpoints", POSES[name][0]),
+                             "params_best")
+    w = POSES[name][3]
     out = sharded_estimate_pose_j(make_mesh_j(w, shape=(1, w)), key, params["point"],
                                   params["ppf"], pre.pc, pre.normals, pre.n_valid,
                                   jnp.asarray(pcfg_j.sphere_points()), pcfg_j,
@@ -88,9 +146,7 @@ def _jax_pose(category, pcfg_j, pre, key):
 
 
 def _port_pose(j):
-    point, ppf = load_encoders(
-        load_npz_params(os.path.join(ASSETS, f"{j['category']}_params_best.npz")),
-        j["out_dim"], "cpu")
+    point, ppf = torch_parallel.encoders(j)
     return estimate_pose(point, ppf, ts.t(j["pc"]), ts.t(j["normals"]), ts.t(j["n_valid"]),
                          ts.t(j["sphere"]), j["pcfg"], nbr_idx=ts.t(j["nbr_idx"]),
                          draws=j["draws"])._asdict()
@@ -120,9 +176,37 @@ def _train_references(cfg_j, cfg, params, batch_j, batch):
 
     comps = step.train_step(single, batch, step.TrainStatics.from_config(cfg))
     ps = single.opt.param_groups[0]["params"]
+    mesh_loss, mesh_grads, mesh_weights = _jax_mesh_step(cfg_j, params, batch_j, (2, 2))
     return (dict(loss=float(loss_j), grads=flat(grads_j), weights=flat(state_j.params)),
             dict(loss=float(comps["loss"]), grads=[p.grad.clone() for p in ps],
-                 weights=[p.detach().clone() for p in ps]))
+                 weights=[p.detach().clone() for p in ps]),
+            dict(loss=mesh_loss, grads=flat(mesh_grads), weights=flat(mesh_weights)))
+
+
+def _jax_mesh_step(cfg_j, params, batch_j, shape):
+    """JAX's loss, gradients and train_step on a ``shape`` mesh of the CPU
+    devices, the batch sharded as __graft_entry__.py shards it (samples over
+    data, pairs over pair)."""
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from cppf_tpu.parallel.mesh import DATA_AXIS, PAIR_AXIS
+
+    mesh = make_mesh_j(shape[0] * shape[1], shape=shape)
+    pair_fields = ("point_idxs", "tr_prob", "rot_prob", "aux", "aux_weight", "up_rot_weight")
+    batch_s = type(batch_j)(*(
+        None if a is None else jax.device_put(a, NamedSharding(
+            mesh, P(DATA_AXIS, PAIR_AXIS) if name in pair_fields else P(DATA_AXIS)))
+        for name, a in zip(batch_j._fields, batch_j)))
+    statics_j = step_j.TrainStatics.from_config(cfg_j)
+    tx = step_j.make_optimizer(cfg_j)
+    params_r = jax.device_put(jax.tree.map(jnp.asarray, params), NamedSharding(mesh, P()))
+    state_j = step_j.TrainState(params_r, tx.init(params_r), jnp.int32(0))
+    with mesh:
+        (loss, _), grads = jax.jit(jax.value_and_grad(step_j.loss_fn, has_aux=True),
+                                   static_argnums=2)(params_r, batch_s, statics_j)
+        state_j, _ = step_j.train_step(state_j, batch_s, statics_j, tx)
+    return float(loss), grads, state_j.params
 
 
 @pytest.fixture(scope="module")
@@ -131,8 +215,8 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("parallel")
     vote = _vote_problem()
     jobs, jax_inputs = {}, {}
-    for cat in POSES:
-        jobs[cat], jax_inputs[cat] = _pose_job(cat)
+    for name in POSES:
+        jobs[name], jax_inputs[name] = _pose_job(name)
     cfg_j, cfg = small_configs()
     params = jax_params(cfg_j)
     _, batch_j = jax_batch(cfg_j, jax.random.PRNGKey(1))
@@ -150,18 +234,19 @@ def runs(tmp_path_factory):
             os.makedirs(tmp / str(w))
             groups[w] = ex.submit(
                 run_ranks, torch_parallel.parallel_checks, "gloo", ["cpu"] * w,
-                dict(vote=vote, poses=jobs, **(dict(train=train) if w == 2 else {})),
-                str(tmp / str(w)), 240.0)
+                dict(vote=vote, poses=jobs, train=train, meshes=MESHES[w]),
+                str(tmp / str(w)), 600.0)
         train_refs = ex.submit(_train_references, cfg_j, cfg, params, batch_j, batch)
-        jax_poses = {cat: ex.submit(_jax_pose, cat, *jax_inputs[cat]) for cat in POSES}
-        port_poses = {cat: ex.submit(_port_pose, jobs[cat]) for cat in POSES}
-        jax_train, port_train = train_refs.result()
-        jax_poses = {cat: f.result() for cat, f in jax_poses.items()}
-        port_poses = {cat: f.result() for cat, f in port_poses.items()}
+        jax_poses = {n: ex.submit(_jax_pose, n, *jax_inputs[n]) for n in POSES}
+        port_poses = {n: ex.submit(_port_pose, jobs[n]) for n in POSES}
+        jax_train, port_train, jax_mesh_train = train_refs.result()
+        jax_poses = {n: f.result() for n, f in jax_poses.items()}
+        port_poses = {n: f.result() for n, f in port_poses.items()}
         ranks = {w: g.result() for w, g in groups.items()}
     return dict(ranks=ranks, vote=vote,
                 jax_poses=jax_poses, jax_grids=jax_grids, port_poses=port_poses,
-                jax_train=jax_train, port_train=port_train, jobs=jobs)
+                jax_train=jax_train, port_train=port_train, jax_mesh_train=jax_mesh_train,
+                jobs=jobs)
 
 
 def _vote_args(vote):
@@ -237,50 +322,82 @@ def test_reduce_fn_none_is_bit_equal():
 
 
 @pytest.mark.parametrize("world_size", SIZES)
-@pytest.mark.parametrize("category", list(POSES))
-def test_sharded_pose_matches_jax(runs, category, world_size):
+@pytest.mark.parametrize("job", list(POSES))
+def test_sharded_pose_matches_jax(runs, job, world_size):
     """The port's sharded pose on every rank equals JAX's sharded pose from
-    the same key: T the same voxel, up/right/R to 1e-5, scale to rtol 1e-5,
-    the back-vote survivors equal; and the port's one-device pose on the
-    same draws: T, up, right and survivors to the bit, scale to rtol 1e-5.
-    Every rank returns the same pose, and the pose's traffic is that of
-    its collectives: the back-vote masks gathered (a byte a pair), the
-    peak's projections and windows, the sphere counts and the BCE and
-    scale sums reduced."""
-    want = runs["jax_poses"][category]
-    single = runs["port_poses"][category]
-    ranks = [r["poses"][category] for r in runs["ranks"][world_size]]
+    the same key: T the same voxel (with ``subvoxel_refine`` to 1e-5, JAX's
+    own sharded-against-single tolerance), up/right/R to 1e-5, scale to rtol
+    1e-5, the back-vote survivors equal; and the port's one-device pose on
+    the same draws: up, right and survivors to the bit, T to the bit (with
+    ``subvoxel_refine`` to ``SUBVOXEL_T_TOL``: its normal equations are
+    summed over the ranks), scale to rtol 1e-5.  Every rank returns the same pose, and the
+    pose's traffic is that of its collectives: the back-vote masks gathered
+    (a byte a pair); the peak's projections and windows (``center_mode``
+    hier) or the dense grid (grid); the Gauss-Newton terms (13 float64s
+    a step, 3 steps a center pass, with ``subvoxel_refine``); the sphere
+    counts and the BCE and scale sums reduced."""
+    want = runs["jax_poses"][job]
+    single = runs["port_poses"][job]
+    ranks = [r["poses"][job] for r in runs["ranks"][world_size]]
+    pcfg = runs["jobs"][job]["pcfg"]
     got = ranks[0]["result"]
     for r in ranks[1:]:
         for k, v in r["result"].items():
             assert torch.equal(v, got[k]), k
         assert r["traffic"] == ranks[0]["traffic"]
-    for k in ("T", "up", "right", "R"):
+    np.testing.assert_allclose(got["T"].numpy(), want["T"],
+                               atol=1e-5 if pcfg.subvoxel_refine else 1e-6)
+    for k in ("up", "right", "R"):
         np.testing.assert_allclose(got[k].numpy(), want[k], atol=1e-5, err_msg=k)
     np.testing.assert_allclose(got["scale"].numpy(), want["scale"], rtol=1e-5)
     assert int(got["n_filtered"]) == int(want["n_filtered"])
-    for k in ("T", "up", "right", "n_filtered"):
+    for k in ("up", "right", "n_filtered"):
         assert torch.equal(got[k], single[k]), k
+    if pcfg.subvoxel_refine:
+        np.testing.assert_allclose(got["T"].numpy(), single["T"].numpy(), atol=ts.SUBVOXEL_T_TOL)
+    else:
+        assert torch.equal(got["T"], single["T"])
     np.testing.assert_allclose(got["scale"].numpy(), single["scale"].numpy(), rtol=1e-5)
     np.testing.assert_allclose(float(got["grid_max"]), float(single["grid_max"]), rtol=1e-5)
 
-    pcfg = runs["jobs"][category]["pcfg"]
     traffic = ranks[0]["traffic"]
     passes = 2 if pcfg.asym_center_refine else 1
     axes = 2 if pcfg.regress_right else 1
     k = pcfg.axis_topk
     g = pcfg.grid_shape[0]
-    proj = 4 * 3 * g * -(-g // _poolf(g))
-    counts = 4 * len(runs["jobs"][category]["sphere"])
+    gn = 3 * passes if pcfg.subvoxel_refine else 0
+    fixed_calls = gn + axes * (1 + 2 * k) + 1
+    fixed_bytes = gn * 13 * 8 + axes * (4 * len(runs["jobs"][job]["sphere"]) + 16 * k) + 16
     assert traffic["all_gather_calls"] == passes
     assert traffic["all_gather_bytes"] == passes * world_size * -(-pcfg.n_pairs // world_size)
-    # per center pass 3 projections and 1-2 windows (peak_rounds 2); per
-    # axis the counts and 2 BCE sums a candidate; the scale sums
-    assert (passes * 4 + axes * (1 + 2 * k) + 1 <= traffic["all_reduce_calls"]
-            <= passes * 5 + axes * (1 + 2 * k) + 1)
-    assert (passes * (proj + 4 * 16 ** 3) + axes * (counts + 16 * k) + 16
-            <= traffic["all_reduce_bytes"]
-            <= passes * (proj + 2 * 4 * 16 ** 3) + axes * (counts + 16 * k) + 16)
+    if pcfg.center_mode == "grid":
+        assert traffic["all_reduce_calls"] == passes + fixed_calls
+        assert traffic["all_reduce_bytes"] == passes * 4 * g ** 3 + fixed_bytes
+        return
+    # per center pass 3 projections and 1-2 windows (peak_rounds 2)
+    proj = 4 * 3 * g * -(-g // _poolf(g))
+    assert passes * 4 + fixed_calls <= traffic["all_reduce_calls"] <= passes * 5 + fixed_calls
+    assert (passes * (proj + 4 * 16 ** 3) + fixed_bytes <= traffic["all_reduce_bytes"]
+            <= passes * (proj + 2 * 4 * 16 ** 3) + fixed_bytes)
+
+
+def _assert_step(got, ref, w_tol):
+    """A rank's step against a reference: loss 1e-5, gradients 1e-4 of each
+    tensor's maximum, weights ``w_tol``."""
+    np.testing.assert_allclose(float(got["comps"]["loss"]), ref["loss"], rtol=1e-5)
+    for g, g_ref in zip(got["grads"], ref["grads"], strict=True):
+        g_ref = torch.as_tensor(np.asarray(g_ref))
+        assert g.shape == g_ref.shape
+        assert float((g - g_ref).abs().max()) <= 1e-4 * max(float(g_ref.abs().max()), 1e-12)
+    for w, w_ref in zip(got["weights"], ref["weights"], strict=True):
+        np.testing.assert_allclose(w.numpy(), np.asarray(w_ref), rtol=0, atol=w_tol)
+
+
+def _same_on_every_rank(ranks):
+    for r in ranks[1:]:
+        for a, b in zip(r["weights"], ranks[0]["weights"]):
+            assert torch.equal(a, b)
+        assert all(torch.equal(r["comps"][k], ranks[0]["comps"][k]) for k in r["comps"])
 
 
 def test_data_parallel_step_matches_jax_and_one_device(runs):
@@ -288,47 +405,83 @@ def test_data_parallel_step_matches_jax_and_one_device(runs):
     on the whole batch (loss 1e-5, gradients 1e-4 of each maximum, weights
     1e-5) and the port's one-device step (loss 1e-5, gradients 1e-4 of each
     maximum, weights 1e-6); both ranks hold the same weights."""
-    ranks = [r["train"] for r in runs["ranks"][2]]
-    for r in ranks[1:]:
-        for a, b in zip(r["weights"], ranks[0]["weights"]):
-            assert torch.equal(a, b)
-        assert all(torch.equal(r["comps"][k], ranks[0]["comps"][k]) for k in r["comps"])
-    got = ranks[0]
+    ranks = [r["train"][(2, 1)] for r in runs["ranks"][2]]
+    _same_on_every_rank(ranks)
     for ref, w_tol in ((runs["jax_train"], 1e-5), (runs["port_train"], 1e-6)):
-        np.testing.assert_allclose(float(got["comps"]["loss"]), ref["loss"], rtol=1e-5)
-        for g, g_ref in zip(got["grads"], ref["grads"], strict=True):
-            g_ref = torch.as_tensor(np.asarray(g_ref))
-            assert g.shape == g_ref.shape
-            assert float((g - g_ref).abs().max()) <= 1e-4 * max(float(g_ref.abs().max()), 1e-12)
-        for w, w_ref in zip(got["weights"], ref["weights"], strict=True):
-            np.testing.assert_allclose(w.numpy(), np.asarray(w_ref), rtol=0, atol=w_tol)
+        _assert_step(ranks[0], ref, w_tol)
+    assert ranks[0]["traffic"]["all_reduce_calls"] == 2
 
 
 def test_ranks_start_from_the_same_weights(runs):
     """The flax-style init is drawn from cfg.seed: equal on every rank."""
-    ranks = [r["train"]["init"] for r in runs["ranks"][2]]
+    ranks = [r["train"][(2, 1)]["init"] for r in runs["ranks"][2]]
     assert len(ranks[0]) > 0
     for a, b in zip(ranks[0], ranks[1], strict=True):
         assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("world_size", SIZES)
-def test_unported_and_misplaced_raise(runs, world_size):
-    """A half-space gate, pair-axis training and a tensor on another device
-    than the group's raise in the ranks."""
-    assert runs["ranks"][world_size][0]["raised"] == {
-        "halfspace": "NotImplementedError", "pair_axis_training": "NotImplementedError",
-        "other_device": "ValueError"}
+def test_sharded_halfspace_and_pair_training(runs, world_size):
+    """The half-space gate over the ranks: the sharded grid equals the
+    one-device gated grid to 1e-5 of its maximum, and the sharded peak is
+    its maximum (to rtol 1e-5), the same on every rank; a step with the
+    pairs split over W pair ranks, a (1, W) mesh, equals the port's
+    one-device step (loss 1e-5, gradients 1e-4 of each maximum, weights
+    1e-6) and JAX's op by op (weights 1e-5), the same weights on every
+    rank, its traffic the pair denominators, the gradients and the
+    components summed over the pair group and again over the data group;
+    and a tensor on another device than the group's raises ValueError."""
+    vote = runs["vote"]
+    a, n_out, gate, margin = vote["halfspace"]
+    hs = (ts.t(a), ts.t(n_out), ts.t(gate), torch.tensor(margin))
+    args = _vote_args(vote)
+    grid = ppf_vote(*args, n_rots=vote["n_rots"], halfspace=hs)
+    ungated = ppf_vote(*args, n_rots=vote["n_rots"])
+    assert float((grid - ungated).abs().max()) > 1e-3 * float(ungated.max())
+    ranks = runs["ranks"][world_size]
+    idx, peak = ranks[0]["gated"]["peak"]
+    for r in ranks:
+        np.testing.assert_allclose(r["gated"]["grid"].numpy(), grid.numpy(),
+                                   atol=1e-5 * float(grid.max()))
+        assert torch.equal(r["gated"]["peak"][0], idx)
+        assert torch.equal(r["gated"]["peak"][1], peak)
+    np.testing.assert_allclose(float(peak), float(grid.max()), rtol=1e-5)
+    assert float(grid[tuple(idx.long())]) >= float(grid.max()) * (1 - 1e-5)
+
+    steps = [r["train"][(1, world_size)] for r in ranks]
+    _same_on_every_rank(steps)
+    _assert_step(steps[0], runs["port_train"], 1e-6)
+    _assert_step(steps[0], runs["jax_train"], 1e-5)
+    assert steps[0]["traffic"]["all_reduce_calls"] == 5
+    assert runs["ranks"][world_size][0]["raised"] == {"other_device": "ValueError"}
 
 
-@pytest.mark.parametrize("flag", ["subvoxel_refine", "sharp_axis_votes", "coplanar_halfspace"])
-def test_unported_pose_flags_raise(flag):
-    _, cfg = ts.runner_configs("bowl")
+def test_pair_and_data_sharded_step_matches_jax_mesh(runs):
+    """One step on a (2, 2) mesh (a sample a data rank, its pairs over two
+    pair ranks) against JAX's train_step on a (2, 2) mesh of the CPU
+    devices with the batch sharded as __graft_entry__.py shards it, and
+    against the port's one-device step: loss 1e-5, gradients 1e-4 of each
+    maximum, weights 1e-6; every rank holds the same weights."""
+    steps = [r["train"][(2, 2)] for r in runs["ranks"][4]]
+    _same_on_every_rank(steps)
+    _assert_step(steps[0], runs["jax_mesh_train"], 1e-6)
+    _assert_step(steps[0], runs["port_train"], 1e-6)
+
+
+@pytest.mark.parametrize("flag", POSE_FLAGS)
+def test_pose_flag_parity(flag):
+    """The flags that raised before they were ported: PoseConfig.from_config
+    takes each as JAX's does (every field equal), and a grid center mode is
+    a PoseConfig of its own; the sharded pose with the flag is held by
+    ``test_sharded_pose_matches_jax[bowl_<flag>-*]``."""
+    cfg_j, cfg = ts.runner_configs("bowl")
     setattr(cfg, flag, True)
-    with pytest.raises(NotImplementedError, match=flag):
-        PoseConfig.from_config(cfg)
-    with pytest.raises(TypeError):
-        PoseConfig(center_mode="grid")
+    setattr(cfg_j, flag, True)
+    pj, pt = PoseConfigJ.from_config(cfg_j), PoseConfig.from_config(cfg)
+    assert getattr(pt, flag) is True
+    for f in dataclasses.fields(pt):
+        assert getattr(pt, f.name) == getattr(pj, f.name), f.name
+    assert PoseConfig(center_mode="grid").center_mode == "grid"
 
 
 @pytest.mark.parametrize("n", range(1, 17))

@@ -49,11 +49,21 @@ def test_pose_config_matches_jax():
 
 
 @pytest.mark.parametrize("flag,value", [("coplanar_halfspace", True), ("subvoxel_refine", True)])
-def test_unported_flags_raise(flag, value):
-    cfg = load_config("mug")
+def test_flag_config_and_slice(flag, value):
+    """Two flags that no config turns on, which the port once refused:
+    from_config takes each on mug's runner config as JAX's does (every
+    field equal), and mug's slice with it on view 0 matches JAX's (T the
+    same voxel, or with subvoxel_refine within 2e-6; axes 1e-6)."""
+    cfg_j, cfg = runner_configs("mug")
     setattr(cfg, flag, value)
-    with pytest.raises(NotImplementedError):
-        PoseConfig.from_config(cfg)
+    setattr(cfg_j, flag, value)
+    pj, pt = PoseConfigJ.from_config(cfg_j), PoseConfig.from_config(cfg)
+    assert getattr(pt, flag) == value
+    for f in dataclasses.fields(pt):
+        assert getattr(pt, f.name) == getattr(pj, f.name), f.name
+    out_j, out_t, sphere, draws = run_slice("mug", 0, 7, flags={flag: value})
+    assert_slices_match(out_j, out_t, sphere, draws, regress_right=True,
+                        subvoxel=flag == "subvoxel_refine")
 
 
 @pytest.mark.parametrize("view,seed", [(0, 7), (2, 11)])

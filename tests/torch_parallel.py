@@ -43,16 +43,24 @@ def vote_and_peak(mesh, vote):
     return dict(grid=grid, peak=peak, peak_api=peak_api, reduced=reduced)
 
 
+def encoders(j):
+    """A pose job's encoders: its ``params`` (a JAX params tree), else its
+    category's committed weights."""
+    from cppf_tpu_torch.models.convert import ASSETS, load_encoders, load_npz_params
+
+    params = j.get("params")
+    if params is None:
+        params = load_npz_params(os.path.join(ASSETS, f"{j['category']}_params_best.npz"))
+    return load_encoders(params, j["out_dim"], "cpu")
+
+
 def poses(mesh, jobs):
     """sharded_estimate_pose of each pose job, with the traffic of each."""
-    from cppf_tpu_torch.models.convert import ASSETS, load_encoders, load_npz_params
     from cppf_tpu_torch.parallel.pose import sharded_estimate_pose
 
     out = {}
     for name, j in jobs.items():
-        point, ppf = load_encoders(
-            load_npz_params(os.path.join(ASSETS, f"{j['category']}_params_best.npz")),
-            j["out_dim"], "cpu")
+        point, ppf = encoders(j)
         mesh.traffic.clear()
         res = sharded_estimate_pose(mesh, point, ppf, _t(j["pc"]), _t(j["normals"]),
                                     _t(j["n_valid"]), _t(j["sphere"]), j["pcfg"], j["draws"],
@@ -62,8 +70,9 @@ def poses(mesh, jobs):
 
 
 def train_step(mesh, job):
-    """One data_parallel_train_step of the rank's samples from JAX's init;
-    the flax-style init's weights; what a pair axis raises."""
+    """One data_parallel_train_step of the rank's share of the batch
+    (samples over data, pairs over pair) from JAX's init, with the
+    step's collective traffic; the flax-style init's weights."""
     from cppf_tpu_torch.parallel.train_step import data_parallel_train_step
     from cppf_tpu_torch.train import step
 
@@ -71,42 +80,54 @@ def train_step(mesh, job):
     statics = step.TrainStatics.from_config(cfg)
     fresh = step.init_train_state(cfg, "cpu")
     state = step.init_train_state(cfg, "cpu", params=job["params"])
+    mesh.traffic.clear()
     comps = data_parallel_train_step(state, shard_batch(batch, mesh), statics, mesh)
     params = state.opt.param_groups[0]["params"]
     return dict(comps=comps, grads=[p.grad.clone() for p in params],
-                weights=[p.detach().clone() for p in params],
+                weights=[p.detach().clone() for p in params], traffic=dict(mesh.traffic),
                 init=[p.detach().clone() for p in fresh.opt.param_groups[0]["params"]])
+
+
+def gated_vote(mesh, vote):
+    """sharded_ppf_vote and sharded_ppf_vote_peak of the rank's rows of the
+    ``vote`` problem under its half-space gate (``vote["halfspace"]``:
+    every pair's rows)."""
+    from cppf_tpu_torch.parallel.mesh import shard_halfspace
+
+    pc, preds_tr, probs, idxs, corner = (_t(vote[k]) for k in
+                                         ("pc", "preds_tr", "probs", "idxs", "corner"))
+    rows = shard_rows(idxs.shape[0], mesh)
+    a, n_out, gate, margin = vote["halfspace"]
+    hs = shard_halfspace((_t(a), _t(n_out), _t(gate), torch.tensor(margin)), rows)
+    args = (pc, preds_tr[rows], probs, idxs[rows], corner, vote["res"], _t(vote["dims"]),
+            vote["grid_shape"])
+    return dict(grid=sharded_ppf_vote(mesh, *args, n_rots=vote["n_rots"], halfspace=hs),
+                peak=sharded_ppf_vote_peak(mesh, *args, n_rots=vote["n_rots"], halfspace=hs))
 
 
 def parallel_checks(rank, world_size, device, job):
     """Everything ``test_torch_parallel.py`` asks of one gloo group: the
-    vote and the peak and the poses on a (1, W) mesh, the data-parallel
-    step on a (W, 1) mesh, and what must raise."""
+    vote, the peak (plain and under a half-space gate) and the poses on a
+    (1, W) mesh; the train step on each mesh shape of ``job["meshes"]``;
+    and what must raise."""
     from cppf_tpu_torch.parallel.pose import sharded_estimate_pose
-    from cppf_tpu_torch.parallel.train_step import data_parallel_train_step
 
     torch.set_num_threads(1)
     pair_mesh = make_mesh(world_size, shape=(1, world_size), device=device)
-    out = dict(vote=vote_and_peak(pair_mesh, job["vote"]), poses=poses(pair_mesh, job["poses"]))
-    if "train" in job:
-        data_mesh = make_mesh(world_size, shape=(world_size, 1), device=device)
-        out["train"] = train_step(data_mesh, job["train"])
+    out = dict(vote=vote_and_peak(pair_mesh, job["vote"]),
+               gated=gated_vote(pair_mesh, job["vote"]), poses=poses(pair_mesh, job["poses"]))
+    out["train"] = {}
+    for shape in job["meshes"]:
+        mesh = pair_mesh if shape == (1, world_size) else make_mesh(world_size, shape=shape,
+                                                                    device=device)
+        out["train"][shape] = train_step(mesh, job["train"])
     raised = {}
-    v = job["vote"]
-    for what, call in (
-            ("halfspace", lambda: sharded_ppf_vote_peak(
-                pair_mesh, _t(v["pc"]), _t(v["preds_tr"]), _t(v["probs"]), _t(v["idxs"]),
-                _t(v["corner"]), v["res"], _t(v["dims"]), v["grid_shape"],
-                halfspace=(None, None, None, 0.0))),
-            ("pair_axis_training", lambda: data_parallel_train_step(None, None, None, pair_mesh)),
-            ("other_device", lambda: sharded_estimate_pose(
-                pair_mesh, None, None, torch.zeros((4, 3), device="meta"), None, 4, None, None,
-                job["poses"]["bowl"]["draws"]))):
-        try:
-            call()
-            raised[what] = None
-        except (NotImplementedError, ValueError) as e:
-            raised[what] = type(e).__name__
+    try:
+        sharded_estimate_pose(pair_mesh, None, None, torch.zeros((4, 3), device="meta"), None,
+                              4, None, None, job["poses"]["bowl"]["draws"])
+        raised["other_device"] = None
+    except ValueError as e:
+        raised["other_device"] = type(e).__name__
     out["raised"] = raised
     return out
 

@@ -86,13 +86,17 @@ def small_configs(category):
     return pcfg_j, pcfg_t, cfg_t
 
 
-def run_slice(category, i, seed, laptop_up=None, eager=False, n_points=N_POINTS):
+def run_slice(category, i, seed, laptop_up=None, eager=False, n_points=N_POINTS, flags=None):
     """Committed view ``i`` of ``category`` at the test size through both
     pipelines on identical draws: (JAX PoseResult, port PoseResult, sphere,
     the draws).  ``eager`` runs the JAX pipeline op by op (``disable_jit``)
-    instead of as one compiled program."""
+    instead of as one compiled program; ``flags`` are set on both
+    PoseConfigs."""
     raw, _ = view(category, i)
     pcfg_j, pcfg_t, cfg = small_configs(category)
+    if flags:
+        pcfg_j = dataclasses.replace(pcfg_j, **flags)
+        pcfg_t = dataclasses.replace(pcfg_t, **flags)
     pre = preprocess(raw, cfg.res, n_points)
     sphere = pcfg_t.sphere_points()
     params = load_params(os.path.join(ROOT, "checkpoints", category), "params_best")
@@ -130,14 +134,21 @@ def right_from_sphere(right, up, sphere, fallback, tol=1e-6):
     return any(np.all(np.abs(orthonormal_right(up, c).numpy() - right) < tol) for c in cands)
 
 
+# a sub-voxel T (subvoxel_refine) is continuous: its Gauss-Newton sums run
+# in another order than XLA's
+SUBVOXEL_T_TOL = 2e-6
+
+
 def assert_slices_match(out_j, out_t, sphere, draws, regress_right=False, laptop_up=None,
-                        min_survivors=100):
-    """T to 1e-6 (the same voxel), up and right to 1e-6, scale to rtol
-    1e-5, back-vote survivors within 0.1 % (and at least
-    ``min_survivors``).  The up axis is a sphere direction (or the plane
-    override's ``laptop_up``), and a regressed right axis one made
-    orthonormal to it (or the override's)."""
-    np.testing.assert_allclose(out_t.T.numpy(), np.asarray(out_j.T), atol=1e-6)
+                        min_survivors=100, subvoxel=False):
+    """T to 1e-6 (the same voxel; with ``subvoxel``, to
+    ``SUBVOXEL_T_TOL``), up and right to 1e-6, scale to rtol 1e-5,
+    back-vote survivors within 0.1 % (and at least ``min_survivors``).
+    The up axis is a sphere direction (or the plane override's
+    ``laptop_up``), and a regressed right axis one made orthonormal to it
+    (or the override's)."""
+    np.testing.assert_allclose(out_t.T.numpy(), np.asarray(out_j.T),
+                               atol=SUBVOXEL_T_TOL if subvoxel else 1e-6)
     np.testing.assert_allclose(out_t.up.numpy(), np.asarray(out_j.up), atol=1e-6)
     np.testing.assert_allclose(out_t.right.numpy(), np.asarray(out_j.right), atol=1e-6)
     np.testing.assert_allclose(out_t.R.numpy(), np.asarray(out_j.R), atol=1e-6)
