@@ -218,6 +218,29 @@ Phases:
    (2, 2) mesh (a sample a data rank, its 200 000 pairs over two pair
    ranks) against one rank, the same limits, ms a step beside one rank's.
 
+18. the quality gauges (``cppf_tpu_torch/scripts/``, the demo): (a)
+   ``eval_checkpoints`` at 4 poses, seed 0, for all 12 categories: its
+   views the committed views and its keys JAX's, each pose printed beside
+   JAX's stored estimate (the laptop's override pose beside
+   ``jax_ov_*``), the medians held to phase 8's rule, the peak kernels'
+   launches by their rule; bowl's view 0 under ``--set center_mode=grid``
+   (``dense_hist_pairs``) and sofa's under ``--set coplanar_halfspace=true``
+   (the votes front ends), each held by phase 16's rule to JAX's estimate
+   of that view and key under that flag (``assets/flag_views.npz``); (b)
+   the synthetic NOCS (bowl, mug, can, clutter), SUN RGB-D (table) and
+   zero-shot (bowls, 1 M pairs) runs against the stored JAX run
+   (``assets/gauge_runs.npz``): every instance's T within 1 cm and up
+   within 5° of JAX's, or one parted pose a run whose up axis is a near tie
+   (``AXIS_TIE_FRAC`` on its own sphere counts; a zero-shot T never parts),
+   the zero-shot detections counted as JAX's, the AP tables printed beside
+   JAX's; (c)
+   the gauges at their defaults (NOCS bowl 20 frames, SUN table 10 scans,
+   zero-shot 8 frames at 2 M pairs), ``bench_zero_shot`` on the demo frame
+   at 5 M pairs (both routes) and the demo in both modes, each with its
+   launches held, and one ``{"gauges": ...}`` line with the ``nvidia-smi``
+   line; ``dense_hist`` held and timed on a synthetic zero-shot frame's
+   first pair chunk, both peak kernels on bowl's first view.
+
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose, of one zero-shot frame,
 of one NOCS frame, of one pass of the SUN driver's loop and of one training
@@ -2639,6 +2662,26 @@ def axis_margins(runner, pc_raw, draws, want_axes):
     return out
 
 
+def _hold_flag_axes(what, runner, pc_raw, draws, n_filtered, stored, name, i, up_d, right_d):
+    """Phase 16's rule for the axes of one flagged pose, ``up_d`` and
+    ``right_d`` degrees from JAX's stored ``<name>_up_<i>`` / ``_right_``:
+    within AXIS_TOL_DEG; else only on another back-vote survivor count than
+    JAX's, and only as a near tie on the port's sphere counts."""
+    if up_d <= AXIS_TOL_DEG and (right_d or 0.0) <= AXIS_TOL_DEG:
+        return
+    check(n_filtered != int(stored[f"{name}_n_filtered_{i}"]),
+          f"{what}: the axes part from JAX's on the same back-vote survivor count")
+    jr = stored[f"{name}_right_{i}"] if runner.cfg.regress_right else None
+    margins = axis_margins(runner, pc_raw, draws, (stored[f"{name}_up_{i}"], jr))
+    print(f"    parted axes: up {up_d:.3f} deg, right {right_d} deg from JAX's, the survivors "
+          f"differing; the port's sphere counts at its winner and at JAX's (up, right): "
+          f"{margins}", flush=True)
+    for (top, at_jax), deg in zip(margins, (up_d, right_d)):
+        check(deg <= AXIS_TOL_DEG or at_jax >= (1 - AXIS_TIE_FRAC) * top,
+              f"{what}: a parted axis is no near tie: JAX's direction holds {at_jax} of the "
+              f"winner's {top} votes")
+
+
 def gated_kernel_records(inp, label):
     """Phase 16: the votes front ends of the three kernels on the votes of a
     gated center pass (``main_path_inputs(..., halfspace=True)``), held and
@@ -2711,20 +2754,8 @@ def flags_phase(smi):
                       f"against GT: port T {e[0] * 1e3:.2f} mm up {e[1]:.2f} deg, JAX T "
                       f"{je[0] * 1e3:.2f} mm up {je[1]:.2f} deg; launches "
                       f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-                same_inputs = int(out.n_filtered) == int(stored[f"{name}_n_filtered_{i}"])
-                if up_d > AXIS_TOL_DEG or (right_d or 0.0) > AXIS_TOL_DEG:
-                    check(not same_inputs, f"phase 16 {name} view {i}: the axes part from "
-                          f"JAX's on the same back-vote survivor count")
-                    jr = stored[f"{name}_right_{i}"] if runner.cfg.regress_right else None
-                    margins = axis_margins(runner, z[f"pc_{i}"], d,
-                                           (stored[f"{name}_up_{i}"], jr))
-                    print(f"    parted axes: up {up_d:.3f} deg, right {right_d} deg from JAX's, "
-                          f"the survivors differing; the port's sphere counts at its winner and "
-                          f"at JAX's (up, right): {margins}", flush=True)
-                    for (top, at_jax), deg in zip(margins, (up_d, right_d)):
-                        check(deg <= AXIS_TOL_DEG or at_jax >= (1 - AXIS_TIE_FRAC) * top,
-                              f"phase 16 {name} view {i}: a parted axis is no near tie: JAX's "
-                              f"direction holds {at_jax} of the winner's {top} votes")
+                _hold_flag_axes(f"phase 16 {name} view {i}", runner, z[f"pc_{i}"], d,
+                                int(out.n_filtered), stored, name, i, up_d, right_d)
                 if pcfg.subvoxel_refine:
                     # off the voxel lattice of the center vote: a refined T
                     corner = grid_frame(pre.pc, pre.valid_mask, pcfg)[0].double().cpu().numpy()
@@ -3218,6 +3249,498 @@ def zero_shot_train_phase(smi):
     return {"dense_hist": record}, train_launches
 
 
+# ---- phase 18: the quality gauges, the checkpoint eval and the demo -------
+GAUGE_ASSET = "gauge_runs.npz"
+GAUGE_CATEGORIES = ("bottle", "bowl", "camera", "can", "laptop", "mug", "table", "chair",
+                    "bed", "sofa", "bookshelf", "bathtub")
+GAUGE_POSES = 4
+# --set flags of eval_checkpoints, one pose each (the committed view 0 and
+# its key), with the kernel they reach and the cell of FLAG_CELLS that holds
+# JAX's estimate of the same view and key under the same flag
+GAUGE_FLAG_SETS = (("bowl", "center_mode=grid", "dense_hist_pairs", "grid"),
+                   ("sofa", "coplanar_halfspace=true", "bound_projections", "halfspace"))
+
+
+def _launched(fn):
+    """(fn(), the launch counts of its run): counts set to 0 just before,
+    read just after, the card synchronised around it; the script's own
+    printing kept in a buffer."""
+    import contextlib
+    import io
+
+    from cppf_tpu_torch.ops import vote_hist as vh
+
+    torch.cuda.synchronize()
+    vh.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, dict(vh.LAUNCHES)
+
+
+def _peak_path_ok(launches, passes, what):
+    """The pairs front ends of the peak kernels, once and 1-2 times a
+    center pass, and nothing else."""
+    check(launches["bound_projections_pairs"] == passes,
+          f"{what}: bound_projections_pairs launched {launches['bound_projections_pairs']} times, "
+          f"not once a center pass ({passes})")
+    check(passes <= launches["refine_window_pairs"] <= 2 * passes,
+          f"{what}: refine_window_pairs launched {launches['refine_window_pairs']} times for "
+          f"{passes} center passes")
+    check(all(launches[k] == 0 for k in ("bound_projections", "refine_window", "dense_hist",
+                                         "dense_hist_pairs")),
+          f"{what}: a votes front end or dense_hist launched")
+
+
+def _dense_path_ok(launches, what):
+    check(launches["dense_hist_pairs"] > 0, f"{what}: dense_hist_pairs never launched")
+    check(all(launches[k] == 0 for k in ("dense_hist", "bound_projections", "refine_window")),
+          f"{what}: a votes front end launched: {launches}")
+
+
+def checkpoint_eval_gauge(total):
+    """Phase 18 (a): ``eval_checkpoints.eval_category`` at 4 poses, seed 0,
+    for every category: its views must be the committed views (the clouds
+    as the runner takes them, the stored keys), each pose is printed beside
+    JAX's stored estimate (the laptop's override pose beside
+    ``jax_ov_*``), the medians against GT are held to phase 8's rule, and
+    the launches to the peak kernels' rule; then one pose under each
+    ``--set`` of ``GAUGE_FLAG_SETS``, held to JAX's estimate under that
+    flag by phase 16's rule.  Returns ({category: the script's
+    summary}, the kernel records of bowl's first view)."""
+    from cppf_tpu_torch.eval.nocs_inference import _pad_cloud
+    from cppf_tpu_torch.models.convert import ASSETS
+    from cppf_tpu_torch.scripts import eval_checkpoints as ec
+
+    ckpt = os.path.join(ROOT, "checkpoints")
+    summary, records = {}, None
+    for cat in GAUGE_CATEGORIES:
+        z = np.load(os.path.join(ASSETS, f"{cat}_views.npz"))
+        runner = ec.load_runner(cat, ckpt)
+        cfg, pcfg = runner.cfg, runner.pcfg
+        poses = []
+        summary[cat], launches = _launched(lambda: ec.eval_category(
+            cat, ckpt, GAUGE_POSES, 0, poses=poses, runner=runner))
+        total.update(launches)
+        ov = cat == "laptop"
+        passes = (2 if pcfg.asym_center_refine else 1) * GAUGE_POSES * (2 if ov else 1)
+        _peak_path_ok(launches, passes, f"phase 18 (a) {cat}")
+        check(len(poses) == GAUGE_POSES == int(z["n_views"]), f"phase 18 (a) {cat}: "
+              f"{len(poses)} poses")
+        sets = [("", "jax_")] + ([("ov_", "jax_ov_")] if ov else [])
+        for prefix, jax in sets:
+            errs, jerrs = [], []
+            for i, p in enumerate(poses):
+                v = p["view"]
+                pad, n_raw = _pad_cloud(v.pc, cfg.npoint_max)
+                check(np.array_equal(pad[:n_raw], z[f"pc_{i}"]),
+                      f"phase 18 (a) {cat} view {i}: not the committed view")
+                if f"jax_key_{i}" in z.files:
+                    check(np.array_equal(np.asarray(v.key, np.uint32), z[f"jax_key_{i}"]),
+                          f"phase 18 (a) {cat} view {i}: not the stored JAX key")
+                T, up, right = (p[prefix + k] for k in ("T", "up", "right"))
+                jr = z[f"{jax}right_{i}"] if cfg.regress_right else None
+                errs.append(category_errors(T, up, right, p[prefix + "scale"], z, i, cfg))
+                jerrs.append(category_errors(z[f"{jax}T_{i}"], z[f"{jax}up_{i}"], jr,
+                                             z[f"{jax}scale_{i}"], z, i, cfg))
+                print(f"  phase 18 (a) {cat}{' override' if prefix else ''} view {i}: port minus "
+                      f"JAX T {np.linalg.norm(T - z[f'{jax}T_{i}']) * 1e3:.3f} mm, up "
+                      f"{_angle(up, z[f'{jax}up_{i}']):.3f} deg"
+                      + (f", right {_angle(right, jr):.3f} deg" if jr is not None else ""),
+                      flush=True)
+            med = [_median([e[k] for e in errs]) for k in range(3)]
+            jmed = [_median([e[k] for e in jerrs]) for k in range(3)]
+            what = f"phase 18 (a) {cat}{' override' if prefix else ''}"
+            check(med[0] <= 2 * jmed[0] + 5 * cfg.res, f"{what}: median T error "
+                  f"{med[0] * 1e3:.1f} mm > twice JAX's {jmed[0] * 1e3:.1f} mm + 5 voxels")
+            check(med[1] <= jmed[1] + 15.0, f"{what}: median up error {med[1]:.1f} deg > "
+                  f"JAX's {jmed[1]:.1f} + 15 deg")
+            if cfg.regress_right:
+                check(med[2] <= jmed[2] + 15.0, f"{what}: median right error {med[2]:.1f} deg "
+                      f"> JAX's {jmed[2]:.1f} + 15 deg")
+            print(f"{what}: median T {med[0] * 1e3:.2f} mm, up {med[1]:.2f} deg, right "
+                  f"{med[2]:.2f} deg (JAX's stored estimates: {jmed[0] * 1e3:.2f} mm, "
+                  f"{jmed[1]:.2f}, {jmed[2]:.2f} deg); launches {launches}", flush=True)
+        print(f"phase 18 (a) {cat}: eval_checkpoints {json.dumps(summary[cat])}", flush=True)
+        if cat == "bowl":
+            records = kernel_phase(main_path_inputs(runner, poses[0]["view"].pc,
+                                                    pcfg.grid_shape),
+                                   "eval_checkpoints bowl view 0")
+        del runner
+    stored = np.load(os.path.join(ASSETS, "flag_views.npz"))
+    for cat, flag, kernel, name in GAUGE_FLAG_SETS:
+        what = f"phase 18 (a) {cat} --set {flag}"
+        runner = ec.load_runner(cat, ckpt, overrides=ec.parse_overrides([flag]))
+        poses = []
+        r, launches = _launched(lambda: ec.eval_category(cat, ckpt, 1, 0, poses=poses,
+                                                         runner=runner))
+        total.update(launches)
+        check(flag_launches_ok(runner.pcfg, launches), f"{what}: launched {launches}")
+        check(launches[kernel] >= 1, f"{what}: {kernel} not launched")
+        # held to JAX's estimate of the same view and key under the same
+        # flag (phase 16's cell ``name``) by phase 16's rule
+        p, view = poses[0], poses[0]["view"]
+        dT = float(np.abs(p["T"] - stored[f"{name}_T_0"]).max())
+        up_d = _angle(p["up"], stored[f"{name}_up_0"])
+        right_d = (_angle(p["right"], stored[f"{name}_right_0"]) if runner.cfg.regress_right
+                   else None)
+        print(f"{what}: {json.dumps(r)}; port minus JAX (phase 16's {name} cell): T "
+              f"{dT * 1e3:.4f} mm, up {up_d:.4f} deg, right {right_d} deg, survivors "
+              f"{p['n_filtered']} / {int(stored[f'{name}_n_filtered_0'])}; launches {launches}",
+              flush=True)
+        draws = runner.draws(view.key)
+        _hold_flag_axes(what, runner, view.pc, draws, p["n_filtered"], stored, name, 0, up_d,
+                        right_d)
+        if dT > 1e-5:
+            _, pre = runner.estimate(view.pc, draws=draws)
+            check(_dense_value_ok(runner, pre, draws, [p["T"], stored[f"{name}_T_0"]]),
+                  f"{what}: T {p['T'].tolist()} is not JAX's {stored[f'{name}_T_0'].tolist()}")
+        del runner
+    return summary, records
+
+
+def _axes(RTs):
+    """(T, up) of each R·|s| pose row [n, 4, 4]."""
+    R = RTs[:, :3, :3] / np.cbrt(np.linalg.det(RTs[:, :3, :3]))[:, None, None]
+    return RTs[:, :3, 3], R[:, :, 1]
+
+
+def _hold_poses(what, T, up, T_j, up_j, fold, t_tol, up_tol, parts):
+    """One pose against the stored JAX run's: within ``t_tol`` and
+    ``up_tol`` it is JAX's; else it is listed in ``parts`` as (what, T, up
+    of JAX's, whether T parted) for :func:`_hold_parts`."""
+    dT = float(np.linalg.norm(T - T_j))
+    d_up = _angle(up, up_j, fold=fold)
+    print(f"  {what}: port minus JAX T {dT * 1e3:.3f} mm, up {d_up:.3f} deg", flush=True)
+    if dT > t_tol or d_up > up_tol:
+        parts.append((what, T, up_j, dT > t_tol, d_up > up_tol))
+
+
+class _PoseRecorder:
+    """Records each ``CategoryRunner.estimate`` call of the runs inside it:
+    (runner, cloud, draws, T), so that a pose that parts from JAX's can be
+    run again with its sphere counts captured."""
+
+    def __enter__(self):
+        from cppf_tpu_torch.eval.nocs_inference import CategoryRunner
+
+        self.calls, self.real = [], CategoryRunner.estimate
+
+        def estimate(runner, pc_raw, generator=None, draws=None, laptop_up=None):
+            out = self.real(runner, pc_raw, generator, draws, laptop_up)
+            self.calls.append((runner, pc_raw, draws, out[0].T.cpu().numpy()))
+            return out
+
+        CategoryRunner.estimate = estimate
+        return self
+
+    def __exit__(self, *exc):
+        from cppf_tpu_torch.eval.nocs_inference import CategoryRunner
+
+        CategoryRunner.estimate = self.real
+
+    def margins(self, what, T, up_j, t_part):
+        """The port's sphere counts at its winning up direction and at
+        JAX's, the recorded pose whose T is ``T`` run again on its draws.
+        Its T may part only after a second center pass (that of
+        ``asym_center_refine`` weighs the points by their asymmetry about
+        the first pass's up axis)."""
+        mine = [c for c in self.calls if np.allclose(c[3], T, rtol=0, atol=1e-6)]
+        check(len(mine) >= 1, f"{what}: no recorded pose")
+        runner, pc_raw, draws, _ = mine[0]
+        check(not t_part or runner.pcfg.asym_center_refine,
+              f"{what}: T parts from JAX's without a second center pass")
+        (top, at_jax), = axis_margins(runner, pc_raw, draws, (up_j,))
+        return top, at_jax
+
+
+class _UpVoteRecorder:
+    """Records the sphere counts of each zero-shot detection's up vote
+    (``sphere_bin_count`` in ``detect_from_heatmap``: one call a detection,
+    in the order of the detections) of the runs inside it."""
+
+    def __enter__(self):
+        from cppf_tpu_torch.eval import zero_shot as zs
+
+        self.counts, self.real = [], zs.sphere_bin_count
+
+        def count(points, sphere, cos_tol):
+            c = self.real(points, sphere, cos_tol)
+            self.counts.append((c.cpu().numpy(), sphere.cpu().numpy()))
+            return c
+
+        zs.sphere_bin_count = count
+        return self
+
+    def __exit__(self, *exc):
+        from cppf_tpu_torch.eval import zero_shot as zs
+
+        zs.sphere_bin_count = self.real
+
+    def margins_of(self, detections):
+        """:func:`_hold_parts`' margins over the run's ``detections`` (a
+        list a frame): a zero-shot T comes from the heatmap's peak and the
+        box anchor, with no second center pass, so it never parts."""
+        flat = [d for dets in detections for d in dets]
+        check(len(flat) == len(self.counts), f"{len(self.counts)} up votes recorded for "
+              f"{len(flat)} detections")
+
+        def margins(what, T, up_j, t_part):
+            check(not t_part, f"{what}: a zero-shot T parts from JAX's")
+            k = next(k for k, d in enumerate(flat) if np.allclose(d.T, T, rtol=0, atol=1e-9))
+            c, sphere = self.counts[k]
+            # the vote picks a sphere point, the aux logits its sign
+            return float(c.max()), float(max(c[np.argmax(sphere @ up_j)],
+                                             c[np.argmax(-(sphere @ up_j))]))
+        return margins
+
+
+def _hold_parts(run, parts, margins):
+    """The parted poses of one run (``_hold_poses``): at most one, and only
+    as a near tie of its up axis (ROADMAP §C): JAX's up direction holds at
+    least 1 - ``AXIS_TIE_FRAC`` of the winning sphere point's votes, as
+    ``margins(what, T, up_j, t_part)`` counts them (``_PoseRecorder``,
+    ``_UpVoteRecorder``) after checking that the pose's T may part.  A T
+    beyond the tolerance passes only with its up axis parted."""
+    check(len(parts) <= 1, f"phase 18 (b) {run}: {[p[0] for p in parts]} part from JAX's")
+    for what, T, up_j, t_part, up_part in parts:
+        check(up_part, f"{what}: T parts from JAX's with the up axis JAX's")
+        top, at_jax = margins(what, T, up_j, t_part)
+        print(f"    {what}: a parted up axis; the port's sphere counts at its winner {top} and "
+              f"at JAX's direction {at_jax}", flush=True)
+        check(at_jax >= (1 - AXIS_TIE_FRAC) * top, f"{what}: the parted up axis is no near tie")
+
+
+def _ap_line(name, got, want, cells):
+    return f"{name}: " + ", ".join(f"{k} {got[k]:.1f} (JAX {want[k]:.1f})" for k in cells)
+
+
+def synthetic_gauges(tmp, total):
+    """Phase 18 (b): the NOCS, SUN RGB-D and zero-shot synthetic runs at the
+    settings of ``assets/gauge_runs.npz``, each instance against the stored
+    JAX run (T within 1 cm, up within 5°, as phases 10-11 hold them; at
+    most one parted pose a run, held as a near tie by :func:`_hold_parts`),
+    the zero-shot detections counted as JAX's, the AP tables printed beside
+    JAX's.  Returns {run: port summary}."""
+    import pickle
+
+    from cppf_tpu_torch.config import load_config
+    from cppf_tpu_torch.eval.nocs_inference import SYNSET_NAMES, result_path
+    from cppf_tpu_torch.models.convert import ASSETS
+    from cppf_tpu_torch.scripts import (sunrgbd_synthetic_benchmark as sun_bench,
+                                        synthetic_benchmark as synth,
+                                        zero_shot_benchmark as zs_bench)
+
+    z = np.load(os.path.join(ASSETS, GAUGE_ASSET))
+    settings = json.loads(str(z["settings"]))
+    ckpt = os.path.join(ROOT, "checkpoints")
+    out = {}
+
+    # NOCS: the driver on bowl, mug and can with clutter
+    s = settings["nocs"]
+    d = os.path.join(tmp, "nocs")
+    with _PoseRecorder() as rec:
+        got, launches = _launched(lambda: synth.main([
+            "--category", s["category"], "--n_frames", str(s["n_frames"]), "--instances",
+            str(s["instances"]), "--clutter", str(s["clutter"]), "--seed", str(s["seed"]),
+            "--ckpt_path", ckpt, "--out_dir", d]))
+    total.update(launches)
+    check(launches["bound_projections_pairs"] > 0 and launches["refine_window_pairs"] > 0
+          and launches["dense_hist_pairs"] == 0 and launches["bound_projections"] == 0,
+          f"phase 18 (b) nocs: launches {launches}")
+    parts = []
+    check(got["frames"] == len(z["nocs_frames"]), "phase 18 (b) nocs: not JAX's frames")
+    for f in z["nocs_frames"]:
+        with open(result_path(os.path.join(d, "pred"),
+                              {"image_path": f"data/real/scene_1/{f:04d}"}), "rb") as fh:
+            res = pickle.load(fh)
+        check(np.array_equal(res["pred_class_ids"], z[f"nocs_class_ids_{f}"]),
+              f"phase 18 (b) nocs frame {f}: not JAX's instances")
+        (T, up), (T_j, up_j) = _axes(res["pred_RTs"]), _axes(z[f"nocs_RTs_{f}"])
+        for i, c in enumerate(res["pred_class_ids"]):
+            name = SYNSET_NAMES[c]
+            _hold_poses(f"phase 18 (b) nocs frame {f} instance {i} ({name})", T[i], up[i],
+                        T_j[i], up_j[i], name in UP_SYMMETRIC, NOCS_T_TOL, NOCS_UP_TOL_DEG, parts)
+    _hold_parts("nocs", parts, rec.margins)
+    del rec
+    want = synth.ap_table(z["nocs_iou_aps"], z["nocs_pose_aps"], got["categories"])
+    for cat in got["categories"]:
+        print(_ap_line(f"phase 18 (b) nocs {cat} AP %", got["aps"][cat], want[cat],
+                       ("iou_25", "iou_50", "5deg_5cm", "10deg_10cm", "15deg_15cm")), flush=True)
+    out["nocs"] = dict(got, eval=None, jax_aps=want)
+
+    # SUN RGB-D: table scans
+    s = settings["sun"]
+    d = os.path.join(tmp, "sun")
+    with _PoseRecorder() as rec:
+        got, launches = _launched(lambda: sun_bench.main([
+            "--category", s["category"], "--n_scans", str(s["n_scans"]), "--instances",
+            str(s["instances"]), "--seed", str(s["seed"]), "--up_prior_deg",
+            str(s["up_prior_deg"]), "--ckpt_path", ckpt, "--out_dir", d]))
+    total.update(launches)
+    # asym_center_refine is overlaid from the repo's config, up_sym the snapshot's
+    cfg = load_config(s["category"], snapshot=os.path.join(ckpt, s["category"], "config.yaml"))
+    _peak_path_ok(launches, got["instances"]
+                  * (2 if load_config(s["category"]).asym_center_refine else 1),
+                  "phase 18 (b) sun")
+    with open(os.path.join(d, "pred", f"results_{s['category']}.pkl"), "rb") as fh:
+        rows = pickle.load(fh)
+    parts = []
+    for scan in z["sun_scans"]:
+        mine = np.asarray(rows[str(scan)], np.float64).reshape(-1, 17)
+        theirs = z[f"sun_rows_{scan}"]
+        check(len(mine) == len(theirs), f"phase 18 (b) sun scan {scan}: {len(mine)} poses, "
+              f"JAX {len(theirs)}")
+        for k, (a, b) in enumerate(zip(mine, theirs)):
+            _hold_poses(f"phase 18 (b) sun scan {scan} box {k}", a[14:17],
+                        a[5:14].reshape(3, 3)[:, 1], b[14:17], b[5:14].reshape(3, 3)[:, 1],
+                        cfg.up_sym, SUN_T_TOL, SUN_UP_TOL_DEG, parts)
+    _hold_parts("sun", parts, rec.margins)
+    del rec
+    degs, cms = sun_bench.POSE_DEGS, sun_bench.POSE_CMS
+    want = {"iou_25": z["sun_iou_aps"][1, 25] * 100, "iou_50": z["sun_iou_aps"][1, 50] * 100}
+    want.update({f"{dd}deg_{c}cm": z["sun_pose_aps"][1, degs.index(dd), cms.index(c)] * 100
+                 for dd, c in sun_bench.SUMMARY_CELLS})
+    print(_ap_line(f"phase 18 (b) sun {s['category']} AP %", got["aps"], want, list(want)),
+          flush=True)
+    out["sun"] = dict(got, eval=None, posed=None, jax_aps=want)
+
+    # zero-shot: bowls, no detection priors
+    s = settings["zs"]
+    d = os.path.join(tmp, "zs")
+    with _UpVoteRecorder() as rec:
+        got, launches = _launched(lambda: zs_bench.main([
+            "--category", s["category"], "--n_frames", str(s["n_frames"]), "--instances",
+            str(s["instances"]), "--clutter", str(s["clutter"]), "--n_pairs", str(s["n_pairs"]),
+            "--seed", str(s["seed"]), "--out_dir", d]))
+    total.update(launches)
+    _dense_path_ok(launches, "phase 18 (b) zero-shot")
+    parts = []
+    for f, dets in zip(z["zs_frames"], got["detections"]):
+        T_j, up_j = _axes(z[f"zs_RTs_{f}"])
+        check(len(dets) == len(T_j), f"phase 18 (b) zero-shot frame {f}: {len(dets)} "
+              f"detections, JAX {len(T_j)}")
+        for k in range(len(T_j)):
+            dist, det = _match(dets, [T_j[k]])[0]
+            _hold_poses(f"phase 18 (b) zero-shot frame {f} detection {k}", det.T, det.R[:, 1],
+                        T_j[k], up_j[k], True, NOCS_T_TOL, NOCS_UP_TOL_DEG, parts)
+    _hold_parts("zero-shot", parts, rec.margins_of(got["detections"]))
+    del rec
+    cls = SYNSET_NAMES.index(s["category"])
+    want = {"iou_ap_25": round(float(z["zs_iou_aps"][cls, 25]) * 100, 1),
+            "iou_ap_50": round(float(z["zs_iou_aps"][cls, 50]) * 100, 1),
+            "pose_ap": {k: round(float(z["zs_pose_aps"][cls, i, j]) * 100, 1)
+                        for k, (i, j) in zip(got["pose_ap"], np.ndindex(3, 3))}}
+    print(f"phase 18 (b) zero-shot AP %: iou 25 {got['iou_ap_25']:.1f} (JAX "
+          f"{want['iou_ap_25']:.1f}), pose {json.dumps(got['pose_ap'])} (JAX "
+          f"{json.dumps(want['pose_ap'])}); {got['n_detections']} detections", flush=True)
+    out["zero_shot"] = dict(got, eval=None, detections=None, jax_aps=want)
+    return out
+
+
+def default_gauges(tmp, total):
+    """Phase 18 (c): each gauge at its defaults, the heatmap timer on the
+    demo frame and the demo in both modes, each with its launches held to
+    its path's rule.  Returns the ``gauges`` record and the dense_hist
+    record of a synthetic zero-shot frame's first pair chunk."""
+    from cppf_tpu_torch.config import load_config
+    from cppf_tpu_torch.data.png import read_png
+    from cppf_tpu_torch.demo import pose_single
+    from cppf_tpu_torch.eval import zero_shot as zs
+    from cppf_tpu_torch.eval.nocs_inference import REAL275_INTRINSICS
+    from cppf_tpu_torch.models.convert import load_encoders
+    from cppf_tpu_torch.scripts import (bench_zero_shot, sunrgbd_synthetic_benchmark as sun_bench,
+                                        synthetic_benchmark as synth,
+                                        zero_shot_benchmark as zs_bench)
+
+    ckpt = os.path.join(ROOT, "checkpoints")
+    gauges = {}
+    t0 = time.perf_counter()
+    nocs, launches = _launched(lambda: synth.main(["--ckpt_path", ckpt,
+                                                    "--out_dir", os.path.join(tmp, "nocs")]))
+    total.update(launches)
+    _peak_path_ok(launches, nocs["instances"], "phase 18 (c) nocs")
+    gauges["nocs"] = {k: nocs[k] for k in ("categories", "frames", "instances", "aps",
+                                           "s_per_frame", "pose_s_per_frame")}
+    gauges["nocs"]["run_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sun, launches = _launched(lambda: sun_bench.main(["--ckpt_path", ckpt,
+                                                      "--out_dir", os.path.join(tmp, "sun")]))
+    total.update(launches)
+    _peak_path_ok(launches, sun["instances"] * (2 if load_config("table").asym_center_refine
+                                                else 1), "phase 18 (c) sun")
+    gauges["sun"] = {k: sun[k] for k in ("category", "scans", "instances", "aps", "s_per_scan")}
+    gauges["sun"]["run_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zsr, launches = _launched(lambda: zs_bench.main(["--out_dir", os.path.join(tmp, "zs")]))
+    total.update(launches)
+    _dense_path_ok(launches, "phase 18 (c) zero-shot")
+    gauges["zero_shot"] = {k: zsr[k] for k in ("n_frames", "instances", "n_detections",
+                                               "iou_ap_25", "iou_ap_50", "pose_ap",
+                                               "s_per_frame", "first_s")}
+    gauges["zero_shot"]["run_s"] = time.perf_counter() - t0
+    heat, launches = _launched(lambda: bench_zero_shot.main([]))
+    total.update(launches)
+    _dense_path_ok(launches, "phase 18 (c) bench_zero_shot")
+    gauges["heatmap"] = heat
+    demo = {}
+    dcfg = load_config("bottle")
+    passes = 2 if dcfg.asym_center_refine else 1
+    for mode, argv in (("oracle", []), ("ckpt", ["--ckpt", os.path.join(ckpt, "bottle")])):
+        r, launches = _launched(lambda: pose_single.main(argv))
+        total.update(launches)
+        _peak_path_ok(launches, passes, f"phase 18 (c) demo, {mode} mode")
+        T_err = float(np.linalg.norm(r["out"].T.cpu().numpy() - r["T_true"]))
+        up_err = _angle(r["out"].up.cpu().numpy(), r["R_true"][:, 1], fold=dcfg.up_sym)
+        check(np.isfinite(T_err) and np.isfinite(up_err), f"phase 18 (c) demo {mode}: not finite")
+        demo[mode] = {"T_err_mm": T_err * 1e3, "up_err_deg": up_err, "s": r["seconds"],
+                      "survivors": int(r["out"].n_filtered)}
+        print(f"phase 18 (c) demo, {mode} mode: {json.dumps(demo[mode])}; launches {launches}",
+              flush=True)
+    check(demo["oracle"]["T_err_mm"] < 10.0 and demo["oracle"]["up_err_deg"] < 10.0,
+          f"phase 18 (c) the oracle demo is off: {demo['oracle']}")
+    gauges["demo"] = demo
+
+    # dense_hist on the first synthetic zero-shot frame's first pair chunk
+    zcfg, params = zs_bench.load_zero_shot(os.path.join(ckpt, "bowl_reg"))
+    depth = read_png(os.path.join(tmp, "zs", "nocs", "real", "scene_1", "0000_depth.png"))
+    hm = zs.zero_shot_heatmap(depth, load_encoders(params, 9, "cuda"), zcfg,
+                              intrinsics=REAL275_INTRINSICS, n_pairs=2_000_000)
+    label, make, frame, grid_shape, pool = dense_shapes(hm, zcfg.res)[0]
+    record = dense_record(make(True), frame, grid_shape, pool,
+                          f"zero-shot benchmark frame 0, {label}")
+    return gauges, record
+
+
+def gauges_phase(smi):
+    """Phase 18: (a) the checkpoint eval against the committed views, (b)
+    the synthetic runs against the stored JAX run, (c) the gauges at their
+    defaults; prints the ``gauges`` line.  Returns (kernel records, the
+    launches summed over the phase's runs)."""
+    import collections
+    import tempfile
+
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    medians, records = checkpoint_eval_gauge(total)
+    t_a = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        synthetic = synthetic_gauges(os.path.join(tmp, "b"), total)
+        t_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gauges, records["dense_hist"] = default_gauges(os.path.join(tmp, "c"), total)
+        t_c = time.perf_counter() - t0
+    gauges.update(eval_checkpoints=medians, card=smi,
+                  against_jax={k: {"aps": v["aps"] if "aps" in v else v["pose_ap"],
+                                   "jax_aps": v.get("jax_aps")} for k, v in synthetic.items()},
+                  phase_s={"a": t_a, "b": t_b, "c": t_c})
+    print(json.dumps({"gauges": gauges}, default=float), flush=True)
+    print(smi_line(), flush=True)
+    print(f"phase 18: launches over its runs {dict(total)}", flush=True)
+    return records, dict(total)
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     ap.add_argument("--profile", action="store_true", help="profile one warm pose")
@@ -3398,6 +3921,11 @@ def main():
     entry_launches = entry_phase(smi)
     print(f"phase 17 (entry points): {time.perf_counter() - t17:.1f} s", flush=True)
 
+    # ---- 18. the quality gauges, the checkpoint eval and the demo ----------
+    t18 = time.perf_counter()
+    gauge_records, gauge_launches = gauges_phase(smi)
+    print(f"phase 18 (quality gauges): {time.perf_counter() - t18:.1f} s", flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
     # comparisons, stands beside it under votes_ keys.  The peak kernels
@@ -3423,7 +3951,9 @@ def main():
              ("zero-shot training's contrast validation (phase 15)", zs_records,
               zs_train_launches),
              ("pose flags, votes front ends under the half-space gate (phase 16)", flag_records,
-              flag_launches)]
+              flag_launches),
+             ("quality gauges, the checkpoint eval and the demo (phase 18)", gauge_records,
+              gauge_launches)]
     for path, recs, counts in paths:
         for name, rec in recs.items():
             if rec.get("front") == "votes":

@@ -97,6 +97,21 @@ def _pad_cloud(pc_raw: np.ndarray, n_raw_pad: int):
     return pad, n_raw
 
 
+def served_weights(cls_name: str, path: str) -> str:
+    """The ``.npz`` weights a runner serves for ``cls_name`` from the
+    checkpoint directory ``path``: ``<path>/params_best.npz``, else, where
+    ``path`` is the repo's ``checkpoints/<cls_name>`` (or a link to it),
+    ``assets/<cls_name>_params_best.npz``, that directory's weights
+    exported.  Raises ``FileNotFoundError`` otherwise."""
+    ckpt = os.path.join(path, "params_best.npz")
+    if os.path.exists(ckpt):
+        return ckpt
+    repo_path = os.path.join(REPO_ROOT, "checkpoints", cls_name)
+    if os.path.isdir(path) and os.path.realpath(path) == os.path.realpath(repo_path):
+        return os.path.join(ASSETS, f"{cls_name}_params_best.npz")
+    raise FileNotFoundError(f"no params_best.npz for {cls_name} under {path}")
+
+
 class CategoryRunner:
     """Config, weights and pipeline for one category.
 
@@ -118,15 +133,10 @@ class CategoryRunner:
                  ckpt_path: Optional[str] = None):
         self.device = resolve_device(device)
         pin_float32()
-        repo_path = os.path.join(REPO_ROOT, "checkpoints", cls_name)
-        path = os.path.join(ckpt_path, cls_name) if ckpt_path else repo_path
+        path = (os.path.join(ckpt_path, cls_name) if ckpt_path
+                else os.path.join(REPO_ROOT, "checkpoints", cls_name))
         if ckpt is None:
-            ckpt = os.path.join(path, "params_best.npz")
-            if not os.path.exists(ckpt):
-                if not (os.path.isdir(path)
-                        and os.path.realpath(path) == os.path.realpath(repo_path)):
-                    raise FileNotFoundError(f"no params_best.npz for {cls_name} under {path}")
-                ckpt = os.path.join(ASSETS, f"{cls_name}_params_best.npz")
+            ckpt = served_weights(cls_name, path)
         snap = os.path.join(path, "config.yaml")
         self.cfg = load_config(cls_name, snapshot=snap if os.path.exists(snap) else None)
         self.cfg.num_rots = num_rots

@@ -19,18 +19,29 @@ type and integer end points.
   circle of radius ``(thickness + 1) // 2`` caps each original end point
   (``Circle``).  Pixels outside the image are dropped.
 
-``draw_text`` of the JAX package (``cv2.putText``'s Hershey font) is not
-ported.
+Rectangles (``cv2.rectangle``) are the four lines of their outline at the
+thickness, or filled, the box clipped to the image.  Text
+(:func:`put_text`, ``cv2.putText`` in ``FONT_HERSHEY_TRIPLEX`` at scale 1
+and thickness 1) is drawn from a table of the font's glyphs,
+``assets/hershey_triplex.npz`` (``scripts/export_torch_hershey.py``,
+rendered with OpenCV from the Hershey fonts): each glyph's pixels and
+their coverage ``a``.  OpenCV 5 draws a glyph antialiased, a pixel taking
+``bg + (color - bg)·a/255`` rounded, and blends the glyphs of a string
+one after another, each at the origin advanced by the widths less one of
+the glyphs before it; at scale 1 the coverage moves with the origin.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
 from cppf_tpu_torch.core.geometry import (calculate_2d_projections, get_3d_bbox,
                                           transform_coordinates_3d)
 
+FONT_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
+                         "hershey_triplex.npz")
 XY_SHIFT = 16
 XY_ONE = 1 << XY_SHIFT
 HALF = XY_ONE >> 1
@@ -276,16 +287,121 @@ def _band(mask: np.ndarray, fx0: int, fy0: int, fx1: int, fy1: int, thickness: i
                             (fx1 - ox, fy1 - oy), (fx1 + ox, fy1 + oy)])
 
 
-def draw_line(img: np.ndarray, p, q, color, thickness: int = 1) -> np.ndarray:
-    """``cv2.line(img, p, q, color, thickness)`` on a uint8 [H, W] or
-    [H, W, C] image: paints it in place and returns it."""
+def _paint(img: np.ndarray, mask: np.ndarray, color, what: str) -> np.ndarray:
+    """``color`` (a channel a value, as cv2 takes it) into the ``mask``
+    pixels of the uint8 [H, W] or [H, W, C] ``img``, in place."""
     if img.dtype != np.uint8:
-        raise ValueError(f"draw_line draws on uint8 images, not {img.dtype}")
+        raise ValueError(f"{what} draws on uint8 images, not {img.dtype}")
     channels = 1 if img.ndim == 2 else img.shape[2]
     value = np.clip(np.rint(np.atleast_1d(np.asarray(color, np.float64))[:channels]), 0,
                     255).astype(np.uint8)
-    img[line_mask(img.shape, p, q, thickness)] = value if img.ndim == 3 else value[0]
+    img[mask] = value if img.ndim == 3 else value[0]
     return img
+
+
+def draw_line(img: np.ndarray, p, q, color, thickness: int = 1) -> np.ndarray:
+    """``cv2.line(img, p, q, color, thickness)`` on a uint8 [H, W] or
+    [H, W, C] image: paints it in place and returns it."""
+    return _paint(img, line_mask(img.shape, p, q, thickness), color, "draw_line")
+
+
+def rectangle_mask(shape, p, q, thickness: int = 1) -> np.ndarray:
+    """The pixels [H, W] bool that ``cv2.rectangle`` paints for the integer
+    corners ``p``, ``q`` (x, y): the four lines of the outline at
+    ``thickness`` (:func:`line_mask`), or for a negative ``thickness`` the
+    filled box, clipped to the image."""
+    x0, y0, x1, y1 = int(p[0]), int(p[1]), int(q[0]), int(q[1])
+    mask = np.zeros(shape[:2], bool)
+    if thickness < 0:
+        xl, xr = max(min(x0, x1), 0), min(max(x0, x1), shape[1] - 1)
+        yt, yb = max(min(y0, y1), 0), min(max(y0, y1), shape[0] - 1)
+        if xl <= xr and yt <= yb:
+            mask[yt:yb + 1, xl:xr + 1] = True
+        return mask
+    corners = ((x0, y0), (x1, y0), (x1, y1), (x0, y1))
+    for k in range(4):
+        mask |= line_mask(shape, corners[k - 1], corners[k], thickness)
+    return mask
+
+
+def draw_rectangle(img: np.ndarray, p, q, color, thickness: int = 1) -> np.ndarray:
+    """``cv2.rectangle(img, p, q, color, thickness)`` (negative: filled) on
+    a uint8 image, in place."""
+    return _paint(img, rectangle_mask(img.shape, p, q, thickness), color, "draw_rectangle")
+
+
+_FONT: dict = {}
+
+
+def _font() -> dict:
+    """The glyph table, read at first use: {code: (pixel offsets [n, 2],
+    coverage [n], advance, height, baseline)}."""
+    if not _FONT:
+        with np.load(FONT_PATH) as z:
+            start, offsets = z["start"], z["offsets"].astype(np.int64)
+            alpha = z["alpha"].astype(np.int64)
+            for k, code in enumerate(z["codes"]):
+                sl = slice(start[k], start[k + 1])
+                _FONT[int(code)] = (offsets[sl], alpha[sl], int(z["advance"][k]),
+                                    int(z["height"][k]), int(z["baseline"][k]))
+    return _FONT
+
+
+def _glyphs(text: str) -> list:
+    font = _font()
+    missing = sorted({ch for ch in text if ord(ch) not in font})
+    if missing:
+        raise ValueError(f"no Hershey glyph for {missing}: the table holds printable ASCII")
+    return [font[ord(ch)] for ch in text]
+
+
+def text_size(text: str):
+    """``cv2.getTextSize(text, FONT_HERSHEY_TRIPLEX, 1, 1)``: ((width,
+    height), baseline)."""
+    glyphs = _glyphs(text)
+    if not glyphs:
+        return (0, 0), 0
+    return ((sum(g[2] for g in glyphs) + 1, max(g[3] for g in glyphs)),
+            max(g[4] for g in glyphs))
+
+
+def put_text(img: np.ndarray, text: str, org, color) -> np.ndarray:
+    """``cv2.putText(img, text, org, FONT_HERSHEY_TRIPLEX, 1, color, 1)``
+    (``org``: the baseline's left end, x and y) on a uint8 [H, W] or
+    [H, W, C] image, in place."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"put_text draws on uint8 images, not {img.dtype}")
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    fg = np.clip(np.rint(np.atleast_1d(np.asarray(color, np.float64))[:channels]), 0,
+                 255).astype(np.int64)
+    x, y = int(org[0]), int(org[1])
+    for offsets, alpha, advance, _, _ in _glyphs(text):
+        px, py = offsets[:, 0] + x, offsets[:, 1] + y
+        inside = (px >= 0) & (px < img.shape[1]) & (py >= 0) & (py < img.shape[0])
+        px, py, a = px[inside], py[inside], alpha[inside]
+        bg = img[py, px].astype(np.int64).reshape(len(a), channels)
+        # bg + (fg - bg)·a/255 rounded: 255 is odd, so no value sits on a half
+        out = bg + ((fg - bg) * a[:, None] + 127) // 255
+        img[py, px] = out.astype(np.uint8).reshape(img[py, px].shape)
+        x += advance
+    return img
+
+
+def draw_text(img: np.ndarray, bbox, text: str, draw_bbox: bool = False) -> np.ndarray:
+    """Labelled text box anchored near a 2D ``bbox`` (row min, col min, row
+    max, col max; reference utils/util.py:559): a blue box with a black
+    outline, white text, and with ``draw_bbox`` the bbox in blue at
+    thickness 2; on a uint8 image, in place."""
+    (tw, th), _ = text_size(text)
+    margin = 10
+    tl = (min(int(bbox[1]) + margin, img.shape[1] - 5 - tw - 2 * margin),
+          min(int(bbox[2]) + margin, img.shape[0] - 5 - th - 2 * margin))
+    br = (tl[0] + tw + 2 * margin, tl[1] + th + 2 * margin)
+    if draw_bbox:
+        draw_rectangle(img, (bbox[1], bbox[0]), (bbox[3], bbox[2]), (255, 0, 0), 2)
+    draw_rectangle(img, tl, br, (255, 0, 0), -1)
+    draw_rectangle(img, tl, br, (0, 0, 0), 1)
+    return put_text(img, text, (tl[0] + margin, br[1] - margin - 3), (255, 255, 255))
 
 
 def draw_box(img: np.ndarray, imgpts: np.ndarray, axes, color) -> np.ndarray:

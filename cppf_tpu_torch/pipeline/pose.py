@@ -196,15 +196,34 @@ class PoseDraws(NamedTuple):
         jitter for ``n_raw`` padded points from ``pre_key``, every pose draw
         from ``pose_key`` (cppf_tpu/eval/nocs_inference.py:169-178)."""
         rng_pairs, rng_vote = threefry.split((int(pose_key[0]), int(pose_key[1])))
-        rng_tr, rng_up, rng_right, rng_fallback = threefry.split(rng_vote, 4)
+        return cls.from_jax_vote_key(pcfg, rng_vote, device, pairs_key=rng_pairs,
+                                     pre_key=pre_key, n_raw=n_raw)
+
+    @classmethod
+    def from_jax_vote_key(cls, pcfg: PoseConfig, vote_key, device, pairs_key=None,
+                          pre_key=None, n_raw: Optional[int] = None) -> "PoseDraws":
+        """The draws that the JAX ``vote_pose(vote_key, ...)`` consumes
+        (cppf_tpu/pipeline/pose.py:533-547); the pair uniforms from
+        ``pairs_key`` (else none: ``vote_pose`` takes its pairs given) and
+        the jitter for ``n_raw`` padded points from ``pre_key`` (else
+        none)."""
+        rng_tr, rng_up, rng_right, rng_fallback = threefry.split(
+            (int(vote_key[0]), int(vote_key[1])), 4)
         p, s = pcfg.n_pairs, pcfg.rot_subsample
-        requests = [("uniform", rng_pairs, (p, 2)), ("normal", rng_fallback, (3,)),
-                    ("normal", (int(pre_key[0]), int(pre_key[1])), (n_raw, 3))]
+        requests = [("normal", rng_fallback, (3,))]
         requests += [("gumbel", k, (p, pcfg.tr_num_bins)) for k in threefry.split(rng_tr)]
         for k in (rng_up, rng_right) if pcfg.regress_right else (rng_up,):
             rng_bin, rng_sub = threefry.split(k)
             requests += [("uniform", rng_sub, (s,)), ("gumbel", rng_bin, (s, pcfg.rot_num_bins))]
-        pair_u, fallback, jitter, tr0, tr1, *axes = threefry.draw_many(requests, device)
+        if pairs_key is not None:
+            requests.append(("uniform", (int(pairs_key[0]), int(pairs_key[1])), (p, 2)))
+        if pre_key is not None:
+            requests.append(("normal", (int(pre_key[0]), int(pre_key[1])), (n_raw, 3)))
+        fallback, tr0, tr1, *rest = threefry.draw_many(requests, device)
+        n_axes = 4 if pcfg.regress_right else 2
+        axes, rest = rest[:n_axes], rest[n_axes:]
+        pair_u = rest.pop(0) if pairs_key is not None else torch.empty((0, 2), device=device)
+        jitter = rest.pop(0) if pre_key is not None else None
         right = AxisDraws(*axes[2:]) if pcfg.regress_right else None
         return cls(pair_u, torch.stack([tr0, tr1]), AxisDraws(*axes[:2]), fallback, jitter, right)
 

@@ -11,9 +11,12 @@ from typing import Callable, Dict
 import torch
 
 
-def _sync() -> None:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+def sync(device=None) -> None:
+    """Wait for the card (``device``'s, default every one) before a host
+    clock is read; nothing to wait for on the CPU."""
+    dev = None if device is None else torch.device(device)
+    if (dev is None or dev.type == "cuda") and torch.cuda.is_available():
+        torch.cuda.synchronize(dev)
 
 
 @contextlib.contextmanager
@@ -29,7 +32,7 @@ def trace(log_dir: str):
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield prof
-        _sync()
+        sync()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
@@ -38,11 +41,11 @@ def time_fn(fn: Callable, *args, iters: int = 5, warmup: int = 1, **kwargs) -> f
     and after the timed calls)."""
     for _ in range(warmup):
         fn(*args, **kwargs)
-    _sync()
+    sync()
     t0 = time.perf_counter()
     for _ in range(iters):
         fn(*args, **kwargs)
-    _sync()
+    sync()
     return (time.perf_counter() - t0) / iters
 
 

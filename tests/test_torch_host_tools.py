@@ -56,11 +56,16 @@ def test_stats_main_primitive_fallback(tmp_path, capsys):
 @pytest.mark.parametrize("category,kw", [("table", dict(n_scans=2, instances=2)),
                                          ("bottle", dict(n_scans=1, instances=3,
                                                          target_diag=0.3))])
-def test_make_scans_byte_equal(tmp_path, category, kw):
-    """Every file of the layout equals the JAX package's byte for byte."""
+def test_make_scans_byte_equal(tmp_path, category, kw, monkeypatch):
+    """Every file of the layout equals the JAX package's byte for byte.
+    ``scipy.io.savemat`` stamps the MAT header with ``time.asctime()``, so
+    the clock is pinned: two writes a second apart would differ there."""
+    import time
+
     from cppf_tpu.data.sunrgbd_synth import make_scans as make_scans_j
     from cppf_tpu_torch.data.sunrgbd_synth import make_scans
 
+    monkeypatch.setattr(time, "asctime", lambda *a: "Thu Jan  1 00:00:00 1970")
     runs = {}
     for name, fn in (("jax", make_scans_j), ("torch", make_scans)):
         sun, extra = tmp_path / name / "sun", tmp_path / name / "extra"

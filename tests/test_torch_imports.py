@@ -22,7 +22,9 @@ PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "cppf_tpu_torch", "**", "*.py")
                                                   os.path.join(ROOT, "scripts",
                                                                "zero_shot_train_smoke.py"),
                                                   os.path.join(ROOT, "scripts",
-                                                               "flags_smoke.py")]
+                                                               "flags_smoke.py"),
+                                                  os.path.join(ROOT, "scripts",
+                                                               "gauges_smoke.py")]
 
 
 def _imported_modules(path):
@@ -61,6 +63,13 @@ def test_port_file_list_is_complete():
         assert f"cppf_tpu_torch/{module}" in names
     assert "scripts/zero_shot_train_smoke.py" in names
     assert "scripts/flags_smoke.py" in names
+    assert "scripts/gauges_smoke.py" in names
+    for module in ("scripts/__init__.py", "scripts/synthetic_benchmark.py",
+                   "scripts/sunrgbd_synthetic_benchmark.py", "scripts/zero_shot_benchmark.py",
+                   "scripts/bench_zero_shot.py", "scripts/eval_checkpoints.py",
+                   "scripts/probe_sun_oracle.py", "scripts/update_family_stats.py",
+                   "scripts/promote.py", "demo/__init__.py", "demo/pose_single.py"):
+        assert f"cppf_tpu_torch/{module}" in names
 
 
 def test_port_has_every_module_of_the_jax_package():

@@ -42,6 +42,7 @@ from cppf_tpu_torch.eval import alignment, sunrgbd_eval
 from cppf_tpu_torch.eval import sunrgbd_inference as port
 from cppf_tpu_torch.eval.box3d import Box3D
 from cppf_tpu_torch.pipeline import pose
+from cppf_tpu_torch.scripts import sunrgbd_synthetic_benchmark as sun_bench
 from test_torch_nocs_driver import WIDTH, _checkpoint_tree, export
 from test_torch_pose_units import _network
 from torch_slices import ROOT, _axis_draws, t
@@ -216,17 +217,42 @@ def test_vote_axis_with_gate_matches_jax(topk):
     assert not np.allclose(np.abs(got_t), np.abs(free), atol=1e-3)
 
 
-def _oracle_dir(scan_set, out_dir):
+def _jax_oracle_writer():
     spec = importlib.util.spec_from_file_location(
         "sunrgbd_synthetic_benchmark", os.path.join(ROOT, "scripts",
                                                     "sunrgbd_synthetic_benchmark.py"))
     writer = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(writer)
+    return writer
+
+
+def _oracle_dir(scan_set, out_dir, writer=sun_bench):
+    """Oracle pkls of every category in ``out_dir``, by ``writer``'s
+    ``write_oracle_predictions`` (default: the port's)."""
     for cat in CATEGORIES:
         cid = port.TYPE2CLASS[cat]
         names = port.scan_names(scan_set["extra_dir"], cid)
         writer.write_oracle_predictions(scan_set["extra_dir"], out_dir, cat, cid, names)
     return out_dir
+
+
+def test_oracle_writers_agree(scan_set):
+    """The port's oracle writer (cppf_tpu_torch/scripts/
+    sunrgbd_synthetic_benchmark.py) writes the JAX script's pkls, row for
+    row."""
+    got = _oracle_dir(scan_set, os.path.join(scan_set["tmp"], "oracle_port"))
+    want = _oracle_dir(scan_set, os.path.join(scan_set["tmp"], "oracle_jax"),
+                       _jax_oracle_writer())
+    for cat in CATEGORIES:
+        with open(os.path.join(got, f"results_{cat}.pkl"), "rb") as f:
+            rows_t = pickle.load(f)
+        with open(os.path.join(want, f"results_{cat}.pkl"), "rb") as f:
+            rows_j = pickle.load(f)
+        assert sorted(rows_t) == sorted(rows_j) and rows_t
+        for scan in rows_j:
+            np.testing.assert_array_equal(np.asarray(rows_t[scan], np.float64),
+                                          np.asarray(rows_j[scan], np.float64))
+            assert len(rows_t[scan]) == len(rows_j[scan])
 
 
 @pytest.mark.parametrize("preds,full_rot", [("jax", False), ("jax", True), ("oracle", False)])
