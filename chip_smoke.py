@@ -240,6 +240,21 @@ Phases:
    launches held, and one ``{"gauges": ...}`` line with the ``nvidia-smi``
    line; ``dense_hist`` held and timed on a synthetic zero-shot frame's
    first pair chunk, both peak kernels on bowl's first view.
+19. the reference CPPF's ``.pth`` checkpoints: bowl's and mug's served
+   weights written as the upstream pair ``{point,ppf}_encoder_epochbest.pth``
+   with their ``config.yaml`` in a temporary ``--ckpt_path``; the 4
+   committed views of each posed on JAX's draws through
+   ``CategoryRunner(cat, ckpt_path=...)``, T, up, right, scale and the
+   survivor count equal to the bit to the poses of the committed ``.npz``,
+   the peak kernels' launches by their rule; the zero-shot CLI at full
+   width from a directory holding ``bowl_reg``'s ``params_zs`` as the
+   upstream pair: the 2 detections of the ``.npz``-served run, to the bit,
+   ``dense_hist_pairs`` launched once a chunk; a torchvision-keyed
+   segmenter state dict (seeded weights and running statistics) through
+   ``fcn_resnet50_from_torch`` and ``SegmenterRunner`` (the ``track_stats``
+   path), CPU against CUDA logits with phase 14's limits; one
+   ``{"reference_pth": ...}`` line (ms to load a pair and an ``.npz``, ms a
+   pose from each) with the ``nvidia-smi`` line.
 
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose, of one zero-shot frame,
@@ -3088,7 +3103,7 @@ def cli_run(ckpt, out, what):
             if 0 <= c[0] < png.shape[1] and 0 <= c[1] < png.shape[0]:
                 far = max(far, float(np.min(np.linalg.norm(drawn - c, axis=1))))
     check(far <= CLI_CORNER_PX, f"{what}: a projected corner is {far:.1f} px from the drawing")
-    print(f"phase 15 (d) {what}: {len(dets)} detections in {secs:.3f} s, {int(mask.sum())} "
+    print(f"{what}: {len(dets)} detections in {secs:.3f} s, {int(mask.sum())} "
           f"pixels drawn, every corner within {far:.1f} px of them; launches {launches}",
           flush=True)
     return dets, secs, launches
@@ -3226,7 +3241,7 @@ def zero_shot_train_phase(smi):
         demo = np.load(os.path.join(ASSETS, "demo_frame.npz"))
         dets, cli_s, cli_launches = cli_run(os.path.join(ROOT, "checkpoints", "bowl_reg"),
                                             os.path.join(tmp, "cli_asset.png"),
-                                            "checkpoints/bowl_reg")
+                                            "phase 15 (d) checkpoints/bowl_reg")
         check(len(dets) == 2, f"phase 15: the CLI gave {len(dets)} detections, not 2")
         chunks = -(-int(demo["jax_n_pairs"]) // DENSE_CHUNK)
         check(cli_launches["dense_hist_pairs"] == chunks
@@ -3242,7 +3257,7 @@ def zero_shot_train_phase(smi):
             check(dist < 0.01 and up < 5.0, "phase 15: a CLI detection is > 1 cm or > 5 deg "
                   "from JAX's")
         dets2, cli2_s, _ = cli_run(out_dir, os.path.join(tmp, "cli_run.png"),
-                                   "phase 15's trained params_zs.npz")
+                                   "phase 15 (d) phase 15's trained params_zs.npz")
         print(f"phase 15 (d) ({smi}): s a CLI run at {ZS_PAIRS} pairs (read, detect, draw, "
               f"write): {cli_s:.3f} (checkpoints/bowl_reg), {cli2_s:.3f} (the trained run: "
               f"{[np.round(d.T, 4).tolist() for d in dets2]})", flush=True)
@@ -3741,6 +3756,236 @@ def gauges_phase(smi):
     return records, dict(total)
 
 
+# ---- phase 19: the reference CPPF's .pth checkpoints -----------------------
+PTH_CATEGORIES = ("bowl", "mug")
+PTH_TIMING_ROUNDS = 2         # warm passes over the views, in turns between the sources
+PTH_LOAD_REPS = 5
+SEG_CHECK_SHAPE = (224, 224)  # phase 14's crop
+POSE_FIELDS = ("T", "up", "right", "scale", "n_filtered")
+
+
+def _median_ms(fn, reps):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _write_upstream(params, ckpt_dir, config):
+    """``params`` as the upstream release lays a category out: the pair
+    ``{point,ppf}_encoder_epochbest.pth`` and the config snapshot."""
+    import shutil
+
+    from cppf_tpu_torch.models.convert import export_reference_pth
+    from cppf_tpu_torch.train.checkpoints import reference_pair
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    export_reference_pth(params, *reference_pair(ckpt_dir, "best"))
+    shutil.copy(config, ckpt_dir)
+
+
+def pth_category_poses(tmp, launches):
+    """Phase 19 (a): each of ``PTH_CATEGORIES`` served from the upstream
+    pair and from the committed ``.npz``, its views posed on JAX's draws:
+    equal to the bit, the peak kernels' launches by their rule (added to
+    ``launches`` for the ``.pth`` source).  Returns {category: {source: warm
+    ms a pose}}."""
+    from cppf_tpu_torch.core import threefry
+    from cppf_tpu_torch.eval.nocs_inference import CategoryRunner
+    from cppf_tpu_torch.models.convert import ASSETS, load_npz_params
+
+    ms = {}
+    for cat in PTH_CATEGORIES:
+        _write_upstream(load_npz_params(os.path.join(ASSETS, f"{cat}_params_best.npz")),
+                        os.path.join(tmp, "ckpt", cat),
+                        os.path.join(ROOT, "checkpoints", cat, "config.yaml"))
+        runners = {"pth": CategoryRunner(cat, ckpt_path=os.path.join(tmp, "ckpt")),
+                   "npz": CategoryRunner(cat)}
+        z = np.load(os.path.join(ASSETS, f"{cat}_views.npz"))
+        n = int(z["n_views"])
+        # bowl's views keep no JAX key: PRNGKey(i) for view i
+        keys = [z[f"jax_key_{i}"] if f"jax_key_{i}" in z.files else threefry.key(i)
+                for i in range(n)]
+        poses = {}
+        for src, r in runners.items():
+            pcfg, cfg = r.pcfg, r.cfg
+            g = cfg.resolved_grid_edge()
+            check(pcfg.n_pairs == 100000 and pcfg.num_rots == 72 and pcfg.knn == 60
+                  and pcfg.grid_shape == (g, g, g), f"phase 19 {cat}: not full width: {pcfg}")
+            draws = [r.draws(k) for k in keys]
+            poses[src], counts = _launched(
+                lambda: [r.estimate(z[f"pc_{i}"], draws=draws[i])[0] for i in range(n)])
+            passes = (2 if pcfg.asym_center_refine else 1) * n
+            _peak_path_ok(counts, passes, f"phase 19 {cat} ({src})")
+            if src == "pth":
+                launches.update(counts)
+            del draws
+        for i in range(n):
+            for k in POSE_FIELDS:
+                a, b = (getattr(poses[src][i], k).cpu().numpy() for src in ("pth", "npz"))
+                check(np.array_equal(a, b), f"phase 19 {cat} view {i}: {k} from the .pth pair "
+                      f"{a.tolist()} is not the .npz's {b.tolist()}")
+        times = {src: [] for src in runners}
+        for rnd in range(PTH_TIMING_ROUNDS):
+            for src in list(runners)[::1 if rnd % 2 == 0 else -1]:
+                r = runners[src]
+                for i in range(n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    r.estimate(z[f"pc_{i}"])
+                    torch.cuda.synchronize()
+                    times[src].append((time.perf_counter() - t0) * 1e3)
+        ms[cat] = {src: statistics.median(t) for src, t in times.items()}
+        p0 = poses["pth"][0]
+        print(f"phase 19 {cat}: {n} views on JAX's draws, the .pth pair's poses equal the "
+              f".npz's in {', '.join(POSE_FIELDS)} (view 0: T {p0.T.tolist()}, survivors "
+              f"{int(p0.n_filtered)}); warm ms a pose {ms[cat]['pth']:.2f} (.pth) / "
+              f"{ms[cat]['npz']:.2f} (.npz), median of {len(times['pth'])}", flush=True)
+    return ms
+
+
+def pth_zero_shot_cli(tmp, launches):
+    """Phase 19 (b): the zero-shot CLI at full width from a directory that
+    holds ``bowl_reg``'s ``params_zs`` as the upstream pair, against the
+    repo's ``checkpoints/bowl_reg`` (its ``.npz`` export): the same 2
+    detections to the bit, ``dense_hist_pairs`` once a chunk (the first
+    ``.pth`` run's added to ``launches``); the sources in turns, .npz,
+    .pth, .pth, .npz.  Returns {source: median seconds of a CLI run}."""
+    from cppf_tpu_torch.models.convert import ASSETS, load_npz_params
+
+    zs_dir = os.path.join(tmp, "bowl_reg")
+    _write_upstream(load_npz_params(os.path.join(ASSETS, "bowl_reg_params_zs.npz")), zs_dir,
+                    os.path.join(ROOT, "checkpoints", "bowl_reg", "config.yaml"))
+    demo = np.load(os.path.join(ASSETS, "demo_frame.npz"))
+    chunks = -(-int(demo["jax_n_pairs"]) // DENSE_CHUNK)
+    ckpts = {"npz": os.path.join(ROOT, "checkpoints", "bowl_reg"), "pth": zs_dir}
+    first, secs = None, {src: [] for src in ckpts}
+    for turn, src in enumerate(("npz", "pth", "pth", "npz")):
+        dets, s, counts = cli_run(ckpts[src], os.path.join(tmp, f"cli_{turn}.png"),
+                                  f"phase 19 (b) the CLI from the .{src} weights")
+        secs[src].append(s)
+        check(len(dets) == 2, f"phase 19: the CLI from the .{src} weights gave {len(dets)} "
+              f"detections, not 2")
+        check(counts["dense_hist_pairs"] == chunks and sum(counts.values()) == chunks,
+              f"phase 19: the CLI launched {counts}, not dense_hist_pairs {chunks} times")
+        if turn == 1:
+            launches.update(counts)
+        first = first or dets
+        for a, b in zip(dets, first):
+            for k in ("T", "R", "scale"):
+                check(np.array_equal(getattr(a, k), getattr(b, k)), f"phase 19: a CLI "
+                      f"detection's {k} from the .{src} weights differs from the first run's")
+    return {src: statistics.median(s) for src, s in secs.items()}
+
+
+def _torchvision_segmenter(seed=19):
+    """A torchvision-keyed fcn_resnet50 state dict (InstanceNorms with
+    running statistics and their ``num_batches_tracked`` counters), its
+    weights and statistics drawn from ``seed``: He-normal kernels, norm
+    scales near 1, so that the logits vary across the image."""
+    from cppf_tpu_torch.models.convert import fcn_resnet50_to_torch, segmenter_flat_params
+    from cppf_tpu_torch.models.segmenter import FCNResNet50
+
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    flat = segmenter_flat_params(FCNResNet50(2, track_stats=True))
+    for key in sorted(flat):
+        *parts, leaf = key.split("/")
+        node = tree
+        for part in parts:
+            node = node.setdefault(part, {})
+        shape = flat[key].shape
+        if leaf == "kernel":  # HWIO
+            arr = rng.normal(size=shape) * np.sqrt(2.0 / np.prod(shape[:3]))
+        elif leaf == "scale":
+            arr = 1.0 + 0.1 * rng.normal(size=shape)
+        elif leaf == "var":
+            arr = rng.random(shape) * 0.5 + 0.75
+        else:  # bias, mean
+            arr = 0.1 * rng.normal(size=shape)
+        node[leaf] = arr.astype(np.float32)
+    sd = {}
+    for k, v in fcn_resnet50_to_torch(tree).items():
+        sd[k] = torch.from_numpy(v)
+        if k.endswith(".running_var"):
+            sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(100)
+    return sd
+
+
+def pth_segmenter(tmp, device):
+    """Phase 19 (c): a torchvision-keyed segmenter through
+    ``fcn_resnet50_from_torch``, written as the ``.npz`` that
+    ``SegmenterRunner`` serves; its logits on a seeded 224² image, CPU
+    against CUDA with phase 14's limits.  Returns the record."""
+    from cppf_tpu_torch.models.convert import (fcn_resnet50_from_torch, save_segmenter_npz,
+                                               segmenter_state_dict)
+    from cppf_tpu_torch.models.segmenter import FCNResNet50, SegmenterRunner
+
+    sd = _torchvision_segmenter()
+    params = fcn_resnet50_from_torch(sd)
+    model = FCNResNet50(2, track_stats=True)
+    model.load_state_dict(segmenter_state_dict(params), strict=True)
+    aux_dir = os.path.join(tmp, "laptop_aux")
+    save_segmenter_npz(os.path.join(aux_dir, "params_best.npz"), model)
+    segs = {dev: SegmenterRunner(aux_dir, device=dev) for dev in ("cpu", device)}
+    check(all(seg.model.stem_bn.track_stats for seg in segs.values()),
+          "phase 19: the converted segmenter does not normalise by its running statistics")
+    rgb = np.random.default_rng(20).random(SEG_CHECK_SHAPE + (3,)).astype(np.float32)
+    logits = {dev: seg.logits(rgb).cpu().numpy() for dev, seg in segs.items()}
+    d_logit = float(np.abs(logits["cpu"] - logits[device]).max())
+    scale = float(np.abs(logits["cpu"]).max())
+    same = float((logits["cpu"].argmax(-1) == logits[device].argmax(-1)).mean())
+    rec = dict(keys=len(sd), max_abs_logit=scale, cpu_cuda_max_abs_err=d_logit,
+               labels_equal=same, forward_ms=cuda_ms(lambda: segs[device].logits(rgb)))
+    print(f"phase 19 (c): a torchvision-keyed segmenter ({len(sd)} keys, running statistics) "
+          f"through fcn_resnet50_from_torch and SegmenterRunner: cpu vs cuda logits within "
+          f"{d_logit:.2e} (max |logit| {scale:.3f}), labels equal on {same * 100:.3f} % of "
+          f"224²; {rec['forward_ms']:.3f} ms a forward", flush=True)
+    check(np.isfinite(scale) and scale > 0, "phase 19: the converted segmenter's logits")
+    check(d_logit <= 1e-4 * scale, "phase 19: CPU and CUDA segmenter logits differ")
+    check(same >= 0.999, "phase 19: CPU and CUDA segmenter labels differ")
+    return rec
+
+
+def reference_pth_phase(smi):
+    """Phase 19: the reference CPPF's ``.pth`` checkpoints served by the
+    runner, the zero-shot CLI and the segmenter's converter; prints the
+    ``reference_pth`` line.  Returns the launches of the runs on ``.pth``
+    weights."""
+    import collections
+    import tempfile
+
+    from cppf_tpu_torch.models.convert import ASSETS
+    from cppf_tpu_torch.train.checkpoints import (load_params, load_reference_pth,
+                                                  reference_pair)
+
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pose_ms = pth_category_poses(tmp, launches)
+        t_a = time.perf_counter() - t0
+        # bowl's weights read as each source holds them
+        pair = reference_pair(os.path.join(tmp, "ckpt", "bowl"), "best")
+        load_ms = {"pth_pair": _median_ms(lambda: load_reference_pth(*pair), PTH_LOAD_REPS),
+                   "npz": _median_ms(lambda: load_params(ASSETS, "bowl_params_best"),
+                                     PTH_LOAD_REPS)}
+        t0 = time.perf_counter()
+        cli_s = pth_zero_shot_cli(tmp, launches)
+        t_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        seg = pth_segmenter(tmp, "cuda")
+        t_c = time.perf_counter() - t0
+    print(json.dumps({"reference_pth": dict(load_ms=load_ms, ms_per_pose=pose_ms,
+                                            cli_s=cli_s, segmenter=seg, card=smi,
+                                            phase_s={"a": t_a, "b": t_b, "c": t_c})},
+                     default=float), flush=True)
+    print(smi_line(), flush=True)
+    print(f"phase 19: launches of the runs on .pth weights {dict(launches)}", flush=True)
+    return dict(launches)
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     ap.add_argument("--profile", action="store_true", help="profile one warm pose")
@@ -3926,6 +4171,12 @@ def main():
     gauge_records, gauge_launches = gauges_phase(smi)
     print(f"phase 18 (quality gauges): {time.perf_counter() - t18:.1f} s", flush=True)
 
+    # ---- 19. the reference CPPF's .pth checkpoints ------------------------
+    t19 = time.perf_counter()
+    pth_launches = reference_pth_phase(smi)
+    print(f"phase 19 (reference .pth checkpoints): {time.perf_counter() - t19:.1f} s",
+          flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
     # comparisons, stands beside it under votes_ keys.  The peak kernels
@@ -3980,10 +4231,13 @@ def main():
                 k["launches_per_rank"] = {cat: [c[pairs] for c in ranks]
                                           for cat, ranks in par_all.items()}
             kernels.append(k)
-    # entry() launches the pairs front ends of the peak kernels (phase 17)
+    # entry() launches the pairs front ends of the peak kernels (phase 17);
+    # the poses and the CLI on .pth weights all three (phase 19)
     for k in kernels:
         if k["path"].startswith("main path") and k["name"] != "dense_hist":
             k["entry_launches"] = entry_launches[k["name"] + "_pairs"]
+        if k["path"].startswith("main path"):
+            k["reference_pth_launches"] = pth_launches.get(k["name"] + "_pairs", 0)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device,

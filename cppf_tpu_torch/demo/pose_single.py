@@ -6,9 +6,11 @@ Two modes:
 - oracle (default): ground-truth pair predictions
   (``data/synthetic.oracle_pair_predictions``) drive the voting half
   (``pipeline/pose.vote_pose``): the pipeline's geometry without a network;
-- ``--ckpt DIR``: the network of a category's served weights
-  (``DIR/params_best.npz``, or for the repo's ``checkpoints/<cat>`` its
-  exported assets) runs the whole ``estimate_pose``.
+- ``--ckpt DIR``: the network of a category's served weights (as the
+  runner serves them: ``DIR/params_best.npz``, for the repo's
+  ``checkpoints/<cat>`` its exported assets, or the reference's
+  ``DIR/{point,ppf}_encoder_epochbest.pth``) runs the whole
+  ``estimate_pose``.
 
 The draws are the JAX demo's for ``--seed``: the preprocess jitter of
 ``PRNGKey(seed)`` and the pose draws of ``PRNGKey(seed + 1)``
@@ -41,13 +43,15 @@ N_RAW_PAD = 8192
 NPOINT_PAD = 4096
 
 
-def demo_weights(ckpt: str, category: str) -> str:
-    """``ckpt`` itself when it is an ``.npz`` file, else the weights a
-    runner serves from the directory (``eval/nocs_inference.served_weights``)."""
+def demo_weights(ckpt: str, category: str) -> dict:
+    """The params tree of ``ckpt`` when it is an ``.npz`` file, else the
+    weights a runner serves from the directory
+    (``eval/nocs_inference.served_weights``)."""
     from cppf_tpu_torch.eval.nocs_inference import served_weights
+    from cppf_tpu_torch.models.convert import load_npz_params
 
     if os.path.isfile(ckpt):
-        return ckpt
+        return load_npz_params(ckpt)
     return served_weights(category, ckpt)
 
 
@@ -55,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--category", default="bottle")
     ap.add_argument("--ckpt", default=None,
-                    help="checkpoint dir (its params_best.npz) or an .npz of weights")
+                    help="checkpoint dir (served as the runner serves it) or an .npz of "
+                         "weights")
     ap.add_argument("--n_pairs", type=int, default=100000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -105,10 +110,9 @@ def main(argv=None) -> dict:
 
     result = dict(R_true=R_true, T_true=T_true, bound=bound, pre=pre)
     if args.ckpt:
-        from cppf_tpu_torch.models.convert import load_encoders, load_npz_params
+        from cppf_tpu_torch.models.convert import load_encoders
 
-        encoders = load_encoders(load_npz_params(demo_weights(args.ckpt, args.category)),
-                                 cfg.out_dim, device)
+        encoders = load_encoders(demo_weights(args.ckpt, args.category), cfg.out_dim, device)
         sync(device)
         t0 = time.perf_counter()
         with torch.no_grad():

@@ -47,6 +47,7 @@ from cppf_tpu_torch.models.segmenter import SegmenterRunner
 from cppf_tpu_torch.ops.ransac import segment_plane
 from cppf_tpu_torch.pipeline.pose import PoseConfig, PoseDraws, estimate_pose
 from cppf_tpu_torch.pipeline.preprocess import preprocess_cloud
+from cppf_tpu_torch.train.checkpoints import maybe_load_any
 
 SYNSET_NAMES = ["BG", "bottle", "bowl", "camera", "can", "laptop", "mug"]
 
@@ -97,19 +98,29 @@ def _pad_cloud(pc_raw: np.ndarray, n_raw_pad: int):
     return pad, n_raw
 
 
-def served_weights(cls_name: str, path: str) -> str:
-    """The ``.npz`` weights a runner serves for ``cls_name`` from the
-    checkpoint directory ``path``: ``<path>/params_best.npz``, else, where
-    ``path`` is the repo's ``checkpoints/<cls_name>`` (or a link to it),
-    ``assets/<cls_name>_params_best.npz``, that directory's weights
-    exported.  Raises ``FileNotFoundError`` otherwise."""
-    ckpt = os.path.join(path, "params_best.npz")
-    if os.path.exists(ckpt):
-        return ckpt
+def served_weights(cls_name: str, path: str) -> dict:
+    """The params tree a runner serves for ``cls_name`` from the checkpoint
+    directory ``path``, in the JAX runner's order of names
+    (``train/checkpoints.maybe_load_any`` reads each name's ``<name>.npz``,
+    else its reference pair ``point_encoder_epoch<name>.pth`` +
+    ``ppf_encoder_epoch<name>.pth``): ``params_best``; then, where ``path``
+    is the repo's ``checkpoints/<cls_name>`` (or a link to it),
+    ``assets/<cls_name>_params_best.npz``, that directory's orbax
+    ``params_best`` exported; then ``best``, which is the upstream
+    release's pair.  Raises ``FileNotFoundError`` otherwise."""
+    params = maybe_load_any(path, "params_best")
     repo_path = os.path.join(REPO_ROOT, "checkpoints", cls_name)
-    if os.path.isdir(path) and os.path.realpath(path) == os.path.realpath(repo_path):
-        return os.path.join(ASSETS, f"{cls_name}_params_best.npz")
-    raise FileNotFoundError(f"no params_best.npz for {cls_name} under {path}")
+    if (params is None and os.path.isdir(path)
+            and os.path.realpath(path) == os.path.realpath(repo_path)):
+        params = load_npz_params(os.path.join(ASSETS, f"{cls_name}_params_best.npz"))
+    if params is None:
+        params = maybe_load_any(path, "best")
+    if params is None:
+        raise FileNotFoundError(
+            f"no params_best.npz, best.npz or reference pair point_encoder_epoch<name>.pth + "
+            f"ppf_encoder_epoch<name>.pth (<name> params_best or best) for {cls_name} "
+            f"under {path}")
+    return params
 
 
 class CategoryRunner:
@@ -117,26 +128,30 @@ class CategoryRunner:
 
     The config is the training-time snapshot ``<ckpt_path>/<cls>/config.yaml``
     when present, else the layered repo config, with the repo config's
-    inference flags overlaid.  ``ckpt`` is the flat ``.npz`` of the params
-    tree; by default ``<ckpt_path>/<cls>/params_best.npz`` when present,
-    else, when ``<ckpt_path>/<cls>`` is the repo's ``checkpoints/<cls>`` (or
-    a link to it), ``assets/<cls>_params_best.npz``, that directory's
-    weights exported (``scripts/export_torch_assets.py``).  Any other
-    directory without its own ``.npz`` raises ``FileNotFoundError``, as
-    the JAX runner raises on a directory without weights: its config
-    snapshot belongs to weights the port cannot read.
+    inference flags overlaid.  The weights are those of ``ckpt_name`` under
+    ``<ckpt_path>/<cls>`` when it is given (``<ckpt_name>.npz``, else the
+    reference pair ``point_encoder_epoch<ckpt_name>.pth`` +
+    ``ppf_encoder_epoch<ckpt_name>.pth``), else :func:`served_weights`'
+    (``params_best``, the repo's export in ``assets/``, ``best``).  A
+    directory without them raises ``FileNotFoundError``, as the JAX runner
+    raises on a directory without weights.
     Runs on ``cuda`` unless ``device`` says otherwise.
     """
 
-    def __init__(self, cls_name: str, ckpt: Optional[str] = None, device=None,
-                 num_rots: int = 72, angle_prec: float = 1.5, adaptive_voting: bool = False,
-                 ckpt_path: Optional[str] = None):
+    def __init__(self, cls_name: str, device=None, num_rots: int = 72, angle_prec: float = 1.5,
+                 adaptive_voting: bool = False, ckpt_path: Optional[str] = None,
+                 ckpt_name: Optional[str] = None):
         self.device = resolve_device(device)
         pin_float32()
         path = (os.path.join(ckpt_path, cls_name) if ckpt_path
                 else os.path.join(REPO_ROOT, "checkpoints", cls_name))
-        if ckpt is None:
-            ckpt = served_weights(cls_name, path)
+        if ckpt_name:
+            params = maybe_load_any(path, ckpt_name)
+            if params is None:
+                raise FileNotFoundError(f"no {ckpt_name}.npz or reference pair of "
+                                        f"{ckpt_name} for {cls_name} under {path}")
+        else:
+            params = served_weights(cls_name, path)
         snap = os.path.join(path, "config.yaml")
         self.cfg = load_config(cls_name, snapshot=snap if os.path.exists(snap) else None)
         self.cfg.num_rots = num_rots
@@ -147,8 +162,8 @@ class CategoryRunner:
             setattr(self.cfg, k, getattr(repo_cfg, k))
         self.pcfg = PoseConfig.from_config(self.cfg, scale_multiplier=2.0)
         self.sphere = torch.from_numpy(self.pcfg.sphere_points()).to(self.device)
-        self.point_encoder, self.ppf_encoder = load_encoders(
-            load_npz_params(ckpt), self.cfg.out_dim, self.device)
+        self.point_encoder, self.ppf_encoder = load_encoders(params, self.cfg.out_dim,
+                                                             self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(0)
 
     def draws(self, key) -> PoseDraws:
@@ -416,16 +431,21 @@ def result_path(out_dir: str, res: dict) -> str:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="NOCS REAL275 inference: detection priors → result pkls. A category "
-        "runs with the config.yaml snapshot of <ckpt_path>/<cat> and the weights "
-        "<ckpt_path>/<cat>/params_best.npz; where <ckpt_path>/<cat> is the repo's "
-        "checkpoints/<cat> (or a link to it) and has no .npz, with "
-        "cppf_tpu_torch/assets/<cat>_params_best.npz, the export of its params_best. "
-        "A category without weights is skipped. With <ckpt_path>/laptop_aux (its "
-        "params_best.npz) laptops take the segmenter's up axis.")
+        "runs with the config.yaml snapshot of <ckpt_path>/<cat> and the first weights "
+        "found there of params_best, then best: <name>.npz, else the reference CPPF's "
+        "pair point_encoder_epoch<name>.pth + ppf_encoder_epoch<name>.pth (the upstream "
+        "release's layout is <ckpt_path>/<cat>/{point,ppf}_encoder_epochbest.pth); where "
+        "<ckpt_path>/<cat> is the repo's checkpoints/<cat> (or a link to it), "
+        "cppf_tpu_torch/assets/<cat>_params_best.npz, the export of its params_best, comes "
+        "between the two names. A category without weights is skipped. With "
+        "<ckpt_path>/laptop_aux (its params_best.npz) laptops take the segmenter's up axis.")
     ap.add_argument("--seg_dir", default="data/nocs_seg")
     ap.add_argument("--nocs_dir", default="data/nocs")
     ap.add_argument("--out_dir", default="data/nocs_prediction")
-    ap.add_argument("--ckpt_path", default="checkpoints")
+    ap.add_argument("--ckpt_path", default="checkpoints",
+                    help="one directory a category, <ckpt_path>/<cat>: its config.yaml and "
+                         "params_best.npz, or the reference's "
+                         "{point,ppf}_encoder_epochbest.pth")
     ap.add_argument("--angle_prec", type=float, default=1.5)
     ap.add_argument("--num_rots", type=int, default=72)
     ap.add_argument("--bbox_mask", action="store_true")

@@ -56,6 +56,7 @@ from cppf_tpu_torch.ops.quantize import voxel_downsample_host
 from cppf_tpu_torch.ops.ransac import segment_plane
 from cppf_tpu_torch.ops.voting import (backvote, circle_support, ppf_vote_dense, rot_vote,
                                        sphere_bin_count)
+from cppf_tpu_torch.train.checkpoints import maybe_load_any
 
 log = logging.getLogger("cppf_tpu_torch.zero_shot")
 
@@ -556,23 +557,32 @@ CLI_EDGES = ((0, 1), (0, 2), (1, 3), (2, 3), (4, 5), (4, 6), (5, 7), (6, 7),
 REPO_CKPT = os.path.join(REPO_ROOT, "checkpoints", "bowl_reg")
 
 
-def cli_weights(ckpt: str, params_name: Optional[str] = None) -> str:
-    """The ``.npz`` weights the CLI serves from the checkpoint directory
-    ``ckpt``: ``<params_name>.npz`` when named, else ``params_zs.npz`` (the
-    proposal-contrast selection), else ``params_best.npz``.  The repo's
-    own ``checkpoints/bowl_reg`` (or a link to it) holds only the JAX
+# the JAX CLI's order of names: the proposal-contrast selection first
+CLI_NAMES = ("params_zs", "params_best", "best")
+
+
+def cli_weights(ckpt: str, params_name: Optional[str] = None,
+                names: Sequence[str] = CLI_NAMES) -> dict:
+    """The params tree the CLI serves from the checkpoint directory
+    ``ckpt``: the first of ``params_name`` (when named) or ``names`` found
+    there, each as ``<name>.npz``, else as the reference pair
+    ``point_encoder_epoch<name>.pth`` + ``ppf_encoder_epoch<name>.pth``
+    (``train/checkpoints.maybe_load_any``).  The repo's own
+    ``checkpoints/bowl_reg`` (or a link to it) holds only the JAX
     package's checkpoints; its ``params_zs`` is served from
     ``assets/bowl_reg_params_zs.npz``.  Raises ``FileNotFoundError``
     otherwise."""
-    names = [params_name] if params_name else ["params_zs", "params_best"]
+    names = [params_name] if params_name else list(names)
+    repo = os.path.isdir(ckpt) and os.path.realpath(ckpt) == os.path.realpath(REPO_CKPT)
     for name in names:
-        path = os.path.join(ckpt, f"{name}.npz")
-        if os.path.exists(path):
-            return path
-    if (os.path.isdir(ckpt) and os.path.realpath(ckpt) == os.path.realpath(REPO_CKPT)
-            and "params_zs" in names):
-        return os.path.join(ASSETS, "bowl_reg_params_zs.npz")
-    raise FileNotFoundError(f"no {' or '.join(n + '.npz' for n in names)} under {ckpt}")
+        params = maybe_load_any(ckpt, name)
+        if params is None and repo and name == "params_zs":
+            params = load_npz_params(os.path.join(ASSETS, "bowl_reg_params_zs.npz"))
+        if params is not None:
+            return params
+    raise FileNotFoundError(f"no {' or '.join(n + '.npz' for n in names)} and no reference "
+                            f"pair {{point,ppf}}_encoder_epoch<name>.pth of those names under "
+                            f"{ckpt}")
 
 
 def detection_box(d: Detection) -> np.ndarray:
@@ -604,8 +614,10 @@ def main(argv=None):
     parser.add_argument("--out", default="zero_shot_vis.png")
     parser.add_argument("--n_pairs", type=int, default=5000000)
     parser.add_argument("--params_name", default=None,
-                        help="weights to load, <ckpt>/<name>.npz (default: params_zs if "
-                             "present, the proposal-contrast selection, else params_best)")
+                        help="weights to load, <ckpt>/<name>.npz or the reference pair "
+                             "<ckpt>/{point,ppf}_encoder_epoch<name>.pth (default: the first "
+                             "of params_zs, the proposal-contrast selection, params_best, "
+                             "best)")
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
@@ -613,7 +625,7 @@ def main(argv=None):
     snap = os.path.join(args.ckpt, "config.yaml")
     cfg = load_config("bowl", snapshot=snap if os.path.exists(snap) else None)
     cfg.cls_bins = False
-    params = load_npz_params(cli_weights(args.ckpt, args.params_name))
+    params = cli_weights(args.ckpt, args.params_name)
 
     depth = read_png(args.depth)
     dets = zero_shot_detect(depth, params, cfg, n_pairs=args.n_pairs, device=device)

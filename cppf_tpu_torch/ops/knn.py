@@ -4,6 +4,14 @@ from __future__ import annotations
 import torch
 
 
+def pairwise_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Euclidean distances [M, N] between two point sets, in float32 on
+    their device: ``|a|² + |b|² − 2 a·b``, clamped at 0 before the root."""
+    a, b = a.float(), b.float()
+    sq = (a * a).sum(-1)[:, None] + (b * b).sum(-1)[None, :] - 2.0 * (a @ b.T)
+    return torch.sqrt(torch.clamp(sq, min=0.0))
+
+
 def _sq_norm(pc: torch.Tensor) -> torch.Tensor:
     """|p|² as XLA fuses it: fma(z, z, fma(y, y, x·x)) in float32,
     emulated in float64, where each float32 product is exact."""

@@ -53,7 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Times the routes; prints the JSON line and returns its dict."""
-    from cppf_tpu_torch.eval.zero_shot import zero_shot_heatmap
+    from cppf_tpu_torch.eval.zero_shot import CLI_NAMES, zero_shot_heatmap
     from cppf_tpu_torch.models.convert import load_encoders
     from cppf_tpu_torch.scripts.zero_shot_benchmark import load_zero_shot
 
@@ -61,7 +61,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     pin_float32()
     depth = read_png(args.depth)
-    cfg, params = load_zero_shot(args.ckpt)
+    cfg, params = load_zero_shot(args.ckpt, names=CLI_NAMES)
     encoders = load_encoders(params, 9, device)
 
     out = {"device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",

@@ -92,7 +92,9 @@ def render_views(category: str, scale_range, n_poses: int, seed: int = 0):
 def load_runner(category: str, ckpt_path: str, ckpt_name: Optional[str] = None, device=None,
                 overrides: Optional[dict] = None) -> CategoryRunner:
     """The category's runner at 72 rotations, 1.5° and no adaptive voting:
-    ``<ckpt_path>/<cat>/<ckpt_name>.npz`` when ``ckpt_name`` is given, else
+    the weights of ``ckpt_name`` under ``<ckpt_path>/<cat>`` when it is
+    given (``<ckpt_name>.npz``, else the reference pair
+    ``{point,ppf}_encoder_epoch<ckpt_name>.pth``), else
     ``CategoryRunner``'s rule.  ``overrides`` set config fields, and the
     PoseConfig is rebuilt from them; a key that only the PoseConfig has
     (``center_mode``) is set on the rebuilt PoseConfig, where the JAX
@@ -100,13 +102,8 @@ def load_runner(category: str, ckpt_path: str, ckpt_name: Optional[str] = None, 
     not read (so that ``--set center_mode=grid`` does nothing there).  An
     unknown key raises ``ValueError``; missing weights raise
     ``FileNotFoundError``."""
-    ckpt = None
-    if ckpt_name:
-        ckpt = os.path.join(ckpt_path, category, f"{ckpt_name}.npz")
-        if not os.path.exists(ckpt):
-            raise FileNotFoundError(f"no {ckpt_name}.npz for {category} under {ckpt_path}")
-    runner = CategoryRunner(category, ckpt=ckpt, device=device, num_rots=72, angle_prec=1.5,
-                            adaptive_voting=False, ckpt_path=ckpt_path)
+    runner = CategoryRunner(category, device=device, num_rots=72, angle_prec=1.5,
+                            adaptive_voting=False, ckpt_path=ckpt_path, ckpt_name=ckpt_name)
     if overrides:
         # inference-side flags set without touching the category configs
         config_keys = {f.name for f in dataclasses.fields(runner.cfg)}
@@ -223,8 +220,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n_poses", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--name", default=None,
-                    help="weights to load, <ckpt_path>/<cat>/<name>.npz (default: the "
-                         "runner's params_best)")
+                    help="weights to load, <ckpt_path>/<cat>/<name>.npz or the reference "
+                         "pair <ckpt_path>/<cat>/{point,ppf}_encoder_epoch<name>.pth "
+                         "(default: the runner's params_best, then best)")
     ap.add_argument("--set", dest="overrides", nargs="*", default=[], metavar="KEY=VAL",
                     help="inference-flag overrides for A/B runs, e.g. "
                          "--set coplanar_halfspace=true filter_coplanar=false")

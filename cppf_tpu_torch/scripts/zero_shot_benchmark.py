@@ -74,20 +74,19 @@ def run_frames(frame_ids, seg_dir, nocs_dir, out_dir, detect_fn):
     return n_det_total
 
 
-def load_zero_shot(ckpt: str, category: str = "bowl"):
+def load_zero_shot(ckpt: str, category: str = "bowl", names=("params_zs", "params_best")):
     """(config, params) of a regression checkpoint directory: its
     ``config.yaml`` snapshot (else the category's config) with
-    ``cls_bins`` off, and ``params_zs.npz``, else ``params_best.npz``
-    (``eval/zero_shot.cli_weights``: the repo's ``checkpoints/bowl_reg``
-    serves its exported ``params_zs``)."""
+    ``cls_bins`` off, and the first of ``names`` found there, each as
+    ``.npz`` or as the reference ``.pth`` pair (``eval/zero_shot.cli_weights``:
+    the repo's ``checkpoints/bowl_reg`` serves its exported ``params_zs``)."""
     from cppf_tpu_torch.config import load_config
     from cppf_tpu_torch.eval.zero_shot import cli_weights
-    from cppf_tpu_torch.models.convert import load_npz_params
 
     snap = os.path.join(ckpt, "config.yaml")
     cfg = load_config(category, snapshot=snap if os.path.exists(snap) else None)
     cfg.cls_bins = False
-    return cfg, load_npz_params(cli_weights(ckpt))
+    return cfg, cli_weights(ckpt, names=names)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -19,7 +19,7 @@ import torch
 from cppf_tpu.eval import zero_shot as zs_j
 from cppf_tpu_torch.data.png import read_png, write_png
 from cppf_tpu_torch.eval import zero_shot as zs
-from cppf_tpu_torch.models.convert import ASSETS
+from cppf_tpu_torch.models.convert import ASSETS, load_npz_params
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,26 +77,45 @@ def test_cli_matches_jax_on_cropped_demo(tmp_path, monkeypatch):
     assert (got[drawn] == [255, 0, 0]).all()
 
 
+def _leaves(tree, prefix=""):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _same_tree(a, b):
+    a, b = dict(_leaves(a)), dict(_leaves(b))
+    return sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
 def test_cli_weights(tmp_path):
     """params_zs.npz first, then params_best.npz; --params_name picks one;
     the repo's own checkpoints/bowl_reg (and a link to it) serves the
-    exported asset; any other directory without weights raises."""
+    exported asset; any other directory without weights raises.  (The
+    reference .pth pairs among these names: tests/test_torch_reference_pth.py.)"""
     repo = os.path.join(ROOT, "checkpoints", "bowl_reg")
     asset = os.path.join(ASSETS, "bowl_reg_params_zs.npz")
-    assert zs.cli_weights(repo) == asset
+    zs_w = load_npz_params(asset)
+    assert _same_tree(zs.cli_weights(repo), zs_w)
     os.symlink(repo, tmp_path / "link")
-    assert zs.cli_weights(str(tmp_path / "link")) == asset
+    assert _same_tree(zs.cli_weights(str(tmp_path / "link")), zs_w)
     with pytest.raises(FileNotFoundError):
         zs.cli_weights(repo, "params_best")
     run = tmp_path / "run"
     run.mkdir()
     with pytest.raises(FileNotFoundError, match="params_zs.npz or params_best.npz"):
         zs.cli_weights(str(run))
-    shutil.copy(asset, run / "params_best.npz")
-    assert zs.cli_weights(str(run)) == str(run / "params_best.npz")
+    # params_best: the asset's weights doubled, to tell the two files apart
+    with np.load(asset) as z:
+        np.savez(run / "params_best.npz", **{k: 2 * z[k] for k in z.files})
+    best_w = load_npz_params(str(run / "params_best.npz"))
+    assert not _same_tree(best_w, zs_w)
+    assert _same_tree(zs.cli_weights(str(run)), best_w)
     shutil.copy(asset, run / "params_zs.npz")
-    assert zs.cli_weights(str(run)) == str(run / "params_zs.npz")
-    assert zs.cli_weights(str(run), "params_best") == str(run / "params_best.npz")
+    assert _same_tree(zs.cli_weights(str(run)), zs_w)
+    assert _same_tree(zs.cli_weights(str(run), "params_best"), best_w)
 
 
 def test_cli_needs_cuda_unless_told_cpu(tmp_path):
