@@ -175,7 +175,7 @@ Phases:
    nothing else): finite losses, 3 lines of ``zs_metrics.jsonl``, a
    ``params_zs.npz`` that reloads into encoders scoring the logged best;
    ms a regression train step; (d) the CLI in this process at 5 M pairs on
-   the demo PNGs, first on ``checkpoints/bowl_reg`` (its exported weights):
+   the demo PNGs, first on ``checkpoints/bowl_reg`` (its orbax ``params_zs``):
    exactly 2 detections, within 4 cm of the bowls and within 1 cm and 5° of
    the stored JAX detection, ``dense_hist_pairs`` once a 2^20-pair chunk;
    then on (c)'s run; each PNG reads back, equals the colour frame outside
@@ -255,6 +255,24 @@ Phases:
    path), CPU against CUDA logits with phase 14's limits; one
    ``{"reference_pth": ...}`` line (ms to load a pair and an ``.npz``, ms a
    pose from each) with the ``nvidia-smi`` line.
+20. the repo's orbax checkpoints, read on the card's host by
+   ``train/orbax.py`` (OCDBT, zarr v2, ``csrc/zstd_decode.cpp`` built with
+   ``g++``; no JAX, orbax or tensorstore): (a) all 33 read, each three
+   times (ms cold and warm), their leaves held to their ``_METADATA``
+   (paths, shapes), the 12 categories' ``params_best`` and ``bowl_reg``'s
+   ``params_zs`` equal to their ``.npz`` assets to the bit, the decoder's
+   MB/s on ``laptop_aux``'s chunks; (b) the laptop frame with
+   ``checkpoints/laptop_aux`` linked unchanged: ms from reading the
+   segmenter to the laptop's first pose, its labels JAX's stored ones on
+   ≥ 99.9 % of 224², ``laptop_up`` within ``LAPTOP_UP_TOL_RAD`` of JAX's,
+   the after-override pose as phase 14 (c) holds it, then
+   ``nocs_inference.main`` twice (s a run; the first run's launches by
+   phase 14's rule), every instance within phase 10's limits of the stored
+   JAX driver; (c) ``eval_checkpoints --name best_decode`` on
+   ``bathtub_r5`` linked as ``bathtub``, view 0: the JAX train state's
+   params served, the pose equal to the bit to the production
+   ``params_best``'s (the same weights); one ``{"orbax": ...}`` line with
+   the ``nvidia-smi`` line.
 
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose, of one zero-shot frame,
@@ -3849,10 +3867,10 @@ def pth_category_poses(tmp, launches):
 def pth_zero_shot_cli(tmp, launches):
     """Phase 19 (b): the zero-shot CLI at full width from a directory that
     holds ``bowl_reg``'s ``params_zs`` as the upstream pair, against the
-    repo's ``checkpoints/bowl_reg`` (its ``.npz`` export): the same 2
-    detections to the bit, ``dense_hist_pairs`` once a chunk (the first
-    ``.pth`` run's added to ``launches``); the sources in turns, .npz,
-    .pth, .pth, .npz.  Returns {source: median seconds of a CLI run}."""
+    repo's ``checkpoints/bowl_reg`` (its orbax ``params_zs``, equal to the
+    ``.npz`` asset; ``npz`` below): the same 2 detections to the bit,
+    ``dense_hist_pairs`` once a chunk (the first ``.pth`` run's added to
+    ``launches``); the sources in turns, .npz, .pth, .pth, .npz.  Returns {source: median seconds of a CLI run}."""
     from cppf_tpu_torch.models.convert import ASSETS, load_npz_params
 
     zs_dir = os.path.join(tmp, "bowl_reg")
@@ -3984,6 +4002,268 @@ def reference_pth_phase(smi):
     print(smi_line(), flush=True)
     print(f"phase 19: launches of the runs on .pth weights {dict(launches)}", flush=True)
     return dict(launches)
+
+
+# ---- phase 20: the repo's orbax checkpoints, read without JAX ---------------
+ORBAX_CHECKPOINTS = 33        # 25 params_best, bowl_reg/params_zs, 7 best_decode
+ORBAX_READ_REPS = 3           # reads of each checkpoint; the first is cold
+ORBAX_ASSETS = dict([(f"{c}/params_best", f"{c}_params_best.npz") for c in
+                     ("bathtub", "bed", "bookshelf", "bottle", "bowl", "camera", "can", "chair",
+                      "laptop", "mug", "sofa", "table")]
+                    + [("bowl_reg/params_zs", "bowl_reg_params_zs.npz")])
+# a JAX train state whose params are the production bathtub's (same config):
+# served by name, its view 0 must pose as the production weights pose it
+BEST_DECODE = ("bathtub", "bathtub_r5")
+
+
+def _orbax_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _orbax_leaves(v, prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _orbax_leaves(v, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def orbax_reads():
+    """Phase 20 (a): every committed orbax checkpoint read by
+    ``train/orbax.restore_numpy`` (``ORBAX_READ_REPS`` times, the first
+    cold), its leaves held to its ``_METADATA`` (count, key paths, shapes,
+    None where orbax stored none), the 12 categories' ``params_best`` and
+    ``bowl_reg``'s ``params_zs`` to their ``.npz`` assets bit for bit; the
+    decoder alone timed on ``laptop_aux``'s chunks.  Returns the record."""
+    from cppf_tpu_torch.models.convert import ASSETS, load_npz_params
+    from cppf_tpu_torch.train import orbax
+
+    t0 = time.perf_counter()
+    orbax.load_zstd()
+    build_s = time.perf_counter() - t0
+    dirs = sorted(os.path.dirname(p) for p in
+                  glob.glob(os.path.join(ROOT, "checkpoints", "*", "*", "_METADATA")))
+    check(len(dirs) == ORBAX_CHECKPOINTS, f"phase 20: {len(dirs)} orbax checkpoints, not "
+          f"{ORBAX_CHECKPOINTS}")
+    reads = {}
+    for d in dirs:
+        name = os.path.relpath(d, os.path.join(ROOT, "checkpoints"))
+        times = []
+        for _ in range(ORBAX_READ_REPS):
+            t0 = time.perf_counter()
+            tree = orbax.restore_numpy(d)
+            times.append((time.perf_counter() - t0) * 1e3)
+        leaves = dict(_orbax_leaves(tree))
+        with open(os.path.join(d, "_METADATA")) as f:
+            meta = json.load(f)["tree_metadata"]
+        want = {tuple(k["key"] for k in m["key_metadata"]):
+                (None if m["value_metadata"]["value_type"] == "None"
+                 else tuple(m["value_metadata"]["write_shape"])) for m in meta.values()}
+        got = {k: None if v is None else v.shape for k, v in leaves.items()}
+        check(got == want, f"phase 20: {name}: leaves or shapes differ from its _METADATA")
+        nbytes = sum(v.nbytes for v in leaves.values() if v is not None)
+        reads[name] = dict(leaves=len(leaves), mb=nbytes / 1e6, first_ms=times[0],
+                           ms=statistics.median(times[1:]))
+        if name in ORBAX_ASSETS:
+            flat = dict(_orbax_leaves(tree["params"]))
+            asset = dict(_orbax_leaves(load_npz_params(os.path.join(ASSETS,
+                                                                     ORBAX_ASSETS[name]))))
+            check(sorted(flat) == sorted(asset) and all(
+                flat[k].dtype == asset[k].dtype and flat[k].tobytes() == asset[k].tobytes()
+                for k in asset), f"phase 20: {name} differs from {ORBAX_ASSETS[name]}")
+        print(f"phase 20 (a) {name}: {len(leaves)} leaves, {nbytes / 1e6:.3f} MB, "
+              f"{times[0]:.2f} ms cold, {reads[name]['ms']:.2f} ms warm"
+              + (f"; equal to {ORBAX_ASSETS[name]} to the bit" if name in ORBAX_ASSETS
+                 else ""), flush=True)
+    # the decoder alone, on the segmenter's chunks held in memory
+    aux = os.path.join(ROOT, "checkpoints", "laptop_aux", "params_best")
+    with orbax.Database(aux) as db:
+        items = db.items()
+        raws = [db.value(v) for k, v in items.items() if not k.endswith(b"/.zarray")]
+    times = []
+    for _ in range(ORBAX_READ_REPS):
+        t0 = time.perf_counter()
+        out_bytes = sum(orbax.zstd_decompress(raw, 1 << 31).size for raw in raws)
+        times.append(time.perf_counter() - t0)
+    in_bytes = sum(len(r) for r in raws)
+    dec = dict(chunks=len(raws), in_mb=in_bytes / 1e6, out_mb=out_bytes / 1e6,
+               s=statistics.median(times), mb_per_s=out_bytes / 1e6 / statistics.median(times))
+    total = {k: sum(r[k] for r in reads.values()) for k in ("first_ms", "ms", "mb")}
+    print(f"phase 20 (a): {len(reads)} checkpoints read, {total['mb']:.1f} MB of arrays, "
+          f"{total['first_ms']:.1f} ms cold / {total['ms']:.1f} ms warm in all; laptop_aux "
+          f"{reads['laptop_aux/params_best']['first_ms']:.1f} / "
+          f"{reads['laptop_aux/params_best']['ms']:.1f} ms; the decoder alone on its "
+          f"{len(raws)} chunks: {dec['out_mb']:.1f} MB out of {dec['in_mb']:.1f} MB in "
+          f"{dec['s'] * 1e3:.1f} ms, {dec['mb_per_s']:.1f} MB/s; the library built in "
+          f"{build_s:.2f} s", flush=True)
+    return dict(reads=reads, decoder=dec, build_s=build_s, total=total)
+
+
+def orbax_laptop_frame(tmp, device):
+    """Phase 20 (b): the laptop frame posed end to end from the committed
+    ``checkpoints/laptop_aux`` (linked unchanged; no labels injected): the
+    ms from reading the segmenter to the laptop's first pose, its labels
+    against JAX's stored ones, ``laptop_up`` and the after-override pose
+    against JAX's, then ``nocs_inference.main`` twice (the first run's
+    launches by phase 14's rule) with every instance held to the stored
+    JAX driver by phase 10's limits.  Returns (record, launches)."""
+    import pickle
+
+    from cppf_tpu_torch.data.png import read_png
+    from cppf_tpu_torch.eval import nocs_inference as ni
+    from cppf_tpu_torch.ops import vote_hist as vh
+
+    aux = os.path.join(ROOT, "checkpoints", "laptop_aux")
+    seg_dir, nocs_dir, ckpt, record, stored = unpack_nocs_frame(tmp, LAPTOP_FRAME, aux)
+    names = [ni.SYNSET_NAMES[c] for c in record["pred_class_ids"]]
+    k = int(stored["laptop"])
+    path = os.path.join(nocs_dir, record["image_path"][5:])
+    img, depth = read_png(path + "_color.png")[:, :, :3], read_png(path + "_depth.png")
+    runner = ni.CategoryRunner("laptop", device=device)
+    pc = ni.frame_crops(depth, record, {"laptop": runner})["laptop"][0][1]
+    r_inst, r_plane = (tuple(int(v) for v in stored[n]) for n in ("r_inst", "r_plane"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seg = ni.load_segmenter(ckpt, device)
+    check(not isinstance(seg, Exception) and seg is not None,
+          f"phase 20: no segmenter from {aux}: {seg}")
+    torch.cuda.synchronize()
+    seg_ms = (time.perf_counter() - t0) * 1e3
+    out, up = ni.pose_laptop(runner, ni.LaptopFrame(seg, img, ni.frame_masks(record)), k, pc,
+                             r_inst, r_plane)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    crop, _, _ = ni.laptop_crop(img, np.where(record["pred_masks"][:, :, k]))
+    labels = seg.predict(crop)
+    same = float((labels == stored["labels"]).mean())
+    check(up is not None, "phase 20: the segmenter gave no up axis")
+    d_up = float(np.radians(_angle(up, stored["laptop_up"])))
+    dT = float(np.linalg.norm(out.T.cpu().numpy() - stored["after_T"]))
+    d_pose_up = _angle(out.up.cpu().numpy(), stored["after_R"][:, 1])
+    print(f"phase 20 (b): the committed segmenter (orbax, read on the card's host) on the "
+          f"laptop frame: labels equal JAX's on {same * 100:.3f} % of 224²; laptop_up "
+          f"{d_up:.2e} rad from JAX's; the after-override pose T {dT * 1e3:.4f} mm, up "
+          f"{d_pose_up:.4f} deg from JAX's; {seg_ms:.1f} ms to read and place the segmenter, "
+          f"{first_ms:.1f} ms from the read to the laptop's first pose", flush=True)
+    check(same >= 0.999, "phase 20: the committed segmenter's labels differ from JAX's")
+    check(d_up <= LAPTOP_UP_TOL_RAD, "phase 20: laptop_up differs from JAX's")
+    check(dT <= 1e-5, "phase 20: the after-override T is not JAX's voxel")
+    check(d_pose_up <= LAPTOP_POSE_UP_TOL_DEG, "phase 20: the after-override up differs")
+    del seg
+
+    argv = ["--seg_dir", seg_dir, "--nocs_dir", nocs_dir, "--ckpt_path", ckpt,
+            "--seed", str(int(stored["seed"])), "--device", device]
+    secs, launches = [], None
+    for rep in range(2):
+        out_dir = os.path.join(tmp, f"pred_{rep}")
+        torch.cuda.synchronize()
+        vh.reset_launches()
+        t0 = time.perf_counter()
+        ni.main(argv + ["--out_dir", out_dir])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if launches is None:
+            launches = dict(vh.LAUNCHES)
+    with open(ni.result_path(out_dir, record), "rb") as f:
+        res = pickle.load(f)
+    runners = ni.load_runners(ni.build_parser().parse_args(argv))
+    passes = sum(2 if runners[c].pcfg.asym_center_refine else 1 for c in names) + 1
+    _peak_path_ok(launches, passes, "phase 20 (b) the driver")
+    RTs = res["pred_RTs"]
+    R = RTs[:, :3, :3] / np.cbrt(np.linalg.det(RTs[:, :3, :3]))[:, None, None]
+    flips = []
+    for i, cat in enumerate(names):
+        check(not np.allclose(RTs[i], np.eye(4)) and np.linalg.det(RTs[i][:3, :3]) > 0,
+              f"phase 20: instance {i} was not posed")
+        dT = float(np.linalg.norm(RTs[i][:3, 3] - stored["T"][i]))
+        d_up = _angle(R[i][:, 1], stored["up"][i], fold=cat in UP_SYMMETRIC)
+        print(f"  instance {i} ({cat}): the driver minus JAX's T {dT * 1e3:.4f} mm, up "
+              f"{d_up:.4f} deg", flush=True)
+        check(dT <= NOCS_T_TOL, f"phase 20: instance {i} T {dT * 1e3:.2f} mm from JAX's")
+        if d_up > NOCS_UP_TOL_DEG:
+            flips.append(i)
+    check(len(flips) <= 1 and k not in flips,
+          f"phase 20: up axes of instances {flips} differ from JAX's")
+    dT = float(np.linalg.norm(RTs[k][:3, 3] - stored["after_T"]))
+    d_up = _angle(R[k][:, 1], stored["after_R"][:, 1])
+    check(dT <= 1e-5 and d_up <= LAPTOP_POSE_UP_TOL_DEG,
+          f"phase 20: the driver's laptop is not JAX's after-override pose ({dT}, {d_up})")
+    print(f"phase 20 (b): the driver on the laptop frame from checkpoints/laptop_aux: "
+          f"{secs[0]:.3f} s the first run (runners, the segmenter read and first calls), "
+          f"{secs[1]:.3f} s the second; launches {launches} ({passes} center passes: the "
+          f"laptop posed twice)", flush=True)
+    return dict(labels_equal=same, laptop_up_rad=float(np.radians(
+        _angle(up, stored["laptop_up"]))), segmenter_ms=seg_ms, first_laptop_pose_ms=first_ms,
+        driver_s=secs), launches
+
+
+def orbax_best_decode(tmp, device):
+    """Phase 20 (c): ``eval_checkpoints --name best_decode`` on a ``*_r5*``
+    experiment (linked as its category), view 0: the JAX train state's
+    ``params`` are served, and the pose equals to the bit the one the
+    production ``params_best`` of the same weights gives.  Returns the
+    launches of the ``best_decode`` run."""
+    from cppf_tpu_torch.models.convert import params_to_state_dicts
+    from cppf_tpu_torch.scripts import eval_checkpoints as ec
+    from cppf_tpu_torch.train.orbax import restore_numpy
+
+    cat, exp = BEST_DECODE
+    ckpt = os.path.join(tmp, "r5")
+    os.makedirs(ckpt)
+    os.symlink(os.path.join(ROOT, "checkpoints", exp), os.path.join(ckpt, cat))
+    runner = ec.load_runner(cat, ckpt, "best_decode", device)
+    state = restore_numpy(os.path.join(ROOT, "checkpoints", exp, "best_decode"))
+    check(sorted(state) == ["opt_state", "params", "step"],
+          f"phase 20: {exp}/best_decode is not a train state")
+    for want, module in zip(params_to_state_dicts(state["params"]),
+                            (runner.point_encoder, runner.ppf_encoder)):
+        got = module.state_dict()
+        check(sorted(got) == sorted(want) and all(
+            torch.equal(got[k].cpu(), want[k]) for k in want),
+            f"phase 20: the runner does not serve {exp}/best_decode's params")
+    poses = {}
+    summary, launches = _launched(lambda: ec.main(
+        ["--categories", cat, "--ckpt_path", ckpt, "--name", "best_decode", "--n_poses", "1",
+         "--device", device]))
+    check(cat in summary, f"phase 20: eval_checkpoints --name best_decode gave {summary}")
+    passes = 2 if runner.pcfg.asym_center_refine else 1
+    _peak_path_ok(launches, passes, "phase 20 (c) eval_checkpoints --name best_decode")
+    for src, path, name in (("best_decode", ckpt, "best_decode"),
+                            ("params_best", os.path.join(ROOT, "checkpoints"), None)):
+        poses[src] = []
+        ec.eval_category(cat, path, 1, 0, ckpt_name=name, device=device, poses=poses[src])
+    for f in ("T", "up", "right", "scale", "n_filtered"):
+        a, b = (np.asarray(poses[src][0][f]) for src in ("best_decode", "params_best"))
+        check(np.array_equal(a, b), f"phase 20: {cat} view 0 {f} from {exp}/best_decode "
+              f"differs from checkpoints/{cat}/params_best's")
+    r = summary[cat]
+    print(f"phase 20 (c): eval_checkpoints --name best_decode on {exp} ({cat}, view 0, step "
+          f"{int(state['step'])}): T err {r['t_err_mm_median']} mm, up err "
+          f"{r['up_err_deg_median']} deg; the pose equals the production params_best's to "
+          f"the bit; launches {launches}", flush=True)
+    return launches
+
+
+def orbax_phase(smi):
+    """Phase 20: the repo's orbax checkpoints served on the card with no
+    JAX; prints the ``orbax`` line.  Returns the launches of the laptop
+    frame's first driver run."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    reads = orbax_reads()
+    t_a = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        frame, launches = orbax_laptop_frame(tmp, "cuda")
+        t_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bd_launches = orbax_best_decode(tmp, "cuda")
+        t_c = time.perf_counter() - t0
+    print(json.dumps({"orbax": dict(reads, laptop_frame=frame, best_decode_launches=bd_launches,
+                                    card=smi, phase_s={"a": t_a, "b": t_b, "c": t_c})},
+                     default=float), flush=True)
+    print(smi_line(), flush=True)
+    return launches
 
 
 def main():
@@ -4177,6 +4457,11 @@ def main():
     print(f"phase 19 (reference .pth checkpoints): {time.perf_counter() - t19:.1f} s",
           flush=True)
 
+    # ---- 20. the repo's orbax checkpoints, read without JAX ------------------
+    t20 = time.perf_counter()
+    orbax_launches = orbax_phase(smi)
+    print(f"phase 20 (orbax checkpoints): {time.perf_counter() - t20:.1f} s", flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
     # comparisons, stands beside it under votes_ keys.  The peak kernels
@@ -4232,12 +4517,15 @@ def main():
                                           for cat, ranks in par_all.items()}
             kernels.append(k)
     # entry() launches the pairs front ends of the peak kernels (phase 17);
-    # the poses and the CLI on .pth weights all three (phase 19)
+    # the poses and the CLI on .pth weights all three (phase 19); the laptop
+    # frame served from the committed orbax checkpoints the peak kernels
+    # (phase 20)
     for k in kernels:
         if k["path"].startswith("main path") and k["name"] != "dense_hist":
             k["entry_launches"] = entry_launches[k["name"] + "_pairs"]
         if k["path"].startswith("main path"):
             k["reference_pth_launches"] = pth_launches.get(k["name"] + "_pairs", 0)
+            k["orbax_laptop_frame_launches"] = orbax_launches.get(k["name"] + "_pairs", 0)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device,

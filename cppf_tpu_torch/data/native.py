@@ -16,7 +16,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -30,31 +30,47 @@ CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-march=native", "-shared")
 _lib: Optional[ctypes.CDLL] = None
 
 
-def library_path() -> str:
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(NATIVE_DIR, name), "rb") as f:
+def host_library_path(stem: str, sources: Sequence[str], flags: Sequence[str]) -> str:
+    """Where the library ``lib<stem>`` of ``sources`` built with ``flags``
+    goes: ``_build/lib<stem>-<hash of the flags and sources>.so``."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
+        with open(path, "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD, f"libcppf_native-{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the library unless an up-to-date one exists; returns its path.
-    Raises ``RuntimeError`` with the compiler's output when ``g++`` fails."""
-    path = library_path()
+def build_host_library(stem: str, sources: Sequence[str], flags: Sequence[str]) -> str:
+    """Compile ``sources`` with ``g++`` unless an up-to-date library exists;
+    returns its path.  Raises ``RuntimeError`` with the compiler's output
+    when ``g++`` fails or is missing."""
+    path = host_library_path(stem, sources, flags)
     if os.path.exists(path):
         return path
-    os.makedirs(BUILD, exist_ok=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = ["g++", *CXX_FLAGS, "-o", tmp, *(os.path.join(NATIVE_DIR, n) for n in SOURCES)]
+    cmd = ["g++", *flags, "-o", tmp, *sources]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
-        raise RuntimeError("g++ not found: the native rasterizer cannot be built") from e
+        raise RuntimeError(f"g++ not found: lib{stem} cannot be built") from e
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for the native library:\n{proc.stderr}")
+        raise RuntimeError(f"g++ failed for lib{stem}:\n{proc.stderr}")
     os.replace(tmp, path)
     return path
+
+
+def library_path() -> str:
+    return host_library_path("cppf_native", [os.path.join(NATIVE_DIR, n) for n in SOURCES],
+                             CXX_FLAGS)
+
+
+def build() -> str:
+    """Compile the rasterizer unless an up-to-date library exists; returns
+    its path.  Raises ``RuntimeError`` with the compiler's output when
+    ``g++`` fails."""
+    return build_host_library("cppf_native", [os.path.join(NATIVE_DIR, n) for n in SOURCES],
+                              CXX_FLAGS)
 
 
 def load() -> ctypes.CDLL:

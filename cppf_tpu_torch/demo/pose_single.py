@@ -7,8 +7,8 @@ Two modes:
   (``data/synthetic.oracle_pair_predictions``) drive the voting half
   (``pipeline/pose.vote_pose``): the pipeline's geometry without a network;
 - ``--ckpt DIR``: the network of a category's served weights (as the
-  runner serves them: ``DIR/params_best.npz``, for the repo's
-  ``checkpoints/<cat>`` its exported assets, or the reference's
+  runner serves them: the orbax ``DIR/params_best/`` of the repo's
+  ``checkpoints/<cat>``, ``DIR/params_best.npz``, or the reference's
   ``DIR/{point,ppf}_encoder_epochbest.pth``) runs the whole
   ``estimate_pose``.
 

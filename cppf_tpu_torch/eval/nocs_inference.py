@@ -42,7 +42,7 @@ from cppf_tpu_torch.data.png import read_png
 from cppf_tpu_torch.data.resize import resize_linear
 from cppf_tpu_torch.device import pin_float32, resolve_device
 from cppf_tpu_torch.eval.anchor import anchor_box_t
-from cppf_tpu_torch.models.convert import ASSETS, load_encoders, load_npz_params
+from cppf_tpu_torch.models.convert import load_encoders
 from cppf_tpu_torch.models.segmenter import SegmenterRunner
 from cppf_tpu_torch.ops.ransac import segment_plane
 from cppf_tpu_torch.pipeline.pose import PoseConfig, PoseDraws, estimate_pose
@@ -100,27 +100,21 @@ def _pad_cloud(pc_raw: np.ndarray, n_raw_pad: int):
 
 def served_weights(cls_name: str, path: str) -> dict:
     """The params tree a runner serves for ``cls_name`` from the checkpoint
-    directory ``path``, in the JAX runner's order of names
-    (``train/checkpoints.maybe_load_any`` reads each name's ``<name>.npz``,
-    else its reference pair ``point_encoder_epoch<name>.pth`` +
-    ``ppf_encoder_epoch<name>.pth``): ``params_best``; then, where ``path``
-    is the repo's ``checkpoints/<cls_name>`` (or a link to it),
-    ``assets/<cls_name>_params_best.npz``, that directory's orbax
-    ``params_best`` exported; then ``best``, which is the upstream
-    release's pair.  Raises ``FileNotFoundError`` otherwise."""
-    params = maybe_load_any(path, "params_best")
-    repo_path = os.path.join(REPO_ROOT, "checkpoints", cls_name)
-    if (params is None and os.path.isdir(path)
-            and os.path.realpath(path) == os.path.realpath(repo_path)):
-        params = load_npz_params(os.path.join(ASSETS, f"{cls_name}_params_best.npz"))
-    if params is None:
-        params = maybe_load_any(path, "best")
-    if params is None:
-        raise FileNotFoundError(
-            f"no params_best.npz, best.npz or reference pair point_encoder_epoch<name>.pth + "
-            f"ppf_encoder_epoch<name>.pth (<name> params_best or best) for {cls_name} "
-            f"under {path}")
-    return params
+    directory ``path``, in the JAX runner's order of names: ``params_best``,
+    then ``best`` (the upstream release's pair), each as
+    ``train/checkpoints.maybe_load_any`` reads a name: the orbax directory
+    ``<name>/`` (the repo's ``checkpoints/<cls_name>/params_best``), else
+    ``<name>.npz``, else the reference pair ``point_encoder_epoch<name>.pth``
+    + ``ppf_encoder_epoch<name>.pth``.  Raises ``FileNotFoundError``
+    otherwise."""
+    for name in ("params_best", "best"):
+        params = maybe_load_any(path, name)
+        if params is not None:
+            return params
+    raise FileNotFoundError(
+        f"no params_best/ or best/ (orbax), params_best.npz, best.npz or reference pair "
+        f"point_encoder_epoch<name>.pth + ppf_encoder_epoch<name>.pth (<name> params_best "
+        f"or best) for {cls_name} under {path}")
 
 
 class CategoryRunner:
@@ -129,12 +123,13 @@ class CategoryRunner:
     The config is the training-time snapshot ``<ckpt_path>/<cls>/config.yaml``
     when present, else the layered repo config, with the repo config's
     inference flags overlaid.  The weights are those of ``ckpt_name`` under
-    ``<ckpt_path>/<cls>`` when it is given (``<ckpt_name>.npz``, else the
-    reference pair ``point_encoder_epoch<ckpt_name>.pth`` +
+    ``<ckpt_path>/<cls>`` when it is given (the orbax directory
+    ``<ckpt_name>/``, else ``<ckpt_name>.npz``, else the reference pair
+    ``point_encoder_epoch<ckpt_name>.pth`` +
     ``ppf_encoder_epoch<ckpt_name>.pth``), else :func:`served_weights`'
-    (``params_best``, the repo's export in ``assets/``, ``best``).  A
-    directory without them raises ``FileNotFoundError``, as the JAX runner
-    raises on a directory without weights.
+    (``params_best``, then ``best``).  A directory without them raises
+    ``FileNotFoundError``, as the JAX runner raises on a directory without
+    weights.
     Runs on ``cuda`` unless ``device`` says otherwise.
     """
 
@@ -148,8 +143,9 @@ class CategoryRunner:
         if ckpt_name:
             params = maybe_load_any(path, ckpt_name)
             if params is None:
-                raise FileNotFoundError(f"no {ckpt_name}.npz or reference pair of "
-                                        f"{ckpt_name} for {cls_name} under {path}")
+                raise FileNotFoundError(f"no {ckpt_name}/ (orbax), {ckpt_name}.npz or "
+                                        f"reference pair of {ckpt_name} for {cls_name} under "
+                                        f"{path}")
         else:
             params = served_weights(cls_name, path)
         snap = os.path.join(path, "config.yaml")
@@ -353,10 +349,10 @@ def pose_laptop(runner: CategoryRunner, laptop: LaptopFrame, i: int, pc: np.ndar
 
 
 def load_segmenter(ckpt_path: str, device=None):
-    """The laptop segmenter of ``<ckpt_path>/laptop_aux`` (its
-    ``params_best.npz``); the ``FileNotFoundError`` itself where the
-    directory holds no weights, for :func:`pose_laptop` to raise; None
-    without the directory."""
+    """The laptop segmenter of ``<ckpt_path>/laptop_aux`` (its orbax
+    ``params_best/``, else ``params_best.npz``: ``SegmenterRunner``); the
+    ``FileNotFoundError`` itself where the directory holds no weights, for
+    :func:`pose_laptop` to raise; None without the directory."""
     aux_dir = os.path.join(ckpt_path, "laptop_aux")
     if not os.path.isdir(aux_dir):
         return None
@@ -432,19 +428,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="NOCS REAL275 inference: detection priors → result pkls. A category "
         "runs with the config.yaml snapshot of <ckpt_path>/<cat> and the first weights "
-        "found there of params_best, then best: <name>.npz, else the reference CPPF's "
-        "pair point_encoder_epoch<name>.pth + ppf_encoder_epoch<name>.pth (the upstream "
-        "release's layout is <ckpt_path>/<cat>/{point,ppf}_encoder_epochbest.pth); where "
-        "<ckpt_path>/<cat> is the repo's checkpoints/<cat> (or a link to it), "
-        "cppf_tpu_torch/assets/<cat>_params_best.npz, the export of its params_best, comes "
-        "between the two names. A category without weights is skipped. With "
-        "<ckpt_path>/laptop_aux (its params_best.npz) laptops take the segmenter's up axis.")
+        "found there of params_best, then best: the orbax directory <name>/ that the JAX "
+        "package writes, else <name>.npz, else the reference CPPF's pair "
+        "point_encoder_epoch<name>.pth + ppf_encoder_epoch<name>.pth (the upstream "
+        "release's layout is <ckpt_path>/<cat>/{point,ppf}_encoder_epochbest.pth). A "
+        "category without weights is skipped. With <ckpt_path>/laptop_aux (its orbax "
+        "params_best/ or params_best.npz) laptops take the segmenter's up axis.")
     ap.add_argument("--seg_dir", default="data/nocs_seg")
     ap.add_argument("--nocs_dir", default="data/nocs")
     ap.add_argument("--out_dir", default="data/nocs_prediction")
     ap.add_argument("--ckpt_path", default="checkpoints",
                     help="one directory a category, <ckpt_path>/<cat>: its config.yaml and "
-                         "params_best.npz, or the reference's "
+                         "params_best/ (orbax) or params_best.npz, or the reference's "
                          "{point,ppf}_encoder_epochbest.pth")
     ap.add_argument("--angle_prec", type=float, default=1.5)
     ap.add_argument("--num_rots", type=int, default=72)

@@ -41,7 +41,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from cppf_tpu_torch.config import REPO_ROOT, load_config
+from cppf_tpu_torch.config import load_config
 from cppf_tpu_torch.core import threefry
 from cppf_tpu_torch.core.geometry import (backproject, calculate_2d_projections, fibonacci_sphere,
                                           get_3d_bbox, transform_coordinates_3d)
@@ -49,7 +49,7 @@ from cppf_tpu_torch.data.png import read_png, write_png
 from cppf_tpu_torch.device import pin_float32, resolve_device
 from cppf_tpu_torch.eval.anchor import anchor_box_t
 from cppf_tpu_torch.eval.viz import draw_line
-from cppf_tpu_torch.models.convert import ASSETS, load_encoders, load_npz_params
+from cppf_tpu_torch.models.convert import load_encoders
 from cppf_tpu_torch.ops.knn import knn_indices
 from cppf_tpu_torch.ops.normals import estimate_normals
 from cppf_tpu_torch.ops.quantize import voxel_downsample_host
@@ -554,7 +554,6 @@ def zero_shot_detect(depth: np.ndarray, encoders_or_params, cfg,
 # the 12 edges of the get_3d_bbox corners, in the order the JAX CLI draws them
 CLI_EDGES = ((0, 1), (0, 2), (1, 3), (2, 3), (4, 5), (4, 6), (5, 7), (6, 7),
              (0, 4), (1, 5), (2, 6), (3, 7))
-REPO_CKPT = os.path.join(REPO_ROOT, "checkpoints", "bowl_reg")
 
 
 # the JAX CLI's order of names: the proposal-contrast selection first
@@ -565,24 +564,19 @@ def cli_weights(ckpt: str, params_name: Optional[str] = None,
                 names: Sequence[str] = CLI_NAMES) -> dict:
     """The params tree the CLI serves from the checkpoint directory
     ``ckpt``: the first of ``params_name`` (when named) or ``names`` found
-    there, each as ``<name>.npz``, else as the reference pair
-    ``point_encoder_epoch<name>.pth`` + ``ppf_encoder_epoch<name>.pth``
-    (``train/checkpoints.maybe_load_any``).  The repo's own
-    ``checkpoints/bowl_reg`` (or a link to it) holds only the JAX
-    package's checkpoints; its ``params_zs`` is served from
-    ``assets/bowl_reg_params_zs.npz``.  Raises ``FileNotFoundError``
-    otherwise."""
+    there, each as ``train/checkpoints.maybe_load_any`` reads a name: the
+    orbax directory ``<name>/`` (the repo's ``checkpoints/bowl_reg/
+    params_zs``), else ``<name>.npz``, else the reference pair
+    ``point_encoder_epoch<name>.pth`` + ``ppf_encoder_epoch<name>.pth``.
+    Raises ``FileNotFoundError`` otherwise."""
     names = [params_name] if params_name else list(names)
-    repo = os.path.isdir(ckpt) and os.path.realpath(ckpt) == os.path.realpath(REPO_CKPT)
     for name in names:
         params = maybe_load_any(ckpt, name)
-        if params is None and repo and name == "params_zs":
-            params = load_npz_params(os.path.join(ASSETS, "bowl_reg_params_zs.npz"))
         if params is not None:
             return params
-    raise FileNotFoundError(f"no {' or '.join(n + '.npz' for n in names)} and no reference "
-                            f"pair {{point,ppf}}_encoder_epoch<name>.pth of those names under "
-                            f"{ckpt}")
+    raise FileNotFoundError(f"no {' or '.join(n + '.npz' for n in names)}, no orbax directory "
+                            f"and no reference pair {{point,ppf}}_encoder_epoch<name>.pth of "
+                            f"those names under {ckpt}")
 
 
 def detection_box(d: Detection) -> np.ndarray:
@@ -614,7 +608,8 @@ def main(argv=None):
     parser.add_argument("--out", default="zero_shot_vis.png")
     parser.add_argument("--n_pairs", type=int, default=5000000)
     parser.add_argument("--params_name", default=None,
-                        help="weights to load, <ckpt>/<name>.npz or the reference pair "
+                        help="weights to load, the orbax directory <ckpt>/<name>/, "
+                             "<ckpt>/<name>.npz or the reference pair "
                              "<ckpt>/{point,ppf}_encoder_epoch<name>.pth (default: the first "
                              "of params_zs, the proposal-contrast selection, params_best, "
                              "best)")

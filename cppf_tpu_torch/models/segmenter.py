@@ -127,23 +127,25 @@ class FCNResNet50(nn.Module):
 
 
 class SegmenterRunner:
-    """A trained segmenter: ``<ckpt_dir>/params_best.npz`` (the flat flax
-    layout of ``models/convert.py``), normalising by running statistics
-    exactly when its ``stem_bn`` has a ``mean``.  Runs on ``cuda`` unless
-    ``device`` says otherwise."""
+    """A trained segmenter: the orbax checkpoint ``<ckpt_dir>/params_best/``
+    that the JAX package writes (read by ``train/orbax.py``; the repo's
+    ``checkpoints/laptop_aux``), else ``<ckpt_dir>/params_best.npz`` (the
+    flat flax layout of ``models/convert.py``, which the port's trainer
+    writes), normalising by running statistics exactly when its ``stem_bn``
+    has a ``mean``.  Runs on ``cuda`` unless ``device`` says otherwise."""
 
     def __init__(self, ckpt_dir: str, device=None, num_classes: int = 2):
-        from cppf_tpu_torch.models.convert import load_npz_params, segmenter_state_dict
+        from cppf_tpu_torch.models.convert import segmenter_state_dict
+        from cppf_tpu_torch.train.checkpoints import load_params
 
         self.device = resolve_device(device)
         pin_float32()
-        path = os.path.join(ckpt_dir, "params_best.npz")
-        if not os.path.exists(path):
+        orbax_dir = os.path.join(ckpt_dir, "params_best")
+        if not (os.path.isdir(orbax_dir) or os.path.isfile(f"{orbax_dir}.npz")):
             raise FileNotFoundError(
-                f"no {path}: export the orbax segmenter with `python "
-                f"scripts/export_torch_assets.py --laptop_aux`, or train one with `python -m "
-                f"cppf_tpu_torch.train.laptop_aux out_dir={ckpt_dir}`")
-        params = load_npz_params(path)
+                f"no {orbax_dir}/ (orbax) or {orbax_dir}.npz: train a segmenter with `python "
+                f"-m cppf_tpu_torch.train.laptop_aux out_dir={ckpt_dir}`")
+        params = load_params(ckpt_dir, "params_best")
         track = "mean" in params["params"]["stem_bn"]
         self.model = FCNResNet50(num_classes, track_stats=track)
         self.model.load_state_dict(segmenter_state_dict(params), strict=True)

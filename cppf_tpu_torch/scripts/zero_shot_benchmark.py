@@ -77,9 +77,9 @@ def run_frames(frame_ids, seg_dir, nocs_dir, out_dir, detect_fn):
 def load_zero_shot(ckpt: str, category: str = "bowl", names=("params_zs", "params_best")):
     """(config, params) of a regression checkpoint directory: its
     ``config.yaml`` snapshot (else the category's config) with
-    ``cls_bins`` off, and the first of ``names`` found there, each as
-    ``.npz`` or as the reference ``.pth`` pair (``eval/zero_shot.cli_weights``:
-    the repo's ``checkpoints/bowl_reg`` serves its exported ``params_zs``)."""
+    ``cls_bins`` off, and the first of ``names`` found there, each as an
+    orbax directory, an ``.npz`` or the reference ``.pth`` pair
+    (``eval/zero_shot.cli_weights``)."""
     from cppf_tpu_torch.config import load_config
     from cppf_tpu_torch.eval.zero_shot import cli_weights
 

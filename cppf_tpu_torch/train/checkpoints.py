@@ -11,10 +11,17 @@ zero-shot model's proposal-contrast selection goes beside them as
 ``params_zs.npz``, which ``python -m cppf_tpu_torch.eval.zero_shot --ckpt
 <out_dir>`` serves first.
 
-Every loader of served weights goes through :func:`maybe_load_any`, which
-also reads the reference CPPF's own checkpoints: a directory that holds
-``point_encoder_epoch<name>.pth`` + ``ppf_encoder_epoch<name>.pth`` (the
-upstream release's layout, ``<name>`` = ``best``) serves them.
+Every loader of served weights goes through :func:`maybe_load_any`, in the
+JAX package's order: the orbax checkpoint directory ``<name>/`` that the
+JAX package writes (``train/orbax.py`` reads it without JAX: the repo's
+``checkpoints/<cat>/params_best``, ``bowl_reg/params_zs``,
+``laptop_aux/params_best`` and the ``best_decode`` train states), then the
+port's ``<name>.npz``, then the reference CPPF's own checkpoints: a
+directory that holds ``point_encoder_epoch<name>.pth`` +
+``ppf_encoder_epoch<name>.pth`` (the upstream release's layout, ``<name>``
+= ``best``).  The port writes no orbax checkpoint, and a JAX train state's
+optax ``opt_state`` is not resumed into the port's Adam: only its
+``params`` are served.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from cppf_tpu_torch.config import Config
 from cppf_tpu_torch.models.convert import (load_npz_params, load_torch_state_dict,
                                            params_to_state_dicts, point_encoder_from_torch,
                                            ppf_encoder_from_torch, save_npz_params)
+from cppf_tpu_torch.train.orbax import restore_numpy
 from cppf_tpu_torch.train.step import TrainState
 
 log = logging.getLogger("cppf_tpu_torch.checkpoints")
@@ -78,7 +86,13 @@ def load_params_into(ckpt_dir: str, state: TrainState, name: str = "params_best"
 
 
 def load_params(ckpt_dir: str, name: str = "best") -> dict:
-    """``<ckpt_dir>/<name>.npz`` as the nested params tree."""
+    """The params tree of ``name`` under ``ckpt_dir``: the ``["params"]``
+    of the orbax checkpoint ``<ckpt_dir>/<name>/`` when that is a
+    directory (as the JAX package's ``load_params`` takes it), else
+    ``<ckpt_dir>/<name>.npz``."""
+    orbax_dir = os.path.join(ckpt_dir, name)
+    if os.path.isdir(orbax_dir):
+        return restore_numpy(orbax_dir)["params"]
     return load_npz_params(os.path.join(ckpt_dir, f"{name}.npz"))
 
 
@@ -96,16 +110,25 @@ def load_reference_pth(point_pth: str, ppf_pth: str) -> dict:
 
 
 def maybe_load_any(ckpt_dir: str, name: str = "best") -> Optional[dict]:
-    """The params tree of ``name`` under ``ckpt_dir``: ``<name>.npz``, else
-    the reference pair ``point_encoder_epoch<name>.pth`` +
-    ``ppf_encoder_epoch<name>.pth``, else None (half a pair is no pair).
-    An ``.npz`` that does not read is logged and counts as missing, so
-    that a driver over many categories skips it; a pair that does not map
-    onto the encoders raises."""
+    """The params tree of ``name`` under ``ckpt_dir``: the orbax directory
+    ``<name>/``, else ``<name>.npz``, else the reference pair
+    ``point_encoder_epoch<name>.pth`` + ``ppf_encoder_epoch<name>.pth``,
+    else None (half a pair is no pair).  An orbax directory or an ``.npz``
+    that does not read is logged and counts as missing, as the JAX
+    package's unreadable orbax directory does, so that a driver over many
+    categories skips it; a pair that does not map onto the encoders
+    raises."""
+    orbax_dir = os.path.join(ckpt_dir, name)
+    if os.path.isdir(orbax_dir):
+        try:
+            return restore_numpy(orbax_dir)["params"]
+        except (OSError, ValueError, KeyError, TypeError) as e:  # partial save, corrupt
+            log.warning("unreadable checkpoint %s (%s: %s): treating it as missing", orbax_dir,
+                        type(e).__name__, e)
     npz = os.path.join(ckpt_dir, f"{name}.npz")
     if os.path.isfile(npz):
         try:
-            return load_params(ckpt_dir, name)
+            return load_npz_params(npz)
         except (OSError, EOFError, ValueError, zipfile.BadZipFile) as e:  # truncated, foreign
             log.warning("unreadable checkpoint %s (%s: %s): treating it as missing", npz,
                         type(e).__name__, e)

@@ -52,11 +52,6 @@ With ``--sun_scans`` it writes instead ``cppf_tpu_torch/assets/sun_scans/``:
   ``cppf_tpu.eval.sunrgbd_eval.main`` on that output: ``<cat>_iou_aps``,
   ``<cat>_pose_aps``, ``<cat>_pose_pred_matches``, ``<cat>_pose_gt_matches``.
 
-With ``--laptop_aux`` it writes ``<ckpt_path>/laptop_aux/params_best.npz``:
-the laptop segmenter's orbax ``params_best`` as flat arrays (164, 32 947 266
-parameters, 131.8 MB; gitignored), which the port's ``SegmenterRunner``
-and its NOCS driver read.
-
 With ``--laptop_frame`` it writes ``cppf_tpu_torch/assets/nocs_laptop_frame/``,
 a rendered NOCS frame of ``LAPTOP_LAYOUT`` (a mug, a laptop from
 ``random_laptop``, a bowl; ``render_nocs_frame``) and the JAX driver's run
@@ -84,7 +79,6 @@ Usage (needs JAX; runs on the CPU):
     python scripts/export_torch_assets.py [--category bowl] [--n_views 4] [--seed 0]
     python scripts/export_torch_assets.py --nocs_frame   (~5 min)
     python scripts/export_torch_assets.py --sun_scans    (~2 min)
-    python scripts/export_torch_assets.py --laptop_aux   (~10 s)
     python scripts/export_torch_assets.py --laptop_frame
     python scripts/export_torch_assets.py --flags         (~5 min)
 """
@@ -318,17 +312,6 @@ def export_nocs_frame(seed: int = 0):
               flush=True)
     size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out) for f in fs)
     print(f"wrote {out}: {size} bytes", flush=True)
-
-
-def export_laptop_aux(ckpt_path: str):
-    from cppf_tpu.train.checkpoints import load_params
-
-    aux_dir = os.path.join(ckpt_path, "laptop_aux")
-    flat = flatten_tree(load_params(aux_dir, name="params_best"))
-    path = os.path.join(aux_dir, "params_best.npz")
-    np.savez(path, **flat)
-    print(f"wrote {len(flat)} arrays, {sum(a.size for a in flat.values())} parameters to "
-          f"{path}", flush=True)
 
 
 # the laptop frame: the laptop between a mug and a bowl, so that the driver
@@ -585,8 +568,6 @@ def main():
                     help="write assets/nocs_frame/ instead of a category's assets")
     ap.add_argument("--sun_scans", action="store_true",
                     help="write assets/sun_scans/ instead of a category's assets")
-    ap.add_argument("--laptop_aux", action="store_true",
-                    help="write <ckpt_path>/laptop_aux/params_best.npz, the segmenter's weights")
     ap.add_argument("--laptop_frame", action="store_true",
                     help="write assets/nocs_laptop_frame/ instead of a category's assets")
     ap.add_argument("--flags", action="store_true",
@@ -601,9 +582,6 @@ def main():
         return
     if args.sun_scans:
         export_sun_scans(args.seed)
-        return
-    if args.laptop_aux:
-        export_laptop_aux(args.ckpt_path)
         return
     if args.laptop_frame:
         export_laptop_frame(args.seed)

@@ -10,9 +10,11 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the card has neither cv2 nor PIL: a port that reached for them would pass
-# every CPU test and fail only on the card
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "cppf_tpu", "cv2", "PIL")
+# the card has neither cv2 nor PIL, nor orbax, tensorstore or zstandard: a
+# port that reached for them would pass every CPU test and fail only on the
+# card (train/orbax.py reads the checkpoints with its own zstd decoder)
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "cppf_tpu", "cv2", "PIL", "tensorstore",
+             "zstandard")
 PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "cppf_tpu_torch", "**", "*.py"),
                               recursive=True)) + [os.path.join(ROOT, "chip_smoke.py"),
                                                   os.path.join(ROOT, "scripts",
@@ -26,7 +28,9 @@ PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "cppf_tpu_torch", "**", "*.py")
                                                   os.path.join(ROOT, "scripts",
                                                                "gauges_smoke.py"),
                                                   os.path.join(ROOT, "scripts",
-                                                               "reference_pth_smoke.py")]
+                                                               "reference_pth_smoke.py"),
+                                                  os.path.join(ROOT, "scripts",
+                                                               "orbax_smoke.py")]
 
 
 def _imported_modules(path):
@@ -67,6 +71,8 @@ def test_port_file_list_is_complete():
     assert "scripts/flags_smoke.py" in names
     assert "scripts/gauges_smoke.py" in names
     assert "scripts/reference_pth_smoke.py" in names
+    assert "scripts/orbax_smoke.py" in names
+    assert "cppf_tpu_torch/train/orbax.py" in names
     assert "cppf_tpu_torch/models/convert.py" in names
     for module in ("scripts/__init__.py", "scripts/synthetic_benchmark.py",
                    "scripts/sunrgbd_synthetic_benchmark.py", "scripts/zero_shot_benchmark.py",

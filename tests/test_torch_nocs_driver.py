@@ -300,23 +300,43 @@ def test_main_needs_cuda_unless_told_cpu(frame, tmp_path):
 
 
 def test_checkpoint_without_its_own_weights_is_skipped(tmp_path, monkeypatch):
-    """A ``<ckpt_path>/<cat>`` that holds a snapshot but no
-    ``params_best.npz`` and is not the repo's ``checkpoints/<cat>`` has no
-    weights the port can read: the runner raises and the driver skips the
-    category, as JAX's skips a directory without weights.  A link to the
-    repo's directory takes the export of its weights from ``assets/``."""
+    """A ``<ckpt_path>/<cat>`` that holds a snapshot but no weights (no
+    orbax ``params_best/``, no ``params_best.npz``) has no weights the port
+    can read: the runner raises and the driver skips the category, as JAX's
+    skips a directory without weights.  A link to the repo's directory
+    serves its orbax ``params_best/``, equal to the export in ``assets/``,
+    which no runtime path reads."""
+    from cppf_tpu_torch.models.convert import load_npz_params
+    from cppf_tpu_torch.train import checkpoints as ckpt_t
+
     ckpt = tmp_path / "ckpt"
     (ckpt / "bowl").mkdir(parents=True)
     shutil.copy(os.path.join(ROOT, "checkpoints", "bowl", "config.yaml"), ckpt / "bowl")
     with pytest.raises(FileNotFoundError, match="params_best.npz"):
         port.CategoryRunner("bowl", device="cpu", ckpt_path=str(ckpt))
     os.symlink(os.path.join(ROOT, "checkpoints", "mug"), ckpt / "mug")
-    loaded = []
-    real = port.load_npz_params
-    monkeypatch.setattr(port, "load_npz_params", lambda path: loaded.append(path) or real(path))
+    served, npz_read = [], []
+    real_any, real_npz = port.maybe_load_any, ckpt_t.load_npz_params
+    monkeypatch.setattr(port, "maybe_load_any",
+                        lambda path, name: served.append(real_any(path, name)) or served[-1])
+    monkeypatch.setattr(ckpt_t, "load_npz_params",
+                        lambda path: npz_read.append(path) or real_npz(path))
     args = port.build_parser().parse_args(["--ckpt_path", str(ckpt), "--device", "cpu"])
     assert list(port.load_runners(args)) == ["mug"]
-    assert loaded == [os.path.join(ASSETS, "mug_params_best.npz")]
+    served = [p for p in served if p is not None]
+    assert npz_read == [] and len(served) == 1
+    want = load_npz_params(os.path.join(ASSETS, "mug_params_best.npz"))
+    got = served[0]
+    for top in ("point", "ppf"):
+        flat_got, flat_want = (dict(_flat_tree(t[top])) for t in (got, want))
+        assert sorted(flat_got) == sorted(flat_want)
+        for k, v in flat_want.items():
+            assert flat_got[k].tobytes() == v.tobytes(), k
+
+
+def _flat_tree(tree, prefix=""):
+    for k, v in tree.items():
+        yield from (_flat_tree(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)])
 
 
 def test_normals_of_collinear_rows_are_ill_conditioned():

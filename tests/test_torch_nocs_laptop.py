@@ -12,8 +12,8 @@ a bowl, with the JAX driver's full-width run and its laptop path stored).
   (2048 pairs, 512 points, knn 16; 12 rotations, a 3° sphere): every pose
   to the slice tolerances (T and R 1e-6, scales rtol 1e-5), the laptop's
   up axis to 1e-5 rad, and the override moving the laptop's pose;
-- a ``laptop_aux`` directory without its ``params_best.npz`` raises at the
-  laptop and names the export."""
+- a ``laptop_aux`` directory with neither its orbax ``params_best/`` nor
+  ``params_best.npz`` raises at the laptop and names both."""
 import os
 
 import jax
@@ -24,12 +24,12 @@ import torch
 import chip_smoke
 from cppf_tpu_torch.data.png import read_png
 from cppf_tpu_torch.eval import nocs_inference as port
-from test_torch_nocs_driver import WIDTH, _checkpoint_tree, export
+from test_torch_nocs_driver import WIDTH, _checkpoint_tree
 
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ORBAX = os.path.join(ROOT, "checkpoints", "laptop_aux", "params_best")
+AUX = os.path.join(ROOT, "checkpoints", "laptop_aux")
 UP_TOL_RAD = 1e-5
 
 
@@ -49,18 +49,12 @@ def _small_tree(root, categories, aux_dir=None):
 
 @pytest.fixture(scope="module")
 def frame(tmp_path_factory):
-    """The committed frame unpacked, and a segmenter directory holding the
-    committed weights for both packages: the orbax checkpoint (a link) and
-    its ``.npz`` export."""
-    from cppf_tpu.train.checkpoints import load_params
-
+    """The committed frame unpacked; both packages serve the segmenter from
+    the repo's ``checkpoints/laptop_aux`` (its orbax ``params_best/``)."""
     tmp = str(tmp_path_factory.mktemp("laptop_frame"))
     seg_dir, nocs_dir, _, record, stored = chip_smoke.unpack_nocs_frame(
         tmp, "nocs_laptop_frame")
-    aux = os.path.join(tmp, "laptop_aux")
-    os.makedirs(aux)
-    os.symlink(ORBAX, os.path.join(aux, "params_best"))
-    np.savez(os.path.join(aux, "params_best.npz"), **export.flatten_tree(load_params(aux, "params_best")))
+    aux = AUX
     path = os.path.join(nocs_dir, record["image_path"][5:])
     k = int(stored["laptop"])
     return dict(tmp=tmp, seg_dir=seg_dir, nocs_dir=nocs_dir, record=record, stored=stored,
@@ -198,14 +192,14 @@ def test_driver_with_segmenter_matches_jax(frame):
 
 
 def test_laptop_aux_without_weights_raises(frame, tmp_path):
-    """A ``laptop_aux`` directory without ``params_best.npz`` (as the repo's
-    own, before the export): the laptop is never posed without the override
-    JAX would use; the error names the export."""
-    empty = tmp_path / "aux_without_npz"
+    """A ``laptop_aux`` directory with neither an orbax ``params_best/`` nor
+    ``params_best.npz``: the laptop is never posed without the override JAX
+    would use; the error names both."""
+    empty = tmp_path / "aux_without_weights"
     empty.mkdir()
     ckpt = _small_tree(str(tmp_path / "ckpt"), frame["categories"], str(empty))
     args = ["--seg_dir", frame["seg_dir"], "--nocs_dir", frame["nocs_dir"], "--ckpt_path", ckpt,
             "--out_dir", str(tmp_path / "out"), "--device", "cpu", *WIDTH]
-    with pytest.raises(FileNotFoundError, match="export_torch_assets.py --laptop_aux"):
+    with pytest.raises(FileNotFoundError, match=r"params_best/ \(orbax\) or .*params_best\.npz"):
         port.main(args)
     assert not os.listdir(tmp_path / "out")

@@ -91,18 +91,24 @@ def _same_tree(a, b):
 
 
 def test_cli_weights(tmp_path):
-    """params_zs.npz first, then params_best.npz; --params_name picks one;
-    the repo's own checkpoints/bowl_reg (and a link to it) serves the
-    exported asset; any other directory without weights raises.  (The
+    """params_zs first, then params_best; --params_name picks one; the
+    repo's own checkpoints/bowl_reg (and a link to it) serves its orbax
+    params_zs/ (equal to the exported asset) and, named, its params_best/;
+    a name it lacks and any other directory without weights raise.  (The
     reference .pth pairs among these names: tests/test_torch_reference_pth.py.)"""
+    from cppf_tpu_torch.train.orbax import restore_numpy
+
     repo = os.path.join(ROOT, "checkpoints", "bowl_reg")
     asset = os.path.join(ASSETS, "bowl_reg_params_zs.npz")
     zs_w = load_npz_params(asset)
     assert _same_tree(zs.cli_weights(repo), zs_w)
     os.symlink(repo, tmp_path / "link")
     assert _same_tree(zs.cli_weights(str(tmp_path / "link")), zs_w)
+    repo_best = zs.cli_weights(repo, "params_best")
+    assert _same_tree(repo_best, restore_numpy(os.path.join(repo, "params_best"))["params"])
+    assert not _same_tree(repo_best, zs_w)
     with pytest.raises(FileNotFoundError):
-        zs.cli_weights(repo, "params_best")
+        zs.cli_weights(repo, "best")
     run = tmp_path / "run"
     run.mkdir()
     with pytest.raises(FileNotFoundError, match="params_zs.npz or params_best.npz"):
