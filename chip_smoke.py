@@ -273,6 +273,21 @@ Phases:
    params served, the pose equal to the bit to the production
    ``params_best``'s (the same weights); one ``{"orbax": ...}`` line with
    the ``nvidia-smi`` line.
+21. ``bench.py``'s main cell (``cppf_tpu_torch/scripts/bench_cell.py``:
+   bottle, 8000 surface points, 3171 kept of ``npoint_pad`` 4096,
+   100 000 pairs, 120³, ``checkpoints/bottle/params_best``) at full width
+   on the card,
+   against JAX's stored estimates (``assets/bench_cell.npz``): the 4 keys
+   ``PRNGKey(10..13)`` with nearest splat and with trilinear splat, and the
+   first B = 4 batch dispatch with nearest splat; each pose's T JAX's
+   voxel (1e-5 m) or a tie (the port's voxel and JAX's maxima of equal
+   value of their grids), up within 1° of JAX's up to sign or a near tie
+   (phase 16's ``AXIS_TIE_FRAC``), scale within 1e-4 relative; the pairs
+   front ends of the peak kernels launched once and 1-2 times a center
+   pass with either splat, nothing else of ``vote_hist.cu``; CPU against
+   CUDA on one pose of each splat at ``PHASE9_PAIRS``, as phase 9; prints
+   the ties and near ties, one ``{"bench_cell": ...}`` line and the
+   ``nvidia-smi`` line.
 
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose, of one zero-shot frame,
@@ -2671,6 +2686,13 @@ def axis_margins(runner, pc_raw, draws, want_axes):
     sphere counts captured (``rot_vote_sphere_count``'s calls: up, then
     right), and for each axis of ``want_axes`` (JAX's up and right, or None)
     the counts at the port's winning sphere direction and at JAX's."""
+    return sphere_margins(lambda: runner.estimate(pc_raw, draws=draws), runner.sphere,
+                          want_axes)
+
+
+def sphere_margins(pose_fn, sphere, want_axes):
+    """:func:`axis_margins` of the pose that ``pose_fn()`` makes on the axis
+    sphere ``sphere``."""
     from cppf_tpu_torch.pipeline import pose as pose_mod
 
     real, counts = pose_mod.rot_vote_sphere_count, []
@@ -2681,10 +2703,10 @@ def axis_margins(runner, pc_raw, draws, want_axes):
 
     pose_mod.rot_vote_sphere_count = capture
     try:
-        runner.estimate(pc_raw, draws=draws)
+        pose_fn()
     finally:
         pose_mod.rot_vote_sphere_count = real
-    sphere = runner.sphere.cpu().numpy()
+    sphere = sphere.cpu().numpy()
     out = []
     for c, want in zip(counts, want_axes):
         if want is None:
@@ -4266,10 +4288,154 @@ def orbax_phase(smi):
     return launches
 
 
+# ---- phase 21: bench.py's main cell against JAX's stored estimates ---------
+BENCH_ASSET = "bench_cell.npz"
+BENCH_T_TOL = 1e-5            # m: JAX's voxel
+BENCH_UP_TOL_DEG = 1.0        # up to sign: bottle is up_sym
+BENCH_SCALE_RTOL = 1e-4
+BENCH_CPU_PAIRS = PHASE9_PAIRS
+
+
+def hold_bench_pose(what, out, z, name, inputs, mode, key, parts):
+    """Phase 21's rule for one pose of the bench cell against JAX's stored
+    ``<name>_*`` (``scripts/export_torch_bench_cell.py``): T within
+    ``BENCH_T_TOL`` of JAX's, or a tie: the port's voxel a maximum of its
+    own center grid (``bench_cell.center_grid``), JAX's voxel one of JAX's,
+    the two maxima equal; up within ``BENCH_UP_TOL_DEG`` of JAX's up to
+    sign, or a near tie on the port's sphere counts (phase 16's
+    ``AXIS_TIE_FRAC``); scale within ``BENCH_SCALE_RTOL``.  ``inputs``
+    carry the pose's cloud; a tie or near tie is printed and added to
+    ``parts``.  Returns the pose's row of the phase's JSON line."""
+    from cppf_tpu_torch.pipeline.pose import grid_frame
+    from cppf_tpu_torch.scripts.bench_cell import center_grid
+
+    pre, res = inputs.pre, inputs.pcfg.res
+    corner = grid_frame(pre.pc, pre.valid_mask, inputs.pcfg)[0].cpu().numpy()
+    T, up = out.T.cpu().numpy(), out.up.cpu().numpy()
+    voxel = np.rint((T - corner) / np.float32(res)).astype(np.int32)
+    dT = float(np.abs(T - z[f"{name}_T"]).max())
+    up_d = _angle(up, z[f"{name}_up"], fold=True)
+    ds = float(np.abs(out.scale.cpu().numpy() / z[f"{name}_scale"] - 1).max())
+    row = dict(pose=name, dT=dT, voxel=voxel.tolist(), jax_voxel=z[f"{name}_voxel"].tolist(),
+               peak=float(out.grid_max), jax_peak=float(z[f"{name}_grid_max"]),
+               jax_grid_ties=int(z[f"{name}_n_ties"]), up_deg=up_d, scale_rel=ds,
+               survivors=int(out.n_filtered), jax_survivors=int(z[f"{name}_n_filtered"]))
+    print(f"  {what}: port minus JAX: T {dT:.2e} m (voxel {row['voxel']}, JAX's "
+          f"{row['jax_voxel']}), peak {row['peak']:g} (JAX {row['jax_peak']:g}, its grid's "
+          f"maximum held by {row['jax_grid_ties']} cell(s)), up {up_d:.4f} deg, scale "
+          f"{ds:.2e}, survivors {row['survivors']} (JAX {row['jax_survivors']})", flush=True)
+    if dT > BENCH_T_TOL:
+        grid = center_grid(inputs, mode, key)[0].cpu().numpy()
+        jax_peak = float(z[f"{name}_grid_peak"])
+        in_jax = any(np.array_equal(voxel, t) for t in z[f"{name}_ties"])
+        row["tie"] = dict(port_voxel_value=float(grid[tuple(voxel)]),
+                          port_grid_peak=float(grid.max()), jax_grid_peak=jax_peak,
+                          jax_voxel_value=float(z[f"{name}_voxel_value"]),
+                          in_jax_ties=in_jax)
+        print(f"    T parts: {row['tie']}", flush=True)
+        check(row["tie"]["port_voxel_value"] == row["tie"]["port_grid_peak"] == jax_peak
+              == row["tie"]["jax_voxel_value"],
+              f"{what}: T {T.tolist()} is not JAX's {z[f'{name}_T'].tolist()}, and the two "
+              f"are not maxima of equal value of their grids: {row['tie']}")
+        parts["ties"].append(what)
+    if up_d > BENCH_UP_TOL_DEG:
+        ((top, at_jax),) = sphere_margins(
+            lambda: pose_cell_on(inputs, mode, key), inputs.sphere, (z[f"{name}_up"],))
+        row["up_counts"] = [top, at_jax]
+        print(f"    up parts: the port's sphere count at its winner {top:g}, at JAX's up "
+              f"{at_jax:g}", flush=True)
+        check(at_jax >= (1 - AXIS_TIE_FRAC) * top, f"{what}: up {up_d:.2f} deg from JAX's is "
+              f"no near tie: JAX's direction holds {at_jax:g} of the winner's {top:g} votes")
+        parts["near_ties"].append(what)
+    check(ds <= BENCH_SCALE_RTOL, f"{what}: scale {ds:.2e} relative from JAX's")
+    return row
+
+
+def pose_cell_on(inputs, mode, key):
+    from cppf_tpu_torch.scripts.bench_cell import pose_cell
+
+    return pose_cell(mode, [key], inputs=inputs)[0]
+
+
+def bench_cell_phase(smi):
+    """Phase 21 (see the docstring).  Returns the launches of the
+    nearest-splat poses (the 4 single poses and the batch's 4 rows)."""
+    import dataclasses
+
+    from cppf_tpu_torch.core import threefry
+    from cppf_tpu_torch.models.convert import ASSETS
+    from cppf_tpu_torch.pipeline.pose import PoseResult
+    from cppf_tpu_torch.pipeline.preprocess import PreprocessedCloud
+    from cppf_tpu_torch.scripts import bench_cell as bc
+
+    t0 = time.perf_counter()
+    z = np.load(os.path.join(ASSETS, BENCH_ASSET))
+    inputs = bc.bench_inputs("cuda")
+    pcfg = inputs.pcfg
+    check(pcfg.n_pairs == 100000 and pcfg.num_rots == 72 and pcfg.knn == 60
+          and pcfg.grid_shape == (120, 120, 120) and inputs.pre.pc.shape[0] == 4096,
+          f"phase 21: not bench.py's cell: {pcfg}")
+    check(int(inputs.pre.n_valid) == int(z["n_valid"]),
+          f"phase 21: {int(inputs.pre.n_valid)} points, JAX's cloud has {int(z['n_valid'])}")
+    pre_b = bc.batch_cloud(inputs.device)
+    check(pre_b.n_valid.tolist() == z["batch_n_valid"].tolist(),
+          f"phase 21: the batch's points {pre_b.n_valid.tolist()}, JAX's "
+          f"{z['batch_n_valid'].tolist()}")
+
+    n_near = len(bc.KEYS) + bc.BATCH
+    (near, batch), near_launches = _launched(lambda: (
+        bc.pose_cell("nearest", bc.KEYS, inputs=inputs),
+        bc.pose_batch(0, inputs=inputs, pre_b=pre_b)))
+    _peak_path_ok(near_launches, n_near, "phase 21 nearest splat")
+    tri, tri_launches = _launched(lambda: bc.pose_cell("trilinear", bc.KEYS, inputs=inputs))
+    _peak_path_ok(tri_launches, len(bc.KEYS), "phase 21 trilinear splat")
+    print(f"phase 21: launches of the {n_near} nearest-splat poses (4 keys, the batch's 4 "
+          f"rows) {near_launches}; of the 4 trilinear {tri_launches}", flush=True)
+
+    parts, rows = {"ties": [], "near_ties": []}, []
+    for mode, outs in (("nearest", near), ("trilinear", tri)):
+        for i, out in enumerate(outs):
+            rows.append(hold_bench_pose(f"phase 21 {mode} PRNGKey({bc.POSE_SEED + i})", out, z,
+                                        f"{mode}_{i}", inputs, mode, bc.KEYS[i], parts))
+    batch_keys = threefry.split(threefry.key(bc.BATCH_SEED), bc.BATCH)
+    for r in range(bc.BATCH):
+        row_in = inputs._replace(pre=PreprocessedCloud(*(f[r] for f in pre_b)))
+        rows.append(hold_bench_pose(f"phase 21 batch row {r}", PoseResult(*(f[r] for f in batch)),
+                                    z, f"batch_{r}", row_in, "nearest", batch_keys[r], parts))
+
+    # CPU (plain versions) against CUDA (kernels), phase 9's width and rule
+    cpu_in = bc.bench_inputs("cpu", BENCH_CPU_PAIRS)
+    gpu_in = inputs._replace(pcfg=dataclasses.replace(pcfg, n_pairs=BENCH_CPU_PAIRS))
+    cpu_cuda = {}
+    for mode in bc.MODES:
+        a, b = (pose_cell_on(inp, mode, bc.KEYS[0]) for inp in (cpu_in, gpu_in))
+        d = {k: float((getattr(a, k) - getattr(b, k).cpu()).abs().max())
+             for k in ("T", "up", "right")}
+        cpu_cuda[mode] = d
+        print(f"phase 21 cpu vs cuda, {mode} splat, {BENCH_CPU_PAIRS} pairs, PRNGKey("
+              f"{bc.POSE_SEED}): |dT| {d['T']:.2e}, |d up| {d['up']:.2e}, |d right| "
+              f"{d['right']:.2e}, survivors {int(a.n_filtered)} vs {int(b.n_filtered)}",
+              flush=True)
+        check(max(d.values()) < 1e-6, f"phase 21 {mode}: CPU and CUDA poses differ: {d}")
+    seconds = time.perf_counter() - t0
+    print(f"phase 21 ({smi}): {len(rows)} poses of bench.py's cell against JAX's stored "
+          f"estimates: {len(parts['ties'])} T ties {parts['ties']}, {len(parts['near_ties'])} "
+          f"up near ties {parts['near_ties']}", flush=True)
+    print(json.dumps({"bench_cell": dict(poses=rows, ties=parts["ties"],
+                                         near_ties=parts["near_ties"],
+                                         launches=dict(nearest=near_launches,
+                                                       trilinear=tri_launches),
+                                         cpu_cuda=cpu_cuda, card=smi, phase_s=seconds)},
+                     default=float), flush=True)
+    print(smi_line(), flush=True)
+    return near_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     ap.add_argument("--profile", action="store_true", help="profile one warm pose")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one GPU")
     sys.path.insert(0, ROOT)
@@ -4462,6 +4628,11 @@ def main():
     orbax_launches = orbax_phase(smi)
     print(f"phase 20 (orbax checkpoints): {time.perf_counter() - t20:.1f} s", flush=True)
 
+    # ---- 21. bench.py's main cell against JAX's stored estimates ----------
+    t21 = time.perf_counter()
+    bench_launches = bench_cell_phase(smi)
+    print(f"phase 21 (bench cell): {time.perf_counter() - t21:.1f} s", flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
     # comparisons, stands beside it under votes_ keys.  The peak kernels
@@ -4519,13 +4690,16 @@ def main():
     # entry() launches the pairs front ends of the peak kernels (phase 17);
     # the poses and the CLI on .pth weights all three (phase 19); the laptop
     # frame served from the committed orbax checkpoints the peak kernels
-    # (phase 20)
+    # (phase 20); the bench cell's nearest-splat poses the peak kernels
+    # (phase 21)
     for k in kernels:
         if k["path"].startswith("main path") and k["name"] != "dense_hist":
             k["entry_launches"] = entry_launches[k["name"] + "_pairs"]
         if k["path"].startswith("main path"):
             k["reference_pth_launches"] = pth_launches.get(k["name"] + "_pairs", 0)
             k["orbax_laptop_frame_launches"] = orbax_launches.get(k["name"] + "_pairs", 0)
+            k["bench_cell_nearest_launches"] = bench_launches.get(k["name"] + "_pairs", 0)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device,

@@ -6,6 +6,16 @@ share of the model list and a generator of its own.  Only the sample stream
 is split; no rendered array crosses between processes.  The process index
 and count are ``torch.distributed``'s rank and world size when a group is
 initialised, else 0 and 1.
+
+The index is that of this process among the processes that render, as in
+JAX: ``jax.process_index()`` counts processes, not devices or hosts, and a
+rank of the port is one process.  A JAX run with one process a GPU and the
+port's run with one rank a GPU therefore render the same streams at the
+same seed (``tests/test_torch_parallel.py::
+test_shard_dataset_in_two_processes`` holds two real ranks to JAX's two
+processes).  A JAX process that drives several devices renders one stream
+for all of them; the port, one rank a card, renders one a card: the two
+runs then have different numbers of processes, not different indices.
 """
 from __future__ import annotations
 

@@ -76,6 +76,28 @@ def test_kernels_match_plain(cuda, g, pf, splat):
     assert vote_hist.LAUNCHES["refine_window"] == before["refine_window"] + 3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,pf", GRIDS)
+def test_nearest_unit_votes_count_exactly(cuda, g, pf):
+    """Nearest splat with unit weights, as the bench cell's fast mode votes
+    (phase 21): every tap is a whole fixed-point unit, so both peak kernels
+    give whole counts, the plain version's to the bit (the bound pass's
+    rounding up adds nothing to a whole unit)."""
+    votes = _votes(g, 1_000_003, cuda)
+    votes[-1] = (votes[-1] > 0).float()
+    bn = -(-g // pf)
+    kw = dict(gx=g, gy=g, by_n=bn, bz_n=bn, pfy=pf, pfz=pf, splat="nearest")
+    for got, want in zip(vote_hist.bound_projections(*votes, **kw),
+                         vote_hist.bound_projections_plain(*votes, **kw)):
+        assert torch.equal(got, want)
+        assert torch.equal(got, got.round())
+    for start in (0, g // 2 // W8 * W8, g - W8):
+        o = torch.full((3,), start, dtype=torch.int32, device=cuda)
+        got = vote_hist.refine_window(o, *votes, w8=W8, splat="nearest")
+        assert torch.equal(got, vote_hist.refine_window_plain(o, *votes, w8=W8,
+                                                              splat="nearest"))
+
+
 def _pair_inputs(g, device, adaptive, p=20_003, keep=0.9, seed=1):
     """Pairs whose vote circles cross near one center of a g³ grid at 4 mm:
     (pc, preds_tr, probs, idxs, corner, dims, pair_mask) on ``device``.  The

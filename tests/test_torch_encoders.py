@@ -96,3 +96,44 @@ def test_encoders_match_flax_float64(bowl_params, cloud):
     np.testing.assert_allclose(feat_t, feat_j, atol=1e-10)
     np.testing.assert_allclose(preds_t, preds_j, atol=1e-10)
     np.testing.assert_allclose(preds_chain, preds_j, atol=1e-10)
+
+
+FULL_PAIRS = 4096
+# the PPF head's logits at full width (ROADMAP §C2): scripts/category_near_ties.py
+# measured up to 1.09e-3 apart between the packages, 3.7e-5 of the largest logit
+FULL_LOGIT_ATOL = 2e-3
+FULL_LOGIT_RTOL_OF_MAX = 1e-4
+
+
+def test_logits_match_flax_at_full_width(bowl_params):
+    """Bowl's committed view 0 (1277 points on the 4 mm voxel grid),
+    preprocessed as the runner serves it (JAX's ``preprocess_cloud`` at
+    npoint_pad 4096, knn 60, no jitter), the served weights at full width,
+    4096 pairs: the port's logits from its own features within 2e-3 of
+    flax's and within 1e-4 of the largest logit (1.854e-3 and 2.3e-5 of
+    79.81 measured here)."""
+    from cppf_tpu.pipeline.preprocess import preprocess_cloud
+    from cppf_tpu_torch.models.convert import ASSETS
+
+    raw = np.load(os.path.join(ASSETS, "bowl_views.npz"))["pc_0"]
+    pad = np.zeros((10000, 3), np.float32)
+    pad[:len(raw)] = raw
+    pre = preprocess_cloud(jax.random.PRNGKey(0), jnp.asarray(pad), len(raw), 4e-3,
+                           npoint_pad=4096, knn=60, jitter=False)
+    n_valid = int(pre.n_valid)
+    assert n_valid == 1277 and pre.nbr_idx.shape == (4096, 60)
+    idxs = np.random.default_rng(1).integers(0, n_valid, (FULL_PAIRS, 2)).astype(np.int32)
+    pe_j = PointEncoderJ(spfcs=(32, 64, 32, 32), out_dim=32, num_layers=1)
+    ppf_j = PPFEncoderJ(ppffcs=(84, 32, 32, 16), out_dim=OUT_DIM)
+    feat_j = pe_j.apply(bowl_params["point"], pre.pc, pre.normals, pre.nbr_idx, pre.valid_mask)
+    preds_j = np.asarray(ppf_j.apply(bowl_params["ppf"], pre.pc, pre.normals, feat_j,
+                                     jnp.asarray(idxs)))
+    point, ppf = load_encoders(bowl_params, OUT_DIM, "cpu")
+    t = [torch.from_numpy(np.array(a)) for a in (pre.pc, pre.normals, pre.nbr_idx,
+                                                  pre.valid_mask)]
+    with torch.no_grad():
+        preds_t = ppf(t[0], t[1], point(*t), torch.from_numpy(idxs)).numpy()
+    d = float(np.abs(preds_t - preds_j).max())
+    top = float(np.abs(preds_j).max())
+    assert d <= FULL_LOGIT_ATOL, d
+    assert d <= FULL_LOGIT_RTOL_OF_MAX * top, (d, top)

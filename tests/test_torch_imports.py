@@ -30,7 +30,9 @@ PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "cppf_tpu_torch", "**", "*.py")
                                                   os.path.join(ROOT, "scripts",
                                                                "reference_pth_smoke.py"),
                                                   os.path.join(ROOT, "scripts",
-                                                               "orbax_smoke.py")]
+                                                               "orbax_smoke.py"),
+                                                  os.path.join(ROOT, "scripts",
+                                                               "bench_cell_smoke.py")]
 
 
 def _imported_modules(path):
@@ -72,13 +74,15 @@ def test_port_file_list_is_complete():
     assert "scripts/gauges_smoke.py" in names
     assert "scripts/reference_pth_smoke.py" in names
     assert "scripts/orbax_smoke.py" in names
+    assert "scripts/bench_cell_smoke.py" in names
     assert "cppf_tpu_torch/train/orbax.py" in names
     assert "cppf_tpu_torch/models/convert.py" in names
     for module in ("scripts/__init__.py", "scripts/synthetic_benchmark.py",
                    "scripts/sunrgbd_synthetic_benchmark.py", "scripts/zero_shot_benchmark.py",
                    "scripts/bench_zero_shot.py", "scripts/eval_checkpoints.py",
                    "scripts/probe_sun_oracle.py", "scripts/update_family_stats.py",
-                   "scripts/promote.py", "demo/__init__.py", "demo/pose_single.py"):
+                   "scripts/promote.py", "scripts/bench_cell.py", "demo/__init__.py",
+                   "demo/pose_single.py"):
         assert f"cppf_tpu_torch/{module}" in names
 
 
