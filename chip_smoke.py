@@ -862,57 +862,41 @@ def cpu_cuda_phase(runners):
 
 
 def stage_times(runner, pc_raw, reps: int = 5):
-    """Warm wall time of each stage of one pose (synchronised, median of
-    ``reps``), called in the order estimate_pose calls them."""
-    from cppf_tpu_torch.ops.voting import backvote, ppf_vote_peak
-    from cppf_tpu_torch.pipeline.pose import (PoseDraws, _vote_axis, decode_translation,
-                                              grid_frame, pair_predictions)
-    from cppf_tpu_torch.pipeline.preprocess import preprocess_cloud
+    """Each stage of warm poses as the program's spans (``utils/prof.py``)
+    record it under a profiler: its host self time (its span less its
+    children's) and its device interval (the card's time between the span's
+    CUDA events), medians of ``reps`` poses, nothing synchronised between
+    stages."""
+    from torch.profiler import ProfilerActivity, profile
 
-    pcfg, cfg, dev = runner.pcfg, runner.cfg, runner.device
-    draws = PoseDraws.sample(pcfg, runner.generator, dev, n_raw=cfg.npoint_max)
-    pad = np.zeros((cfg.npoint_max, 3), np.float32)
-    pad[: len(pc_raw)] = pc_raw
-    res = torch.tensor(pcfg.res, device=dev)
-    probs = torch.ones(cfg.npoint_pad, device=dev)
-    B, R = pcfg.tr_num_bins, pcfg.rot_num_bins
-    st = {}
-    steps = [
-        ("preprocess (voxel, KNN, normals)", lambda: st.update(pre=preprocess_cloud(
-            torch.from_numpy(pad).to(dev), len(pc_raw), cfg.res, npoint_pad=cfg.npoint_pad,
-            knn=cfg.knn, noise=draws.jitter))),
-        ("network (SPRIN + pairs + PPF head)", lambda: st.update(net=pair_predictions(
-            runner.point_encoder, runner.ppf_encoder, st["pre"].pc, st["pre"].normals,
-            st["pre"].n_valid, pcfg, draws.pair_u, st["pre"].nbr_idx))),
-        ("translation decode + grid frame", lambda: st.update(
-            tr=decode_translation(st["net"][1], draws.tr_gumbel, pcfg),
-            frame=grid_frame(st["pre"].pc, st["pre"].valid_mask, pcfg))),
-        ("center-vote peak (ppf_vote_peak)", lambda: st.update(peak=ppf_vote_peak(
-            st["pre"].pc, st["tr"], probs, st["net"][0], st["frame"][0], pcfg.res,
-            st["frame"][1], pcfg.grid_shape, n_rots=pcfg.num_rots,
-            max_rounds=pcfg.peak_rounds))),
-        ("back-vote filter", lambda: st.update(mask=backvote(
-            st["pre"].pc, st["tr"], st["net"][0], st["frame"][0], res, st["frame"][1],
-            st["frame"][0] + st["peak"][0].float() * pcfg.res, 3.0 * pcfg.res,
-            n_rots=pcfg.num_rots)[1])),
-        ("up-axis vote (sphere count + aux sign)", lambda: _vote_axis(
-            st["pre"].pc, st["pre"].normals, st["net"][0], st["mask"],
-            st["net"][1][:, 2 * B: 2 * B + R], st["net"][1][:, -5], runner.sphere, pcfg,
-            draws.up)),
-    ]
-    total = 0.0
-    with torch.no_grad():
-        for name, fn in steps:
-            times = []
-            for _ in range(reps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            total += statistics.median(times)
-            print(f"  stage {name}: {statistics.median(times):.3f} ms", flush=True)
-    print(f"  stages total {total:.3f} ms", flush=True)
+    from cppf_tpu_torch.utils import prof
+
+    runner.estimate(pc_raw)
+    torch.cuda.synchronize()
+    rows = {}
+    for _ in range(reps):
+        prof.clear_spans()
+        with profile(activities=[ProfilerActivity.CUDA]):
+            runner.estimate(pc_raw)
+            torch.cuda.synchronize()
+        spans = prof.spans()
+        prof.clear_spans()
+        child_s = {}
+        for sp in spans:
+            if sp.parent is not None:
+                child_s[sp.parent] = child_s.get(sp.parent, 0.0) + sp.host_s
+        seen = {}
+        for sp in spans:
+            label = " ".join([sp.name] + [f"{k}={v}" for k, v in sorted(sp.attrs.items())
+                                          if k in ("pass", "axis")])
+            seen[label] = seen.get(label, 0) + 1
+            label += f" #{seen[label]}" if seen[label] > 1 else ""
+            rows.setdefault(label, []).append((sp.host_s - child_s.get(sp.id, 0.0), sp.device_s,
+                                               sp.host_syncs))
+    for label, vals in rows.items():
+        host, dev, syncs = (statistics.median(v) for v in zip(*vals))
+        print(f"  stage {label}: host self {host * 1e3:.3f} ms, device {dev * 1e3:.3f} ms, "
+              f"{syncs:g} host syncs", flush=True)
 
 
 def device_profile(fn, what, top=15):
@@ -927,8 +911,11 @@ def device_profile(fn, what, top=15):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # the program's spans are ranges on the card too (user annotations):
+    # kernels only
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not e.is_user_annotation]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)

@@ -23,6 +23,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from cppf_tpu_torch.utils import prof
+
 Key = Tuple[int, int]
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -69,6 +71,7 @@ def _uniform(bits: torch.Tensor, minval: float = 0.0, maxval: float = 1.0) -> to
     floats = mant.view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    prof.host_sync(bits.device, n=2)  # the uploads of lo and hi
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -81,6 +84,7 @@ def _normal(bits: torch.Tensor) -> torch.Tensor:
     """``jax.random.normal`` in float32: √2 · erfinv(u), u uniform on
     (-1, 1)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    prof.host_sync(bits.device)  # the upload of √2
     return (torch.tensor(math.sqrt(2), dtype=torch.float32, device=bits.device)
             * erfinv(_uniform(bits, lo, 1.0)))
 
@@ -121,6 +125,7 @@ def draw_many(requests, device) -> List[torch.Tensor]:
     element to the draws made one at a time (the hash is elementwise), in
     one set of launches instead of one a draw."""
     sizes = [math.prod(shape) for _, _, shape in requests]
+    prof.host_sync(device, n=2)  # the uploads of the keys and the sizes
     keys = torch.repeat_interleave(
         torch.tensor([k for _, k, _ in requests], dtype=torch.int64, device=device),
         torch.tensor(sizes, device=device), dim=0, output_size=sum(sizes))

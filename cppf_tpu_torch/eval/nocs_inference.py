@@ -48,6 +48,7 @@ from cppf_tpu_torch.ops.ransac import segment_plane
 from cppf_tpu_torch.pipeline.pose import PoseConfig, PoseDraws, estimate_pose
 from cppf_tpu_torch.pipeline.preprocess import preprocess_cloud
 from cppf_tpu_torch.train.checkpoints import maybe_load_any
+from cppf_tpu_torch.utils import prof
 
 SYNSET_NAMES = ["BG", "bottle", "bowl", "camera", "can", "laptop", "mug"]
 
@@ -175,18 +176,21 @@ class CategoryRunner:
         ``laptop_up`` [3], the base-plane normal oriented toward the camera,
         turns on the laptop plane override.
         Returns (PoseResult, PreprocessedCloud)."""
-        if draws is None:
-            draws = PoseDraws.sample(self.pcfg, generator or self.generator, self.device,
-                                     n_raw=self.cfg.npoint_max)
-        pre = self.preprocess(pc_raw, draws, generator)
-        if laptop_up is not None:
-            laptop_up = torch.as_tensor(np.asarray(laptop_up, np.float32), device=self.device)
-        out = estimate_pose(self.point_encoder, self.ppf_encoder, pre.pc, pre.normals,
-                            pre.n_valid, self.sphere, self.pcfg, nbr_idx=pre.nbr_idx,
-                            draws=draws, laptop_up=laptop_up)
-        if self.cfg.anchor_t:
-            out = self._anchor(out, pc_raw)
-        return out, pre
+        with prof.span("pose", points=len(pc_raw)):
+            if draws is None:
+                draws = PoseDraws.sample(self.pcfg, generator or self.generator, self.device,
+                                         n_raw=self.cfg.npoint_max)
+            pre = self.preprocess(pc_raw, draws, generator)
+            if laptop_up is not None:
+                laptop_up = torch.as_tensor(np.asarray(laptop_up, np.float32),
+                                            device=self.device)
+                prof.host_sync(self.device)
+            out = estimate_pose(self.point_encoder, self.ppf_encoder, pre.pc, pre.normals,
+                                pre.n_valid, self.sphere, self.pcfg, nbr_idx=pre.nbr_idx,
+                                draws=draws, laptop_up=laptop_up)
+            if self.cfg.anchor_t:
+                out = self._anchor(out, pc_raw)
+            return out, pre
 
     def preprocess(self, pc_raw: np.ndarray, draws: PoseDraws,
                    generator: Optional[torch.Generator] = None):
@@ -194,15 +198,18 @@ class CategoryRunner:
         padded or stride-subsampled to ``npoint_max``, with the jitter of
         ``draws``."""
         cfg = self.cfg
-        pad, n_raw = _pad_cloud(pc_raw, cfg.npoint_max)
-        return preprocess_cloud(torch.from_numpy(pad).to(self.device), n_raw, cfg.res,
-                                npoint_pad=cfg.npoint_pad, knn=cfg.knn, noise=draws.jitter,
-                                generator=generator or self.generator)
+        with prof.span("pose.preprocess"):
+            pad, n_raw = _pad_cloud(pc_raw, cfg.npoint_max)
+            prof.host_sync(self.device)  # the upload of the padded cloud
+            return preprocess_cloud(torch.from_numpy(pad).to(self.device), n_raw, cfg.res,
+                                    npoint_pad=cfg.npoint_pad, knn=cfg.knn, noise=draws.jitter,
+                                    generator=generator or self.generator)
 
     def _anchor(self, out, pc_raw: np.ndarray):
         """Host post-step of ``cfg.anchor_t``: observed-extent anchoring of
         the voted center (eval/anchor.py), written into T and RT's
         translation column."""
+        prof.host_sync(out.T.device, n=4)  # three reads and the upload of T
         scale = out.scale.cpu().numpy().astype(np.float64)
         s_norm = float(np.linalg.norm(scale))
         T_new = anchor_box_t(out.T.cpu().numpy(), out.R.cpu().numpy(), scale,
@@ -369,39 +376,42 @@ def infer_frame(groups: dict, n_instances: int, runners: dict, rng, serial: bool
     when ``laptop`` is given.  Rows of instances that were not posed keep
     the identity RT and unit scales.
     Returns (RTs [n, 4, 4], scales [n, 3], the next rng, [Chunk])."""
-    RTs = np.tile(np.eye(4, dtype=np.float32), (n_instances, 1, 1))
-    scales = np.ones((n_instances, 3), dtype=np.float32)
-    chunks = []
+    with prof.span("frame", instances=n_instances):
+        RTs = np.tile(np.eye(4, dtype=np.float32), (n_instances, 1, 1))
+        scales = np.ones((n_instances, 3), dtype=np.float32)
+        chunks = []
 
-    def timed(cls_name, n, batched, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        RT, sc = out.RT.cpu().numpy(), out.scale_unit.cpu().numpy()
-        chunks.append(Chunk(cls_name, n, batched, time.perf_counter() - t0))
-        return RT, sc
+        def timed(cls_name, n, batched, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            prof.host_sync(out.RT.device, n=2)  # the copies below
+            RT, sc = out.RT.cpu().numpy(), out.scale_unit.cpu().numpy()
+            chunks.append(Chunk(cls_name, n, batched, time.perf_counter() - t0))
+            return RT, sc
 
-    for cls_name, items in groups.items():
-        runner = runners[cls_name]
-        if not serial and cls_name != "laptop" and len(items) > 1:
-            for k in range(0, len(items), max_batch):
-                chunk = items[k:k + max_batch]
-                rng, r_chunk = threefry.split(rng)
-                # the next power of two, as the JAX driver buckets its shapes
-                pad_to = 1 << (len(chunk) - 1).bit_length()
-                RT, sc = timed(cls_name, len(chunk), True, lambda: runner.estimate_batch(
-                    [pc for _, pc in chunk], r_chunk, pad_to=pad_to)[0])
-                for b, (i, _) in enumerate(chunk):
-                    RTs[i], scales[i] = RT[b], sc[b]
-            continue
-        for i, pc in items:
-            rng, r_inst, r_plane = threefry.split(rng, 3)
-            if cls_name == "laptop" and laptop is not None:
-                RTs[i], scales[i] = timed(cls_name, 1, False, lambda: pose_laptop(
-                    runner, laptop, i, pc, r_inst, r_plane)[0])
-            else:
-                RTs[i], scales[i] = timed(cls_name, 1, False, lambda: runner.estimate(
-                    pc, draws=runner.draws(r_inst))[0])
-    return RTs, scales, rng, chunks
+        for cls_name, items in groups.items():
+            runner = runners[cls_name]
+            if not serial and cls_name != "laptop" and len(items) > 1:
+                for k in range(0, len(items), max_batch):
+                    chunk = items[k:k + max_batch]
+                    rng, r_chunk = threefry.split(rng)
+                    # the next power of two, as the JAX driver buckets its shapes
+                    pad_to = 1 << (len(chunk) - 1).bit_length()
+                    RT, sc = timed(cls_name, len(chunk), True, lambda: runner.estimate_batch(
+                        [pc for _, pc in chunk], r_chunk, pad_to=pad_to)[0])
+                    for b, (i, _) in enumerate(chunk):
+                        RTs[i], scales[i] = RT[b], sc[b]
+                continue
+            for i, pc in items:
+                rng, r_inst, r_plane = threefry.split(rng, 3)
+                if cls_name == "laptop" and laptop is not None:
+                    RTs[i], scales[i] = timed(cls_name, 1, False, lambda: pose_laptop(
+                        runner, laptop, i, pc, r_inst, r_plane)[0])
+                else:
+                    RTs[i], scales[i] = timed(cls_name, 1, False, lambda: runner.estimate(
+                        pc, draws=runner.draws(r_inst))[0])
+        prof.annotate(chunks=len(chunks))
+        return RTs, scales, rng, chunks
 
 
 def load_runners(args) -> dict:

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from cppf_tpu_torch.utils import prof
+
 
 def pairwise_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Euclidean distances [M, N] between two point sets, in float32 on
@@ -38,7 +40,9 @@ def _smallest_k(d2: torch.Tensor, k: int) -> torch.Tensor:
     vals, idx = torch.topk(d2, k, dim=-1, largest=False)
     thr = vals[:, -1:]
     cut = (d2 == thr).sum(-1) > (vals == thr).sum(-1)
+    prof.host_sync(d2.device)
     if bool(cut.any()):
+        prof.host_sync(d2.device, n=2)  # the boolean mask's indices, read and written
         cols = torch.arange(d2.shape[1], device=d2.device)
         exact = torch.topk(_order_key(d2[cut], cols), k, dim=-1, largest=False).values
         idx[cut] = exact & 0xFFFFFFFF

@@ -12,6 +12,7 @@ import torch
 
 from cppf_tpu_torch.core.geometry import cross
 from cppf_tpu_torch.ops.knn import knn_indices
+from cppf_tpu_torch.utils import prof
 
 
 def _det3(m: torch.Tensor) -> torch.Tensor:
@@ -40,6 +41,7 @@ def _smallest_eigvec_3x3(C: torch.Tensor) -> torch.Tensor:
     norm = torch.linalg.norm(vec, dim=-1, keepdim=True)
     # degenerate neighbourhood (isotropic / planar-ambiguous): fall back to +z
     fallback = torch.tensor([0.0, 0.0, 1.0], dtype=C.dtype, device=C.device).expand_as(vec)
+    prof.host_sync(C.device)
     return torch.where(norm > 1e-12, vec / (norm + 1e-30), fallback)
 
 

@@ -4,6 +4,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cppf_tpu_torch.utils import prof
+
 
 def voxel_downsample_host(points: np.ndarray, res: float, device="cpu") -> np.ndarray:
     """First-occurrence voxel downsample of a host cloud (counterpart of
@@ -30,6 +32,8 @@ def voxel_downsample(pc: torch.Tensor, res, valid_mask: torch.Tensor | None = No
     # res as a 0-d tensor: CUDA divides by a Python scalar through its
     # reciprocal, which can move a point across a voxel face
     v = torch.floor(pc / torch.as_tensor(res, dtype=pc.dtype, device=dev)).to(torch.int64)
+    if not (torch.is_tensor(res) and res.device == dev):
+        prof.host_sync(dev)  # the upload of res
     if valid_mask is None:
         valid_mask = torch.ones(n, dtype=torch.bool, device=dev)
     big = torch.iinfo(torch.int64).max

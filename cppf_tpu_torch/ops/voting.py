@@ -22,12 +22,15 @@ from cppf_tpu_torch.core.geometry import cross
 from cppf_tpu_torch.ops.vote_hist import (bound_projections, bound_projections_pairs,
                                           dense_hist, dense_hist_pairs, refine_window,
                                           refine_window_pairs, vote_frame)
+from cppf_tpu_torch.utils import prof
 
 TWO_PI = 6.283185307179586
 _BITS = {torch.float32: torch.int32, torch.float64: torch.int64}  # same-width integers
 
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
+    if not (torch.is_tensor(x) and x.device == like.device):
+        prof.host_sync(like.device)  # an upload
     return torch.as_tensor(x, dtype=like.dtype, device=like.device)
 
 
@@ -321,9 +324,13 @@ def ppf_vote_peak(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
     round_cap = max_rounds if max_rounds > 0 else cx_n * cy_n * cz_n
     cells = [torch.arange(n, dtype=torch.int32, device=dev) * f8 for n in (cx_n, cy_n, cz_n)]
     best = torch.tensor(float("-inf"), device=dev)
+    prof.host_sync(dev)
     bidx = torch.zeros(3, dtype=torch.int32, device=dev)
     rounds = 0
-    while rounds < round_cap and bool(bnd.max() > best):
+    while rounds < round_cap:
+        prof.host_sync(dev)
+        if not bool(bnd.max() > best):
+            break
         cflat = torch.argmax(bnd)
         cell = torch.stack([cflat // (cy_n * cz_n), (cflat // cz_n) % cy_n,
                             cflat % cz_n]).to(torch.int32)
@@ -334,6 +341,7 @@ def ppf_vote_peak(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
         wflat = torch.argmax(win)
         local = torch.stack([wflat // (w8 * w8), (wflat // w8) % w8,
                              wflat % w8]).to(torch.int32)
+        prof.host_sync(dev)  # indexing by a 0-d tensor reads it
         wmax = win.reshape(-1)[wflat]
         better = wmax > best
         best = torch.where(better, wmax, best)
@@ -342,6 +350,7 @@ def ppf_vote_peak(pc, preds_tr, probs, point_idxs, corner, res, grid_dims,
         covered = full[0][:, None, None] & full[1][None, :, None] & full[2][None, None, :]
         bnd = torch.where(covered, float("-inf"), bnd)
         rounds += 1
+    prof.annotate(rounds=rounds)
     return bidx, torch.clamp(best, min=0.0)
 
 

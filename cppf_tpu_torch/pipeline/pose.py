@@ -43,6 +43,7 @@ from cppf_tpu_torch.core.targets import radial_asymmetry_about
 from cppf_tpu_torch.ops.knn import knn_indices
 from cppf_tpu_torch.ops.voting import (backvote, center_refine, grid_argmax, ppf_vote_dense,
                                        ppf_vote_peak, rot_vote_sphere_count)
+from cppf_tpu_torch.utils import prof
 
 CENTER_MODES = ("hier", "grid")
 _STRATA_HASH = 256  # hash-table size of pair_balance's orientation bins (a power of two)
@@ -196,8 +197,9 @@ class PoseDraws(NamedTuple):
         jitter for ``n_raw`` padded points from ``pre_key``, every pose draw
         from ``pose_key`` (cppf_tpu/eval/nocs_inference.py:169-178)."""
         rng_pairs, rng_vote = threefry.split((int(pose_key[0]), int(pose_key[1])))
-        return cls.from_jax_vote_key(pcfg, rng_vote, device, pairs_key=rng_pairs,
-                                     pre_key=pre_key, n_raw=n_raw)
+        with prof.span("draws"):
+            return cls.from_jax_vote_key(pcfg, rng_vote, device, pairs_key=rng_pairs,
+                                         pre_key=pre_key, n_raw=n_raw)
 
     @classmethod
     def from_jax_vote_key(cls, pcfg: PoseConfig, vote_key, device, pairs_key=None,
@@ -339,8 +341,11 @@ def _pick_axis(counts, sphere_pts, pcfg: PoseConfig, signed_bce, prior_gate=None
     if prior_gate is not None:
         counts = torch.where(prior_gate, counts, -1.0)
     if pcfg.axis_topk <= 1:
+        prof.host_sync(counts.device)  # indexing by a 0-d tensor reads it
         return signed_bce(sphere_pts[torch.argmax(counts)])[0]
 
+    # indexing by a 0-d tensor reads it: twice a candidate, and the winner
+    prof.host_sync(counts.device, n=2 * pcfg.axis_topk + 1)
     cos_sup = torch.cos(torch.deg2rad(torch.tensor(20.0, dtype=sphere_pts.dtype)))
     cand_idx = []
     c = counts
@@ -397,6 +402,7 @@ def up_prior_gate(sphere_pts, pcfg: PoseConfig):
         return None
     prior_dir = torch.tensor(pcfg.up_prior_dir, dtype=sphere_pts.dtype, device=sphere_pts.device)
     cos_max = torch.cos(torch.deg2rad(torch.tensor(pcfg.up_prior_deg, dtype=sphere_pts.dtype)))
+    prof.host_sync(sphere_pts.device, n=2)  # prior_dir, and cos_max below
     return torch.abs(torch.sum(sphere_pts * prior_dir, -1)) >= cos_max.to(sphere_pts.device)
 
 
@@ -443,11 +449,12 @@ def pair_predictions(point_encoder, ppf_encoder, pc, pc_normal, n_valid, pcfg: P
                      pair_u: torch.Tensor, nbr_idx=None):
     """Network half: SPRIN features, pair sample, PPF head.
     Returns (point_idxs [P, 2] int32, preds [P, out_dim])."""
-    valid_mask = torch.arange(pc.shape[0], device=pc.device) < n_valid
-    nbr = nbr_idx if nbr_idx is not None else knn_indices(pc, pcfg.knn, valid_mask)
-    feat = point_encoder(pc, pc_normal, nbr, valid_mask)
-    point_idxs = sample_pair_indices(pair_u, n_valid, pc_normal, pcfg.pair_balance)
-    return point_idxs, ppf_encoder(pc, pc_normal, feat, point_idxs)
+    with prof.span("pose.network"):
+        valid_mask = torch.arange(pc.shape[0], device=pc.device) < n_valid
+        nbr = nbr_idx if nbr_idx is not None else knn_indices(pc, pcfg.knn, valid_mask)
+        feat = point_encoder(pc, pc_normal, nbr, valid_mask)
+        point_idxs = sample_pair_indices(pair_u, n_valid, pc_normal, pcfg.pair_balance)
+        return point_idxs, ppf_encoder(pc, pc_normal, feat, point_idxs)
 
 
 def decode_translation(preds, tr_gumbel, pcfg: PoseConfig) -> torch.Tensor:
@@ -472,6 +479,7 @@ def grid_frame(pc, valid_mask, pcfg: PoseConfig):
     top = torch.where(valid_mask[:, None], pc, -1e9).amax(0)
     grid_dims = ((top - corner) / res).to(torch.int32) + 1
     cap = torch.tensor(pcfg.grid_shape, dtype=torch.int32, device=pc.device)
+    prof.host_sync(pc.device, n=2)  # res and cap
     return corner, torch.minimum(grid_dims, cap)
 
 
@@ -507,6 +515,7 @@ def quantile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
     low, high = torch.floor(pos), torch.ceil(pos)
     high_w = pos - low
     low_w = 1.0 - high_w
+    prof.host_sync(x.device, n=2)  # the uploads of low_w and high_w
     return xs[int(low)] * low_w.to(x.device) + xs[int(high)] * high_w.to(x.device)
 
 
@@ -518,6 +527,7 @@ def halfspace_gate(pc, pc_normal, point_idxs, pcfg: PoseConfig):
     coplanar, n1, a = _coplanar(pc, pc_normal, point_idxs)
     n_out = torch.where(torch.sum(n1 * a, -1, keepdim=True) > 0, -n1, n1)
     margin = torch.tensor(pcfg.halfspace_margin * pcfg.res, dtype=pc.dtype, device=pc.device)
+    prof.host_sync(pc.device)
     return a, n_out, coplanar, margin
 
 
@@ -573,6 +583,7 @@ def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseC
     valid_mask = torch.arange(pc.shape[0], device=pc.device) < n_valid
     preds_tr = decode_translation(preds, draws.tr_gumbel, pcfg)
     res = torch.tensor(pcfg.res, dtype=pc.dtype, device=pc.device)
+    prof.host_sync(pc.device)
     corner, grid_dims = grid_frame(pc, valid_mask, pcfg)
     center_mask, base_mask, halfspace = center_vote_masks(pc, pc_normal, point_idxs, pcfg)
 
@@ -627,23 +638,28 @@ def decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
     probs = torch.ones(n, dtype=pc.dtype, device=pc.device)
 
     # --- center voting ------------------------------------------------------
-    T_est, grid_max = stages.center_peak(probs)
-    pair_mask = stages.consistent_pairs(T_est)
+    with prof.span("pose.center_vote", **{"pass": 1}):
+        T_est, grid_max = stages.center_peak(probs)
+    with prof.span("pose.backvote"):
+        pair_mask = stages.consistent_pairs(T_est)
     if pcfg.subvoxel_refine:
         T_est = stages.refine_center(T_est, pair_mask)
 
     # --- orientation axes ---------------------------------------------------
-    up = stages.vote_axis(pair_mask, up_logits, up_aux, draws.up,
-                          prior_gate=up_prior_gate(sphere_pts, pcfg))
+    with prof.span("pose.axis_vote", axis="up"):
+        up = stages.vote_axis(pair_mask, up_logits, up_aux, draws.up,
+                              prior_gate=up_prior_gate(sphere_pts, pcfg))
 
     if pcfg.asym_center_refine:
         # second center pass on the protruding points' votes; only its
         # component along the protrusion direction is taken
         asym_c = radial_asymmetry_about(pc, T_est, up, n_valid)
-        T_ref, _ = stages.center_peak((0.05 + 0.95 * asym_c) * probs)
+        with prof.span("pose.center_vote", **{"pass": 2}):
+            T_ref, _ = stages.center_peak((0.05 + 0.95 * asym_c) * probs)
         u_h, gate = _protrusion_centroid(pc, T_est, up, n_valid, asym_c)
         T_est = torch.where(gate, T_est + torch.dot(T_ref - T_est, u_h) * u_h, T_est)
-        pair_mask = stages.consistent_pairs(T_est)
+        with prof.span("pose.backvote"):
+            pair_mask = stages.consistent_pairs(T_est)
         if pcfg.subvoxel_refine:
             T_est = stages.refine_center(T_est, pair_mask)
 
@@ -654,8 +670,9 @@ def decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
         if pcfg.asym_right_votes:
             idx = point_idxs.long()
             right_w = 0.05 + 0.95 * torch.maximum(asym[idx[:, 0]], asym[idx[:, 1]])
-        right = stages.vote_axis(pair_mask, right_logits, right_aux, draws.right,
-                                 pair_weights=right_w)
+        with prof.span("pose.axis_vote", axis="right"):
+            right = stages.vote_axis(pair_mask, right_logits, right_aux, draws.right,
+                                     pair_weights=right_w)
         if pcfg.geo_right_sign:
             h_dir, gate = _protrusion_centroid(pc, T_est, up, n_valid, asym)
             ref_dir = h_dir if pcfg.geo_right_dir == "direct" else cross(h_dir, up)
@@ -671,6 +688,8 @@ def decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
         # with up no better than with right
         lv = (torch.tensor(True, device=pc.device) if laptop_up_valid is None
               else torch.as_tensor(laptop_up_valid, device=pc.device))
+        if not (torch.is_tensor(laptop_up_valid) and laptop_up_valid.device == pc.device):
+            prof.host_sync(pc.device)
         lup = laptop_up.to(pc.dtype)
         swap = (torch.dot(up, lup) < torch.abs(torch.dot(right, lup))) & lv
         up, right = (torch.where(swap, lup, up),
@@ -683,6 +702,7 @@ def decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
 
     # --- scale --------------------------------------------------------------
     scale_mean = torch.tensor(pcfg.scale_mean, dtype=pc.dtype, device=pc.device)
+    prof.host_sync(pc.device)
     pred_scale = (torch.exp(stages.scale_mean(scale_pred, pair_mask)) * scale_mean
                   * pcfg.scale_multiplier)
     scale_norm = torch.linalg.norm(pred_scale)

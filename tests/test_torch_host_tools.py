@@ -111,22 +111,33 @@ def test_peaks_match_jax():
 
 
 def test_prof_on_the_cpu(tmp_path):
-    """trace writes a Chrome trace of the block; time_fn and
-    component_times give seconds a call."""
+    """trace writes a Chrome trace of the block, and each span opened in it
+    is a range of its name there, its stages inside it and the kernels
+    they ran inside the stages."""
     from cppf_tpu_torch.utils import prof
 
     a = torch.randn(64, 64)
+    prof.clear_spans()
     with prof.trace(str(tmp_path / "trace")) as p:
-        (a @ a).sum()
+        with prof.span("pose"):
+            with prof.span("pose.network"):
+                (a @ a).sum()
+            with prof.span("pose.center_vote", **{"pass": 1}):
+                a.max()
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
-    assert any("matmul" in e.get("name", "") for e in events)
     assert any(e.key == "aten::matmul" for e in p.key_averages())
-    calls = []
-    t = prof.time_fn(lambda: calls.append(1), iters=3, warmup=2)
-    assert t >= 0 and len(calls) == 5
-    times = prof.component_times({"mm": lambda: a @ a, "sum": lambda: a.sum()}, iters=2)
-    assert sorted(times) == ["mm", "sum"] and all(v >= 0 for v in times.values())
+
+    def one(name):
+        found = [e for e in events if e.get("name") == name]
+        assert len(found) == 1, name
+        return found[0]["ts"], found[0]["ts"] + found[0]["dur"]
+
+    pose, net, vote, mm = (one(n) for n in ("pose", "pose.network", "pose.center_vote",
+                                            "aten::matmul"))
+    assert pose[0] <= net[0] <= mm[0] <= mm[1] <= net[1] <= vote[0] <= vote[1] <= pose[1]
+    assert [s.name for s in prof.spans()] == ["pose", "pose.network", "pose.center_vote"]
+    prof.clear_spans()
 
 
 def test_multirun_in_sequence(tmp_path):

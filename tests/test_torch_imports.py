@@ -116,6 +116,9 @@ UNMATCHED = {
     "laptop_up_from_aux": "split into eval/nocs_inference.py::laptop_crop and "
                           "laptop_up_from_labels",
     "make_models": "models/convert.py::make_encoders (torch modules of the same widths)",
+    "time_fn": "utils/prof.py's spans time each stage of a pose on the card's own clock, "
+               "with no synchronize between stages; nothing read the port's copy",
+    "component_times": "as time_fn",
 }
 
 
