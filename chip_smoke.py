@@ -288,6 +288,14 @@ Phases:
    CUDA on one pose of each splat at ``PHASE9_PAIRS``, as phase 9; prints
    the ties and near ties, one ``{"bench_cell": ...}`` line and the
    ``nvidia-smi`` line.
+22. the axis vote's sphere count (``csrc/sphere_count.cu``, no TPU
+   kernel's counterpart) on the calls of bottle's and mug's view 0 at full
+   width (10 000 pairs, 72 rotations, 480 directions; bottle's up, mug's
+   up and right), captured from ``pipeline/pose.py``: the kernel launched
+   once an axis and its counts the plain version's to the bit on the same
+   CUDA tensors; then the kernel alone, the whole CUDA route (the pairs'
+   vectors and the kernel) and the plain version timed in turns as in
+   phase 3, with the bound; one ``{"sphere_count": ...}`` line.
 
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose, of one zero-shot frame,
@@ -353,18 +361,20 @@ def _event_ms(fn, calls: int) -> float:
     return start.elapsed_time(end) / calls
 
 
-def cuda_ms_turns(fns):
+def cuda_ms_turns(fns, small=None):
     """Median device time of one call of each of ``fns``, by CUDA events,
     after a warm-up, the functions timed in turns (a, b, a, b, ...) so that
     clocks and neighbours treat them alike.  A call that takes under a
-    millisecond is sampled 8 at a time, queued behind a spinning kernel:
-    the host, which needs longer to launch such a kernel than the card needs
-    to run it, is then ahead of the card, and the events see device time
-    alone."""
+    millisecond (or each whose ``small`` is true, where the host needs
+    longer to launch its many kernels than the card to run them) is sampled
+    8 at a time, queued behind a spinning kernel: the host, which needs
+    longer to launch such a kernel than the card needs to run it, is then
+    ahead of the card, and the events see device time alone."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    small = [_event_ms(fn, 1) < 1.0 for fn in fns]
+    if small is None:
+        small = [_event_ms(fn, 1) < 1.0 for fn in fns]
     times = [[] for _ in fns]
     for _ in range(TIMING_REPS):
         for fn, batched, ts in zip(fns, small, times):
@@ -2659,6 +2669,7 @@ def flag_launches_ok(pcfg, launches, n_poses=1):
     ``vote_hist.cu``."""
     n = (2 if pcfg.asym_center_refine else 1) * n_poses
     gated = pcfg.coplanar_halfspace
+    launches = {k: v for k, v in launches.items() if k != "sphere_count"}
     if pcfg.center_mode == "grid":
         want = {"dense_hist" if gated else "dense_hist_pairs": n}
         return all(launches[k] == want.get(k, 0) for k in launches)
@@ -2940,7 +2951,8 @@ def entry_phase(smi):
           "phase 17: entry() gave a non-finite pose")
     check(launches["bound_projections_pairs"] == 1 and 1 <= launches["refine_window_pairs"] <= 2
           and sum(launches.values()) == launches["bound_projections_pairs"]
-          + launches["refine_window_pairs"], f"phase 17: entry() launched {launches}")
+          + launches["refine_window_pairs"] + launches["sphere_count"],
+          f"phase 17: entry() launched {launches}")
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -4418,6 +4430,71 @@ def bench_cell_phase(smi):
     return near_launches
 
 
+SPHERE_VIEWS = (("bottle", ("up",)), ("mug", ("up", "right")))
+
+
+def sphere_count_phase(smi):
+    """Phase 22: the axis vote's sphere count on the calls of bottle's and
+    mug's view 0 (see the module's docstring); returns a record a call."""
+    from cppf_tpu_torch.eval.nocs_inference import CategoryRunner
+    from cppf_tpu_torch.models.convert import ASSETS
+    from cppf_tpu_torch.ops import vote_hist as vh
+    from cppf_tpu_torch.ops import voting
+    from cppf_tpu_torch.pipeline import pose as pose_mod
+
+    real, calls = pose_mod.rot_vote_sphere_count, []
+
+    def capture(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    whats = []
+    pose_mod.rot_vote_sphere_count = capture
+    try:
+        for cat, axes in SPHERE_VIEWS:
+            with np.load(os.path.join(ASSETS, f"{cat}_views.npz")) as z:
+                pc0 = z["pc_0"]
+            before = vh.LAUNCHES["sphere_count"]
+            CategoryRunner(cat).estimate(pc0)
+            torch.cuda.synchronize()
+            check(vh.LAUNCHES["sphere_count"] - before == len(axes),
+                  f"phase 22: {cat} launched sphere_count "
+                  f"{vh.LAUNCHES['sphere_count'] - before} times, not once an axis")
+            whats += [f"{cat} {axis}" for axis in axes]
+    finally:
+        pose_mod.rot_vote_sphere_count = real
+    records = []
+    for (args, kwargs), what in zip(calls, whats):
+        pc, angles, idxs, sphere, cos_tol = args
+        n_rots, weights = kwargs["n_rots"], kwargs.get("weights")
+        got = voting.rot_vote_sphere_count(*args, **kwargs)
+        want = voting.rot_vote_sphere_count_plain(*args, **kwargs)
+        check(torch.equal(got, want), f"phase 22: {what}: the kernel's counts are not the plain "
+              f"version's ({int((got != want).sum())} of {want.numel()} directions differ)")
+        pairs = voting.sphere_pair_params(pc, angles, idxs, weights)
+        table, sph = voting.cone_table(n_rots, pc), sphere.float().contiguous()
+        # the CUDA route's ~30 launches take the host longer than the card
+        ms, route_ms, plain_ms = cuda_ms_turns([
+            lambda: vh.sphere_count(pairs, table, sph, cos_tol, weighted=weights is not None),
+            lambda: voting.rot_vote_sphere_count(*args, **kwargs),
+            lambda: voting.rot_vote_sphere_count_plain(*args, **kwargs)], [True, True, False])
+        n_pairs, n_sphere = idxs.shape[0], sphere.shape[0]
+        tests = n_pairs * n_rots * n_sphere
+        rec = dict(name="sphere_count", what=what, pairs=n_pairs, rotations=n_rots,
+                   directions=n_sphere, tests=tests, hits=int(want.sum()), max_abs_err=0.0,
+                   ms=ms, route_ms=route_ms, plain_ms=plain_ms)
+        # 5 operations a test (3 products, 2 sums); the block, the table, the
+        # sphere and the counts read or written once
+        _set_bound(rec, "", 48 * n_pairs + 8 * n_rots + 12 * n_sphere + 4 * n_sphere, 5 * tests)
+        print(f"phase 22: {what}: {n_pairs} pairs x {n_rots} x {n_sphere}, {rec['hits']} hits, "
+              f"equal to the plain version; kernel {ms:.4f} ms, CUDA route {route_ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {rec['bound_ms']:.5f} ms "
+              f"({rec['bound_terms']})", flush=True)
+        records.append(rec)
+    print(json.dumps({"sphere_count": records, "smi": smi}), flush=True)
+    return records
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     ap.add_argument("--profile", action="store_true", help="profile one warm pose")
@@ -4444,7 +4521,8 @@ def main():
                      glob.glob(os.path.join(ROOT, "cppf_tpu_torch", "csrc", "*.cu")))
     cuda_build.build(sources)
     print(f"build: {sources} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for kernel, usage in cuda_build.resource_usage("vote_hist").items():
+    for kernel, usage in {**cuda_build.resource_usage("vote_hist"),
+                          **cuda_build.resource_usage("sphere_count")}.items():
         print(f"  ptxas {kernel}: {usage}", flush=True)
         check("0 bytes spill stores, 0 bytes spill loads" in usage, f"{kernel} spills registers")
 
@@ -4499,6 +4577,9 @@ def main():
           f"{n_views} poses, not 1 or 2 a pose")
     check(launches["bound_projections"] == 0 and launches["refine_window"] == 0,
           "the main path built vote vectors for the votes front ends")
+    check(launches["sphere_count"] == n_views * (1 + pcfg.regress_right),
+          f"sphere_count launched {launches['sphere_count']} times over {n_views} poses, not "
+          f"once an axis")
     errs = [errors(out, z, i) for i, out in enumerate(outs)]
     for i, (t_err, up_err, s_err, t_jax, up_jax) in enumerate(errs):
         print(f"view {i}: T err {t_err * 1e3:.2f} mm, up err {up_err:.2f} deg, scale err "
@@ -4620,6 +4701,11 @@ def main():
     bench_launches = bench_cell_phase(smi)
     print(f"phase 21 (bench cell): {time.perf_counter() - t21:.1f} s", flush=True)
 
+    # ---- 22. the axis vote's sphere count ------------------------------------
+    t22 = time.perf_counter()
+    sphere_records = sphere_count_phase(smi)
+    print(f"phase 22 (sphere count): {time.perf_counter() - t22:.1f} s", flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
     # comparisons, stands beside it under votes_ keys.  The peak kernels
@@ -4686,6 +4772,11 @@ def main():
             k["reference_pth_launches"] = pth_launches.get(k["name"] + "_pairs", 0)
             k["orbax_laptop_frame_launches"] = orbax_launches.get(k["name"] + "_pairs", 0)
             k["bench_cell_nearest_launches"] = bench_launches.get(k["name"] + "_pairs", 0)
+    # the sphere count replaces no TPU kernel: bottle's up vote stands for it,
+    # with the main path's launches (phase 4)
+    kernels.append(dict(sphere_records[0], path="main path (phase 4; timed in phase 22)",
+                        route="cuda", source="cppf_tpu_torch/csrc/sphere_count.cu",
+                        replaces=None, launches=launches["sphere_count"]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

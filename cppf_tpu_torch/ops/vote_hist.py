@@ -27,6 +27,11 @@ Each wrapper takes the plain PyTorch version (``*_plain``, an
 ``index_add_`` over the splat taps) for CPU tensors, and launches the CUDA
 kernel of ``csrc/vote_hist.cu`` for CUDA tensors — there is no fallback
 between the two.  ``LAUNCHES`` counts kernel launches per wrapper.
+
+:func:`sphere_count` launches the axis vote's kernel (``csrc/
+sphere_count.cu``) and takes CUDA tensors only: its caller,
+``voting.rot_vote_sphere_count``, takes the plain version
+(``voting.rot_vote_sphere_count_plain``) for CPU tensors.
 """
 from __future__ import annotations
 
@@ -37,12 +42,14 @@ import torch
 from cppf_tpu_torch.ops import cuda_build
 
 LAUNCHES = {"bound_projections": 0, "refine_window": 0, "dense_hist": 0,
-            "bound_projections_pairs": 0, "refine_window_pairs": 0, "dense_hist_pairs": 0}
+            "bound_projections_pairs": 0, "refine_window_pairs": 0, "dense_hist_pairs": 0,
+            "sphere_count": 0}
 SMEM_MAX = 232448  # bytes of shared memory one H100 block may opt in to
 _SMEM_FIXED = 256  # a peak kernel's static shared memory (its reduction scratch), rounded up
 _STAGE_BYTES = 32 * 52 * 32  # dense_hist_pairs: 32 pairs and their run starts a warp, 32 warps
 _SPLATS = ("trilinear", "nearest")
 _lib = None
+_sphere_lib = None
 
 
 def reset_launches() -> None:
@@ -393,3 +400,65 @@ def dense_hist_pairs(params, frame, *, n_rots: int, grid_shape, cx: int, cy: int
         _launch("dense_hist_pairs", params.data_ptr(), params.shape[0], n_rots,
                 frame.data_ptr(), *grid_shape, cx, cy, cz, px, py, pz, int(splat == "nearest"), out)
     return out
+
+
+def _sphere_library():
+    global _sphere_lib
+    if _sphere_lib is None:
+        lib = cuda_build.load("sphere_count")
+        p = ctypes.c_void_p
+        lib.cppf_sphere_count.argtypes = [p, ctypes.c_longlong, ctypes.c_int, p, p, ctypes.c_int,
+                                          ctypes.c_float, p, p, p]
+        lib.cppf_sphere_count.restype = ctypes.c_int
+        lib.cppf_error_string.argtypes = [ctypes.c_int]
+        lib.cppf_error_string.restype = ctypes.c_char_p
+        _sphere_lib = lib
+    return _sphere_lib
+
+
+def fixed_shift(weights: torch.Tensor, n_terms: int) -> torch.Tensor:
+    """int32 0-d ``k`` on the weights' device with ``max|w|·2^k·n_terms``
+    in [2^60, 2^62) (``k = 62 - n_terms.bit_length()`` for zero weights), so
+    that ``n_terms`` weights, each rounded to whole units of 2^-k, sum
+    inside int64 with 2^60 / n_terms units to the largest weight."""
+    return (62 - int(n_terms).bit_length()) - torch.frexp(weights.abs().max()).exponent
+
+
+def sphere_count(pairs, table, sphere, cos_tol, *, weighted: bool = False) -> torch.Tensor:
+    """Counts float32 [S] of the cone axes of a ``voting.sphere_pair_params``
+    block [P, 12] with the rotation table ``table`` [2, R] (cos, sin of
+    i·2π/R) on the directions ``sphere`` [S, 3] within ``cos_tol`` (a
+    number, compared in float32), made and tested in registers by one
+    kernel launch.  Unweighted counts are whole numbers summed in int32;
+    ``weighted`` sums column 11 of each hit in int64 fixed point
+    (:func:`fixed_shift`)."""
+    for name, t, shape, fits in (("pairs", pairs, "[P, 12]", pairs.shape[-1:] == (12,)),
+                                 ("table", table, "[2, R]", table.shape[:1] == (2,)),
+                                 ("sphere", sphere, "[S, 3]", sphere.shape[-1:] == (3,))):
+        if t.device != pairs.device:
+            raise ValueError(f"{name} on {t.device}, pairs on {pairs.device}")
+        if t.dtype != torch.float32 or t.dim() != 2 or not fits or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if pairs.device.type != "cuda":
+        raise ValueError(f"sphere_count launches a CUDA kernel; on {pairs.device} take "
+                         f"voting.rot_vote_sphere_count_plain")
+    n_pairs, n_rots, n_sphere = pairs.shape[0], table.shape[1], sphere.shape[0]
+    if n_rots < 1:
+        raise ValueError("the rotation table is empty")
+    shift = fixed_shift(pairs[:, 11], n_pairs * n_rots) if weighted and n_pairs else None
+    out = torch.zeros(n_sphere, dtype=torch.int64 if weighted else torch.int32,
+                      device=pairs.device)
+    if n_pairs:
+        lib = _sphere_library()
+        pairs = _aligned(pairs)
+        rc = lib.cppf_sphere_count(pairs.data_ptr(), n_pairs, n_rots, table.data_ptr(),
+                                   sphere.data_ptr(), n_sphere, float(cos_tol),
+                                   None if shift is None else shift.data_ptr(), out.data_ptr(),
+                                   torch.cuda.current_stream(out.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"sphere_count launch failed: {lib.cppf_error_string(rc).decode()}")
+        LAUNCHES["sphere_count"] += 1
+    if shift is not None:
+        return torch.ldexp(out.to(torch.float64), -shift.to(torch.float64)).to(torch.float32)
+    return out.to(torch.float32)

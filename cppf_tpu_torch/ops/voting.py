@@ -10,7 +10,8 @@ order.
 The center-vote peak (:func:`ppf_vote_peak`) and the dense histogram
 (:func:`ppf_vote_dense`) run their accumulation passes through
 :mod:`cppf_tpu_torch.ops.vote_hist`: hand-written CUDA kernels for CUDA
-tensors, their plain versions for CPU tensors.
+tensors, their plain versions for CPU tensors.  So does the axis vote's
+sphere count (:func:`rot_vote_sphere_count`).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 from cppf_tpu_torch.core.geometry import cross
 from cppf_tpu_torch.ops.vote_hist import (bound_projections, bound_projections_pairs,
                                           dense_hist, dense_hist_pairs, refine_window,
-                                          refine_window_pairs, vote_frame)
+                                          refine_window_pairs, sphere_count, vote_frame)
 from cppf_tpu_torch.utils import prof
 
 TWO_PI = 6.283185307179586
@@ -457,13 +458,56 @@ def sphere_bin_count(candidates, sphere_pts, cos_tol, chunk: int = 8192) -> torc
     return counts
 
 
+def cone_table(n_rots: int, like: torch.Tensor) -> torch.Tensor:
+    """(cos, sin) [2, n_rots] of the cone's sample angles i·2π/n_rots."""
+    i = torch.arange(n_rots, dtype=like.dtype, device=like.device)
+    ang = i * (TWO_PI / n_rots)
+    return torch.stack([torch.cos(ang), torch.sin(ang)])
+
+
+def sphere_pair_params(pc, preds_rot, point_idxs, weights=None) -> torch.Tensor:
+    """Everything a pair's cone axes derive from, as one contiguous [P, 12]
+    block of ``pc``'s type (float32 for the kernel: three 16-byte loads):
+    columns 0-2 ``co_unit``, 3 ``t = tan ψ``, 4-6 ``y_unit = co_unit × âb``,
+    7 1 for a degenerate pair else 0, 8-10 ``sign(t)·âb``, 11 the weight (0
+    without ``weights``).  Axis ``r`` of the pair is ``t·(cos a_r·co +
+    sin a_r·y) + sign(t)·âb``, normalised (:func:`rot_vote_sphere_count_plain`)."""
+    _, ab_unit, degenerate, co_unit = pair_frames(pc, point_idxs)
+    y_unit = cross(co_unit, ab_unit)
+    t = torch.tan(preds_rot)
+    sign = torch.where(t > 0, 1.0, -1.0)
+    w = torch.zeros_like(t) if weights is None else weights.to(t.dtype)
+    return torch.cat([co_unit, t[:, None], y_unit, degenerate.to(t.dtype)[:, None],
+                      sign[:, None] * ab_unit, w[:, None]], 1)
+
+
 def rot_vote_sphere_count(pc, preds_rot, point_idxs, sphere_pts, cos_tol, n_rots: int = 72,
                           chunk: int = 1024, weights=None) -> torch.Tensor:
     """Cone-vote axis candidates binned on the sphere (cppf_tpu ops/voting.py
     :869-929): each pair's ``n_rots`` unit axes normalize(tan ψ·offset ± âb)
-    count toward every sphere direction within ``cos_tol``.  Componentwise
-    per chunk of pairs; degenerate pairs count nothing.  ``weights`` [P]
-    scales each pair's votes (``sharp_axis_votes``' confidences)."""
+    count toward every sphere direction within ``cos_tol``; degenerate pairs
+    cast the zero axis.  ``weights`` [P] scales each pair's votes
+    (``sharp_axis_votes``' confidences).
+
+    On CPU tensors :func:`rot_vote_sphere_count_plain`.  On CUDA tensors the
+    pairs' vectors (:func:`sphere_pair_params`) are made once and one kernel
+    launch (``vote_hist.sphere_count``) makes every axis in registers and
+    counts it: no [P·n_rots, S] tensor exists.  Its counts equal the plain
+    version's to the bit (weighted: within a fixed-point unit a hit);
+    ``chunk`` is the plain version's."""
+    if pc.device.type == "cpu":
+        return rot_vote_sphere_count_plain(pc, preds_rot, point_idxs, sphere_pts, cos_tol,
+                                           n_rots=n_rots, chunk=chunk, weights=weights)
+    return sphere_count(sphere_pair_params(pc, preds_rot, point_idxs, weights),
+                        cone_table(n_rots, pc), sphere_pts.to(torch.float32).contiguous(),
+                        cos_tol, weighted=weights is not None)
+
+
+def rot_vote_sphere_count_plain(pc, preds_rot, point_idxs, sphere_pts, cos_tol,
+                                n_rots: int = 72, chunk: int = 1024,
+                                weights=None) -> torch.Tensor:
+    """Plain version of :func:`rot_vote_sphere_count`: componentwise per
+    chunk of pairs, each chunk's [chunk·n_rots, S] cosines in memory."""
     s0, s1, s2 = (sphere_pts[:, k].to(torch.float32) for k in range(3))
     i = torch.arange(n_rots, dtype=pc.dtype, device=pc.device)
     ang = i * (TWO_PI / n_rots)

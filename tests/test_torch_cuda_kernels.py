@@ -20,11 +20,20 @@ and below it by no more than the float rounding of the blocks' flush
 instead: their angles i·2π/m come from a table of cosf and sinf, and a
 last-bit difference from torch.cos can move one vote across a validity or
 nearest-tap step.
+
+The axis vote's sphere count makes every test as the plain version does,
+one rounded float32 operation at a time, and sums whole numbers in int32:
+its counts equal the plain version's to the bit, and the poses of the
+benchmark's pools with it equal those without it.  Its weighted sums are
+int64 fixed point: the same bits every run, within 1e-6 of each float64 sum.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
+import torch_sphere as tsph
 from cppf_tpu_torch.ops import vote_hist
 from cppf_tpu_torch.ops import voting
 
@@ -388,3 +397,75 @@ def test_dense_all_masked_gives_zeros(cuda, g, pool, res, p):
     assert float(vote_hist.dense_hist(*votes, **kw).abs().max()) == 0
     assert float(vote_hist.dense_hist_pairs(params, frame, n_rots=72, grid_shape=g,
                                             **kw).abs().max()) == 0
+
+
+# (pairs, rotations, sphere directions, degenerate pairs): the cells' vote,
+# with degenerate pairs, a count that fills no block evenly, none, 24
+# rotations, and spheres of one warp and of two slices of blocks
+SPHERE_CASES = [(10_000, 72, 480, 0), (10_000, 72, 480, 25), (1001, 72, 480, 3), (0, 72, 480, 0),
+                (10_000, 24, 480, 0), (2000, 72, 12, 0), (2000, 72, 4000, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pairs,n_rots,n_sphere,degenerate", SPHERE_CASES)
+def test_sphere_count_equals_plain(cuda, n_pairs, n_rots, n_sphere, degenerate):
+    pc, angles, idxs, sphere, cos_tol = tsph.instance(n_pairs, n_sphere, seed=n_pairs + n_rots,
+                                                      degenerate=degenerate, device=cuda)
+    before = vote_hist.LAUNCHES["sphere_count"]
+    got = voting.rot_vote_sphere_count(pc, angles, idxs, sphere, cos_tol, n_rots=n_rots)
+    torch.cuda.synchronize()
+    assert vote_hist.LAUNCHES["sphere_count"] == before + (n_pairs > 0)
+    want = voting.rot_vote_sphere_count_plain(pc, angles, idxs, sphere, cos_tol, n_rots=n_rots)
+    assert got.dtype == torch.float32 and got.shape == (n_sphere,)
+    assert torch.equal(got, want)
+    assert n_pairs == 0 or want.sum() > 0
+
+
+@pytest.mark.cuda
+def test_weighted_sphere_count_is_fixed_point(cuda):
+    """The same bits every run, within 1e-6 of the float64 sum of each
+    direction's hits; unit weights give the unweighted counts."""
+    pc, angles, idxs, sphere, cos_tol = tsph.instance(seed=7, degenerate=10, device=cuda)
+    w = torch.rand(idxs.shape[0], generator=torch.Generator().manual_seed(7))
+    w[::9] = 0.0
+    w = w.to(cuda)
+    runs = [voting.rot_vote_sphere_count(pc, angles, idxs, sphere, cos_tol, weights=w)
+            for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs)
+    exact = tsph.block_counts(voting.sphere_pair_params(pc, angles, idxs, w),
+                              voting.cone_table(72, pc), sphere, cos_tol, float64_weights=True)
+    assert float(exact.max()) > 10
+    assert bool(((runs[0].double() - exact).abs() <= 1e-6 * exact.abs()).all())
+    ones = voting.rot_vote_sphere_count(pc, angles, idxs, sphere, cos_tol,
+                                        weights=torch.ones_like(w))
+    assert torch.equal(ones, voting.rot_vote_sphere_count(pc, angles, idxs, sphere, cos_tol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload,n_poses,votes", [("bottle.stream", 8, 1), ("mug.stream", 4, 2)])
+def test_pool_poses_equal_with_the_plain_sphere_count(cuda, monkeypatch, workload, n_poses,
+                                                      votes):
+    """The benchmark's pool poses, with the kernel and with the plain
+    version put in its place: T, R, scales, both axes and the back-vote
+    survivors equal.  (The peak's mass, ``grid_max``, may move in its last
+    bit from one run to the next by itself: the center vote's blocks add
+    their sums with float atomics.)"""
+    from portbench import run as R
+
+    from cppf_tpu_torch.pipeline import pose as pose_mod
+
+    bench = R.load_benchmark(os.path.join(os.path.dirname(R.ROOT), "BENCHMARK.json"))
+    cell = {w["name"]: w for w in bench["workloads"]}[workload]
+    mix = {**R.load_json("traffic", cell["traffic"]), "pool": n_poses}
+    ctx = R.Ctx(cell, R.load_json("configs", cell["config"]), mix, 4_400_000_021, cuda, {})
+    driver = R.load_module("drivers", mix["driver"])
+    served = driver.make(ctx)
+    before = vote_hist.LAUNCHES["sphere_count"]
+    rows = [driver.unpack(served._pose(k)) for k in range(n_poses)]
+    assert vote_hist.LAUNCHES["sphere_count"] == before + votes * n_poses
+    monkeypatch.setattr(pose_mod, "rot_vote_sphere_count", voting.rot_vote_sphere_count_plain)
+    plain = [driver.unpack(served._pose(k)) for k in range(n_poses)]
+    assert vote_hist.LAUNCHES["sphere_count"] == before + votes * n_poses
+    for k, (a, b) in enumerate(zip(rows, plain)):
+        for name in ("T", "R", "scale", "up", "right", "n_filtered"):
+            np.testing.assert_array_equal(a[name], b[name], err_msg=f"{workload} pose {k} {name}")
