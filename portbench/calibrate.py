@@ -5,17 +5,18 @@ the program's numbers on many seeds, and its control's.
 
 For each seed the cell's requests are made as a run makes them, every one
 is served once through the timed path, and the run's sample of them is
-judged by the reference, as after a window; the readings are the largest of
-each of the reference's numbers over the sample.  The control is the
-reference itself put in the program's place at the nearest precision below
-the configuration's: float32 products in TF32 (``allow_tf32``), its own
-poses judged by the reference in float32.  Beside them, a witness of a sound program whose
-float32 sums run in another order: the reference with its dense layers
-written ``x @ kernel + bias`` in place of ``linear``, judged the same way;
-and how far each moves the translation logits from the reference's own.
-One line of JSON a seed, and a last line with each number's lower reading
-(the program's largest over the seeds), upper reading (the control's
-smallest) and the witness's largest.  Needs the card.
+judged by the reference the configuration names, as after a window; the
+readings are the largest of each of the reference's numbers over the
+sample.  The control is the reference itself put in the program's place at
+the nearest precision below the configuration's: float32 products in TF32
+(``allow_tf32``), its own poses judged by the reference in float32.  Beside
+them, a witness of a sound program whose float32 sums run in another order:
+the reference with its dense layers written ``x @ kernel + bias`` in place
+of ``linear``, judged the same way; and how far each moves the translation
+logits from the reference's own.  One line of JSON a seed, and a last
+line with each number's lower reading (the program's largest over the
+seeds), upper reading (the control's smallest) and the witness's largest.
+Needs the card.
 """
 from __future__ import annotations
 
@@ -32,7 +33,6 @@ import torch
 from portbench import check
 from portbench import run as R
 from portbench.reference import model
-from portbench.reference import pose as ref
 
 
 def readings(judged):
@@ -59,11 +59,11 @@ def _variant(tf32: bool, reorder: bool):
         torch.backends.cudnn.allow_tf32 = False
 
 
-def stand_in_numbers(cfg, weights, items, tf32=False, reorder=False):
-    """The reference's numbers for the reference's own poses made in TF32
-    (``tf32``, the control) or with reordered dense layers (``reorder``, the
-    witness), put in the program's place; and the largest gap of their
-    translation logits to the reference's own."""
+def stand_in_numbers(ref, cfg, weights, items, tf32=False, reorder=False):
+    """The numbers of the reference module ``ref`` for its own poses made in
+    TF32 (``tf32``, the control) or with reordered dense layers
+    (``reorder``, the witness), put in the program's place; and the largest
+    gap of their translation logits (``prepare(...).preds``) to its own."""
     out, diff = [], 0.0
     B = cfg["tr_num_bins"]
     for crop, draws, _ in items:
@@ -77,8 +77,8 @@ def stand_in_numbers(cfg, weights, items, tf32=False, reorder=False):
     return out, diff
 
 
-def control_numbers(cfg, weights, items):
-    return stand_in_numbers(cfg, weights, items, tf32=True)[0]
+def control_numbers(ref, cfg, weights, items):
+    return stand_in_numbers(ref, cfg, weights, items, tf32=True)[0]
 
 
 def main(argv=None):
@@ -95,6 +95,11 @@ def main(argv=None):
     cell = {w["name"]: w for w in bench["workloads"]}[args.workload]
     cfg = R.load_json("configs", cell["config"])
     mix = R.load_json("traffic", cell["traffic"])
+    try:
+        ref = R.load_reference(cfg)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return R.EXIT_CONFIG
     driver = R.load_module("drivers", mix["driver"])
     weights = model.load_weights(os.path.join(R.ROOT, cfg["weights"]), device)
     runner = None
@@ -103,19 +108,19 @@ def main(argv=None):
         t0 = time.perf_counter()
         ctx = R.Ctx(cell, cfg, mix, seed, device, {})
         if runner is not None:
-            ctx.make_runner = lambda r=runner: r
+            ctx.make_runner = lambda build=None, r=runner: r
         served = driver.make(ctx)
         runner = served.runner
         for _ in range(mix["pool"]):
             served.step()
         items = served.judged(np.random.default_rng([seed, 3]))
         t1 = time.perf_counter()
-        prog = readings(check.judge_items(cfg, weights, items))
+        prog = readings(check.judge_items(ref, cfg, weights, items))
         t2 = time.perf_counter()
-        ctrl, ctrl_diff = stand_in_numbers(cfg, weights, items, tf32=True)
+        ctrl, ctrl_diff = stand_in_numbers(ref, cfg, weights, items, tf32=True)
         ctrl = readings(ctrl)
         t3 = time.perf_counter()
-        wit, wit_diff = stand_in_numbers(cfg, weights, items, reorder=True)
+        wit, wit_diff = stand_in_numbers(ref, cfg, weights, items, reorder=True)
         wit = readings(wit)
         line = {"workload": args.workload, "seed": seed, "judged_requests": len(items),
                 "serve_s": t1 - t0, "judge_s": t2 - t1, "control_s": t3 - t2,

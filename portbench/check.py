@@ -1,10 +1,11 @@
 """The comparison that decides ``correct``.
 
-The reference (``reference/pose.py``) judges every distinct pose the
-program gave for each sampled request (:func:`judge_items`); a cell's
-limits file (``limits/<workload>.json``) names its compared numbers, each
-the largest over the sample of the largest of its parts (``of``), with a
-limit and the readings it was set from.  A run is correct when every
+The reference the configuration names (``reference/<name>.py``, by
+default ``pose``, loaded by ``run.load_reference``) judges every distinct
+pose the program gave for each sampled request (:func:`judge_items`); a
+cell's limits file (``limits/<workload>.json``) names its compared
+numbers, each the largest over the sample of the largest of its parts
+(``of``), with a limit and the readings it was set from.  A run is correct when every
 number is within its limit, every request attempted was answered and at
 least one was judged.
 """
@@ -14,12 +15,10 @@ import json
 import os
 from typing import Dict, List
 
-from portbench.reference import pose as ref
 
-
-def judge_items(cfg: dict, weights, items) -> List[Dict[str, float]]:
-    """The reference's numbers for each pose of ``items`` [(crop, draws,
-    [pose dicts])]."""
+def judge_items(ref, cfg: dict, weights, items) -> List[Dict[str, float]]:
+    """The numbers of the reference module ``ref`` for each pose of
+    ``items`` [(crop, draws, [pose dicts])]."""
     out = []
     for crop, draws, poses in items:
         p = ref.prepare(cfg, weights, crop, draws)

@@ -9,11 +9,20 @@ area-weighted surface sampler are a frozen copy of the program's
 ``sample_surface``), and each mesh file a copy of its ``PRIMITIVES`` entry,
 so that a later change there cannot move the traffic.  A crop stands in for a
 masked depth crop: the mesh scaled to a diagonal in the category's
-``scale_range``, turned by a uniform random rotation, placed ``distance_m``
-in front of a camera at the origin looking along +z, and seen by a virtual
-depth camera: the surface sampled densely, the samples binned into pixels
-sized so that the object covers about twice its point count of them, the
-nearest sample of each pixel kept, in scanline order.
+``scale_range``, turned by a rotation of the mix's view law
+(:func:`view`), placed ``distance_m`` in front of a camera at the origin
+looking along +z, and seen by a virtual depth camera: the surface sampled
+densely, the samples binned into pixels sized so that the object covers
+about twice its point count of them, the nearest sample of each pixel kept,
+in scanline order.
+
+The view law is the mix's ``rotation``: ``uniform`` (the default), any
+rotation; or ``upright``, a gravity-aligned object as a scan in the working
+frame (up +y) sees it, turned about its +y by a uniform yaw and tilted off
++y by at most ``tilt_deg``.  The object's centre lies ``offset_x`` and
+``offset_y`` times its distance off the camera's axis, each way, or, where
+the mix gives ``height_m: [lo, hi]``, that far below it (-y): a scan seen
+from above.
 
 A mix file (``traffic/<mix>.json``) gives the ranges.  Every seed gets the
 same set of point counts (log-uniform quantiles on ``points``), diagonals
@@ -118,6 +127,29 @@ def random_rotation(rng: np.random.Generator) -> np.ndarray:
                      [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
 
 
+def upright_rotation(rng: np.random.Generator, tilt_deg: float) -> np.ndarray:
+    """A turn about +y by a uniform yaw, then a tilt, uniform in
+    [0, ``tilt_deg``] degrees, about a horizontal axis at a uniform azimuth:
+    the mesh's +y ends within ``tilt_deg`` of +y."""
+    yaw, azimuth = rng.uniform(0.0, 2 * np.pi, size=2)
+    tilt = np.deg2rad(rng.uniform(0.0, tilt_deg))
+    c, s = np.cos(yaw), np.sin(yaw)
+    turn = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+    kx, kz = np.cos(azimuth), np.sin(azimuth)
+    k = np.array([[0.0, -kz, 0.0], [kz, 0.0, -kx], [0.0, kx, 0.0]])  # [k]x, k = (kx, 0, kz)
+    return (np.eye(3) + np.sin(tilt) * k + (1 - np.cos(tilt)) * k @ k) @ turn
+
+
+def view(mix: dict, rng: np.random.Generator) -> np.ndarray:
+    """A rotation of the mix's view law (``rotation``, default ``uniform``)."""
+    law = mix.get("rotation", "uniform")
+    if law == "uniform":
+        return random_rotation(rng)
+    if law == "upright":
+        return upright_rotation(rng, mix["tilt_deg"])
+    raise ValueError(f"rotation {law!r}: gen.py draws 'uniform' or 'upright'")
+
+
 def make_crop(category: str, mix: dict, diag: float, n: int, rot: np.ndarray,
               rng: np.random.Generator) -> np.ndarray:
     """One crop [<= n, 3] float32 of the category's mesh scaled to diagonal
@@ -127,8 +159,10 @@ def make_crop(category: str, mix: dict, diag: float, n: int, rot: np.ndarray,
     lo, hi = mesh.vertices.min(0), mesh.vertices.max(0)
     verts = (mesh.vertices - (lo + hi) / 2) * (diag / np.linalg.norm(hi - lo))
     d = float(rng.uniform(*mix["distance_m"]))
-    off = np.array([rng.uniform(-1, 1) * mix["offset_x"] * d,
-                    rng.uniform(-1, 1) * mix["offset_y"] * d, d])
+    x = rng.uniform(-1, 1) * mix["offset_x"] * d
+    y = (-rng.uniform(*mix["height_m"]) if "height_m" in mix
+         else rng.uniform(-1, 1) * mix["offset_y"] * d)
+    off = np.array([x, y, d])
     verts = verts @ rot.T + off
     pts = sample_surface(Mesh(verts.astype(np.float32), mesh.faces),
                          mix["samples_per_point"] * n, rng)
@@ -154,9 +188,9 @@ def work(count: int, mix: dict, scale_range):
     [(point count, diagonal, rotation)].  Point counts at the ``count``
     quantile midpoints of a log-uniform law on ``points``, diagonals at
     those of a uniform law on ``scale_range`` (paired by a fixed stride so
-    that size and diagonal do not move together), and a uniform random
-    rotation each from a generator of its own: how much of the object a view
-    shows sets how many voxels the pose works on."""
+    that size and diagonal do not move together), and a rotation of the
+    mix's view law each from a generator of its own: how much of the object
+    a view shows sets how many voxels the pose works on."""
     q = (np.arange(count) + 0.5) / count
     lo, hi = np.log(mix["points"][0]), np.log(mix["points"][1])
     points = np.round(np.exp(lo + q * (hi - lo))).astype(int)
@@ -165,7 +199,7 @@ def work(count: int, mix: dict, scale_range):
     diags = scale_range[0] + q[(np.arange(count) * stride) % count] * (
         scale_range[1] - scale_range[0])
     views = np.random.default_rng(count)
-    return [(int(p), float(d), random_rotation(views)) for p, d in zip(points, diags)]
+    return [(int(p), float(d), view(mix, views)) for p, d in zip(points, diags)]
 
 
 def make_crops(category: str, mix: dict, scale_range, count: int,

@@ -1,0 +1,4 @@
+"""``vote_kernels_roofline`` in the cells that ``pose_ms_p95`` judges (the stream cells):
+the same reader, named apart because there it moves the latency and not
+``poses_per_s``."""
+from portbench.metrics.vote_kernels_roofline import read  # noqa: F401

@@ -22,12 +22,14 @@ center peak is found on the dense grid by the branch-and-bound the
 configuration states (``peak_rounds`` windows at most), as the program's
 peak kernels find it without the grid.
 
-:func:`prepare` does what every use needs (preprocess, network, decode,
-first grid); :func:`estimate` is the reference's own pose; :func:`judge`
-reads the program's pose against the reference: each discrete choice the
-program made (the peak voxel, the axis bin, a sign) is followed, and scored
-by how far the reference's own scores put it below their best, as a served
-token is scored by its logit's gap to the best.
+:func:`follows` refuses a configuration that turns on a mechanism written
+nowhere here (:data:`FOLLOWS`); :func:`prepare` does what every use needs
+(preprocess, network, decode, first grid); :func:`estimate` is the
+reference's own pose; :func:`judge` reads the program's pose against the
+reference: each discrete choice the program made (the peak voxel, the axis
+bin, a sign) is followed, and scored by how far the reference's own scores
+put it below their best, as a served token is scored by its logit's gap to
+the best.
 
 A sound program whose float32 sums run in another order (a fused or
 reordered network) gives logits a few 1e-5 away, and then the Gumbel
@@ -573,6 +575,29 @@ def peak(grid: torch.Tensor, rounds: int, window: int = 16, coarse: int = 8):
 
 
 # ---- entry points ------------------------------------------------------------
+
+# each configuration key that selects a mechanism of the program's pose, with
+# the one value this reference implements; a key it leaves out (such as
+# ``halfspace_margin`` or ``up_prior_dir``) acts only where one of these is on
+FOLLOWS = {"splat": "trilinear", "center_mode": "hier", "geo_right_dir": "cross",
+           "axis_topk": 1, "filter_coplanar": False, "coplanar_halfspace": False,
+           "up_prior_deg": 0.0, "adaptive_voting": False, "sharp_axis_votes": False,
+           "aux_align_weight": False, "subvoxel_refine": False, "pair_balance": 0.0,
+           "pair_sep_power": 0.0, "z_right": False}
+
+
+def follows(cfg: dict) -> None:
+    """Raise ``ValueError`` naming each key of :data:`FOLLOWS` that ``cfg``
+    leaves out or states at another value than the one this reference
+    implements: a cell so configured would be judged as if the mechanism
+    were off."""
+    wrong = [f"{k}: stated {cfg[k]!r}, followed {v!r}" if k in cfg
+             else f"{k}: not stated, followed {v!r}"
+             for k, v in FOLLOWS.items() if k not in cfg or cfg[k] != v]
+    if wrong:
+        raise ValueError(f"reference/pose.py does not follow configuration "
+                         f"{cfg.get('name')!r}: " + "; ".join(wrong))
+
 
 def prepare(cfg: dict, weights: Dict[str, torch.Tensor], crop: np.ndarray,
             draws: Dict[str, torch.Tensor]) -> Prep:

@@ -4,11 +4,14 @@
 
 from the root of a checkout.  The cell (``BENCHMARK.json`` ``workloads``)
 names a configuration (``configs/<config>.json``) and a traffic mix
-(``traffic/<traffic>.json``); the mix names its driver
+(``traffic/<traffic>.json``); the configuration names its plain reference
+(``reference/<reference>.py``, by default ``pose``) and the mix its driver
 (``drivers/<driver>.py``); each per-layer metric is read by
 ``metrics/<name>.py`` and each cell's compared numbers and limits are in
-``limits/<workload>.json``: all found by name, so a cell, a mix, a driver or
-a metric is added as files and entries.
+``limits/<workload>.json``: all found by name, so a cell, a configuration
+with its reference, a mix, a driver or a metric is added as files and
+entries.  A configuration that turns on a mechanism its reference does not
+follow is refused at set-up (``EXIT_CONFIG``), before any request.
 
 Set-up (``setup_s``) runs from the start of the process to the start of the
 window: torch and the CUDA context, the runner, the pool of requests made
@@ -36,6 +39,7 @@ import os  # noqa: E402
 import sys  # noqa: E402
 import traceback  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
+from typing import List  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -47,12 +51,25 @@ EXIT_NO_CHIP, EXIT_FORBIDDEN, EXIT_CONFIG = 2, 3, 4
 
 
 def load_module(kind: str, name: str):
-    """``portbench/<kind>/<name>.py`` as a module (names may hold dots)."""
+    """``portbench/<kind>/<name>.py`` as a module (names may hold dots),
+    entered in ``sys.modules`` as dataclasses need."""
     path = os.path.join(ROOT, kind, f"{name}.py")
     spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_reference(cfg: dict):
+    """The plain reference ``cfg`` names, ``reference/<reference>.py``
+    (default ``pose``), with ``prepare(cfg, weights, crop, draws)``,
+    ``estimate(p, draws)`` and ``judge(p, draws, pose)``; its
+    ``follows(cfg)`` raises ``ValueError`` here where it does not follow
+    ``cfg``."""
+    ref = load_module("reference", cfg.get("reference", "pose"))
+    ref.follows(cfg)
+    return ref
 
 
 def load_json(kind: str, name: str) -> dict:
@@ -109,13 +126,17 @@ class Ctx:
     device: object
     small: dict
 
-    def make_runner(self):
-        """The category's ``CategoryRunner`` (its served weights and
-        snapshot), cut to ``small`` where a test asks, checked against the
-        configuration file."""
-        from cppf_tpu_torch.eval.nocs_inference import CategoryRunner
+    def make_runner(self, build=None):
+        """The runner ``build(device)`` makes through the program's own entry
+        (by default the category's ``CategoryRunner`` with its served weights
+        and snapshot, as the NOCS driver makes it), cut to ``small`` where a
+        test asks, checked against the configuration file."""
+        if build is None:
+            from cppf_tpu_torch.eval.nocs_inference import CategoryRunner
 
-        runner = CategoryRunner(self.cfg["category"], device=self.device)
+            runner = CategoryRunner(self.cfg["category"], device=self.device)
+        else:
+            runner = build(self.device)
         pose_keys = {f.name for f in dataclasses.fields(runner.pcfg)}
         runner.pcfg = dataclasses.replace(
             runner.pcfg, **{k: v for k, v in self.small.items() if k in pose_keys})
@@ -128,6 +149,15 @@ class Ctx:
 
 def p95(values) -> float:
     return float(np.percentile(np.asarray(values, np.float64), 95))
+
+
+def tenths(ends, seconds: float) -> List[float]:
+    """Poses a second in each tenth of the window, from the requests'
+    (end second, poses): whether a run is slow throughout or stalls."""
+    bins = np.zeros(10)
+    for t, n in ends:
+        bins[min(int(t / seconds * 10), 9)] += n
+    return (bins / (seconds / 10)).tolist()
 
 
 def parse(argv=None):
@@ -167,6 +197,11 @@ def run(args, device=None, small=None, benchmark=None, serve_hook=None):
     mix = load_json("traffic", cell["traffic"])
     cut = {k: v for k, v in small.items() if k in cfg}
     cfg, mix = {**cfg, **cut}, {**mix, **{k: v for k, v in small.items() if k in mix}}
+    try:
+        ref = load_reference(cfg)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return EXIT_CONFIG, None
     driver = load_module("drivers", mix["driver"])
     from cppf_tpu_torch.ops import vote_hist
 
@@ -184,7 +219,7 @@ def run(args, device=None, small=None, benchmark=None, serve_hook=None):
     setup_s = time.perf_counter() - T_START
 
     vote_hist.reset_launches()
-    latencies, attempted, failed, poses = [], 0, 0, 0
+    latencies, ends, attempted, failed, poses = [], [], 0, 0, 0
     tracer = DeviceTrace() if args.trace and on_cuda else None
     with tracer or contextlib.nullcontext():
         t0 = time.perf_counter()
@@ -197,6 +232,7 @@ def run(args, device=None, small=None, benchmark=None, serve_hook=None):
                 attempted += 1
                 continue
             latencies.append(dt)
+            ends.append((time.perf_counter() - t0, n))
             attempted += n
             poses += n
         if on_cuda:
@@ -217,7 +253,7 @@ def run(args, device=None, small=None, benchmark=None, serve_hook=None):
     weights = model.load_weights(os.path.join(ROOT, cfg["weights"]), device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    judged = check.judge_items(cfg, weights, items)
+    judged = check.judge_items(ref, cfg, weights, items)
     nums = check.numbers(limits, judged)
     correct = check.verdict(limits, nums, attempted, failed, len(judged))
 
@@ -256,6 +292,8 @@ def run(args, device=None, small=None, benchmark=None, serve_hook=None):
         print(f"window {window_s:.3f} s, {len(lat)} requests, {poses} poses; latency ms p5 "
               f"{np.percentile(lat, 5):.2f} p50 {np.percentile(lat, 50):.2f} p95 "
               f"{np.percentile(lat, 95):.2f} max {lat.max():.2f}", file=sys.stderr)
+        print("poses/s by tenth of the window: " + " ".join(
+            f"{r:.2f}" for r in tenths(ends, args.seconds)), file=sys.stderr)
     print(f"judged {len(judged)} poses of {len(items)} requests; correct: {correct}",
           file=sys.stderr)
     for k, (v, lim) in result["checks"].items():

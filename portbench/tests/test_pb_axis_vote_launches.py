@@ -24,12 +24,17 @@ def test_reads_the_counter_over_the_poses():
 
 
 def test_entry_and_a_cpu_run():
-    """Its entry moves ``poses_per_s`` in the three cells; a traced run on
-    the CPU, where the axis vote takes the plain version, leaves it out."""
+    """Its entry moves ``poses_per_s`` in the frames cell, and its
+    ``.stream`` twin ``pose_ms_p95`` in the stream cells; a traced run on
+    the CPU, where the axis vote takes the plain version, leaves both out."""
     bench = R.load_benchmark(R.os.path.join(R.os.path.dirname(R.ROOT), "BENCHMARK.json"))
-    entry = {m["name"]: m for m in bench["per_layer"]}[NAME]
-    assert entry["source"] == "program_counter" and entry["moves"] == "poses_per_s"
-    assert entry["layer"] == "back-vote, axis votes, category branches"
-    assert entry["workloads"] == ["bottle.stream", "mug.stream", "bottle.frames"]
+    entries = {m["name"]: m for m in bench["per_layer"]}
+    for name, moves, cells in ((NAME, "poses_per_s", ["bottle.frames"]),
+                               (NAME + ".stream", "pose_ms_p95",
+                                ["bottle.stream", "mug.stream"])):
+        entry = entries[name]
+        assert entry["source"] == "program_counter" and entry["moves"] == moves
+        assert entry["layer"] == "back-vote, axis votes, category branches"
+        assert entry["workloads"] == cells
     code, res = run_small("bottle.stream", trace=1)
-    assert code == 0 and NAME not in res["metrics"]
+    assert code == 0 and not {NAME, NAME + ".stream"} & set(res["metrics"])

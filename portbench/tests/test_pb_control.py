@@ -21,11 +21,12 @@ def test_the_control_fails(workload):
     limits = check.load_limits(R.ROOT, workload)
     weights = model.load_weights(R.os.path.join(R.ROOT, cfg["weights"]), "cuda")
     driver = R.load_module("drivers", mix["driver"])
+    ref = R.load_reference(cfg)
     for seed in (3900000001, 3900000002, 3900000003):
         served = driver.make(R.Ctx(cell, cfg, mix, seed, torch.device("cuda"), {}))
         for _ in range(mix["pool"]):
             served.step()
         served.free()
         items = served.judged(np.random.default_rng([seed, 3]))
-        nums = check.numbers(limits, calibrate.control_numbers(cfg, weights, items))
+        nums = check.numbers(limits, calibrate.control_numbers(ref, cfg, weights, items))
         assert not check.verdict(limits, nums, 1, 0, len(items)), nums

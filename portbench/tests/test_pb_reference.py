@@ -1,6 +1,7 @@
 """The plain reference against the program's CPU path: the same crop and
 draws give the same pose, and the reference's judge reads the program's
-pose as its own."""
+pose as its own; the reference follows the benchmark's configurations and
+refuses one that turns on a mechanism it does not implement."""
 import dataclasses
 
 import numpy as np
@@ -9,6 +10,7 @@ import torch
 
 from portbench import draws as D
 from portbench import gen
+from portbench import run as R
 from portbench.drivers.stream import to_pose_draws
 from portbench.reference import model
 from portbench.reference import pose as ref
@@ -119,3 +121,26 @@ def test_a_right_vote_won_by_ups_line_reads_as_sound(monkeypatch):
         nums = ref.judge(p, d, est)
         assert max(nums.values()) <= 1e-5, (seed, nums)
     assert off_sphere >= 2
+
+
+@pytest.mark.parametrize("config", ["bottle", "mug"])
+def test_the_reference_follows_the_benchmarks_configurations(config):
+    ref.follows(R.load_json("configs", config))
+
+
+# another value of each key: one the program runs and the reference does not
+OTHER = {"splat": "nearest", "center_mode": "grid", "geo_right_dir": "direct", "axis_topk": 2,
+         "filter_coplanar": True, "coplanar_halfspace": True, "up_prior_deg": 30.0,
+         "adaptive_voting": True, "sharp_axis_votes": True, "aux_align_weight": True,
+         "subvoxel_refine": True, "pair_balance": 0.5, "pair_sep_power": 1.0, "z_right": True}
+
+
+@pytest.mark.parametrize("key", sorted(ref.FOLLOWS))
+def test_the_reference_refuses_a_mechanism_it_does_not_follow(key):
+    """Each key of ``FOLLOWS`` at another value, or left out, is refused by
+    name."""
+    cfg = R.load_json("configs", "bottle")
+    with pytest.raises(ValueError, match=key):
+        ref.follows({**cfg, key: OTHER[key]})
+    with pytest.raises(ValueError, match=f"{key}: not stated"):
+        ref.follows({k: v for k, v in cfg.items() if k != key})

@@ -91,8 +91,14 @@ def test_entries_name_the_files():
     entries = {m["name"]: m for m in bench["per_layer"]}
     for m in NEW:
         assert entries[m]["moves"] == "poses_per_s" and entries[m]["better"] == "lower"
+        assert entries[m]["workloads"] == ["bottle.frames"]
         assert R.os.path.exists(R.os.path.join(R.ROOT, "metrics", f"{m}.py"))
-    assert entries["draws_ms_per_pose"]["workloads"] == ["bottle.frames"]
+    for m in NEW[:-1]:  # the draws run in the frames cell only
+        twin = entries[f"{m}.stream"]
+        assert twin["moves"] == "pose_ms_p95" and twin["better"] == "lower"
+        assert twin["workloads"] == ["bottle.stream", "mug.stream"]
+        assert R.os.path.exists(R.os.path.join(R.ROOT, "metrics", f"{m}.stream.py"))
+    assert f"{NEW[-1]}.stream" not in entries
 
 
 @pytest.mark.cuda
