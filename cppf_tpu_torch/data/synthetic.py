@@ -111,6 +111,20 @@ def make_mug() -> Mesh:
     return _merge(body, h1, h2, h3)
 
 
+def make_table() -> Mesh:
+    """:func:`random_table` at the midpoints of its ranges: a 1.0 × 0.065 ×
+    0.75 m top whose face is 0.7 m up, on four 0.07 m legs."""
+    return _table(0.75, 0.7, 0.065, 0.07)
+
+
+def _table(d, h, t, lt, w=1.0) -> Mesh:
+    top = _translate(make_box((w, t, d)), (0, h - t / 2, 0))
+    legs = [_translate(make_box((lt, h - t, lt)),
+                       (sx * (w / 2 - lt), (h - t) / 2, sz * (d / 2 - lt)))
+            for sx in (-1, 1) for sz in (-1, 1)]
+    return _merge(top, *legs)
+
+
 PRIMITIVES = {
     "bottle": make_bottle,
     "can": lambda: make_cylinder(0.035, 0.1),
@@ -120,6 +134,9 @@ PRIMITIVES = {
     "camera": lambda: _merge(make_box((0.11, 0.07, 0.05)),
                              _translate(make_cylinder(0.022, 0.04), (0.02, 0, 0.04))),
     "laptop": lambda: make_box((0.3, 0.02, 0.25)),
+    # the JAX package's PRIMITIVES has no table; the benchmark's table mesh
+    # (portbench/meshes/table.json) is a copy of this one
+    "table": make_table,
 }
 
 
@@ -269,15 +286,11 @@ def random_laptop(rng) -> Mesh:
 
 
 def random_table(rng) -> Mesh:
-    w, d = 1.0, rng.uniform(0.5, 1.0)
+    d = rng.uniform(0.5, 1.0)
     h = rng.uniform(0.5, 0.9)
     t = rng.uniform(0.04, 0.09)
     lt = rng.uniform(0.04, 0.1)
-    top = _translate(make_box((w, t, d)), (0, h - t / 2, 0))
-    legs = [_translate(make_box((lt, h - t, lt)),
-                       (sx * (w / 2 - lt), (h - t) / 2, sz * (d / 2 - lt)))
-            for sx in (-1, 1) for sz in (-1, 1)]
-    return _merge(top, *legs)
+    return _table(d, h, t, lt)
 
 
 def random_chair(rng) -> Mesh:

@@ -45,7 +45,7 @@ from cppf_tpu_torch.eval.anchor import anchor_box_t
 from cppf_tpu_torch.models.convert import load_encoders
 from cppf_tpu_torch.models.segmenter import SegmenterRunner
 from cppf_tpu_torch.ops.ransac import segment_plane
-from cppf_tpu_torch.pipeline.pose import PoseConfig, PoseDraws, estimate_pose
+from cppf_tpu_torch.pipeline.pose import PoseConfig, PoseDraws, estimate_pose, up_prior_gate
 from cppf_tpu_torch.pipeline.preprocess import preprocess_cloud
 from cppf_tpu_torch.train.checkpoints import maybe_load_any
 from cppf_tpu_torch.utils import prof
@@ -162,6 +162,17 @@ class CategoryRunner:
         self.point_encoder, self.ppf_encoder = load_encoders(params, self.cfg.out_dim,
                                                              self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(0)
+        self._up_gate = None
+
+    def up_gate(self):
+        """The up vote's gravity gate (``pipeline/pose.py::up_prior_gate``) of
+        the runner's sphere and prior, made at the first pose and again only
+        when the prior changes: no pose uploads the prior.  None while the
+        prior is off."""
+        key = (self.pcfg.up_prior_deg, self.pcfg.up_prior_dir)
+        if self._up_gate is None or self._up_gate[0] != key:
+            self._up_gate = (key, up_prior_gate(self.sphere, self.pcfg))
+        return self._up_gate[1]
 
     def draws(self, key) -> PoseDraws:
         """The draws the JAX ``estimate(key, ...)`` consumes."""
@@ -187,7 +198,7 @@ class CategoryRunner:
                 prof.host_sync(self.device)
             out = estimate_pose(self.point_encoder, self.ppf_encoder, pre.pc, pre.normals,
                                 pre.n_valid, self.sphere, self.pcfg, nbr_idx=pre.nbr_idx,
-                                draws=draws, laptop_up=laptop_up)
+                                draws=draws, laptop_up=laptop_up, up_gate=self.up_gate())
             if self.cfg.anchor_t:
                 out = self._anchor(out, pc_raw)
             return out, pre

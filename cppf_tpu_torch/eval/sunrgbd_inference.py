@@ -33,6 +33,7 @@ import numpy as np
 from cppf_tpu_torch.core import threefry
 from cppf_tpu_torch.device import resolve_device
 from cppf_tpu_torch.eval.nocs_inference import CategoryRunner
+from cppf_tpu_torch.utils import prof
 
 TYPE2CLASS = {
     "bed": 0, "table": 1, "sofa": 2, "chair": 3, "toilet": 4,
@@ -112,15 +113,19 @@ class Instance(NamedTuple):
 def pose_instances(runner: CategoryRunner, items, rng, class_id: int):
     """Rows [class_id, 1.0, s(3), R(9), T(3)] of ``items``
     (:func:`scan_instances`), one key split off ``rng`` an instance.
-    Returns (rows, the next rng, [(bbox index, points, seconds)])."""
+    Returns (rows, the next rng, [(bbox index, points, seconds)]).  The
+    span ``scan`` is the request: each instance's ``draws`` and ``pose``
+    nest under it."""
     rows, timing = [], []
-    for i, pc in items:
-        rng, r_inst = threefry.split(rng)
-        t0 = time.perf_counter()
-        out, _ = runner.estimate(pc, draws=runner.draws(r_inst))
-        scale, R, T = (out.scale.cpu().numpy(), out.R.cpu().numpy(), out.T.cpu().numpy())
-        timing.append((i, len(pc), time.perf_counter() - t0))
-        rows.append([class_id, 1.0, *scale, *R.reshape(-1), *T])
+    with prof.span("scan", instances=len(items)):
+        for i, pc in items:
+            rng, r_inst = threefry.split(rng)
+            t0 = time.perf_counter()
+            out, _ = runner.estimate(pc, draws=runner.draws(r_inst))
+            prof.host_sync(out.T.device, n=3)  # the copies below
+            scale, R, T = (out.scale.cpu().numpy(), out.R.cpu().numpy(), out.T.cpu().numpy())
+            timing.append((i, len(pc), time.perf_counter() - t0))
+            rows.append([class_id, 1.0, *scale, *R.reshape(-1), *T])
     return rows, rng, timing
 
 

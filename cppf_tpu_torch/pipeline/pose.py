@@ -29,6 +29,7 @@ Gumbel noise (``jax.random.categorical`` is ``argmax(logits + gumbel)``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -578,19 +579,37 @@ class PairStages(NamedTuple):
 
 
 def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
-              draws: PoseDraws, laptop_up=None, laptop_up_valid=None) -> PoseResult:
-    """Voting half: decode pair predictions into a 9D pose (no network)."""
+              draws: PoseDraws, laptop_up=None, laptop_up_valid=None,
+              up_gate=None) -> PoseResult:
+    """Voting half: decode pair predictions into a 9D pose (no network).
+    ``up_gate`` as in :func:`decode_pose`.
+
+    Where a gate thins the center vote (``filter_coplanar``,
+    ``coplanar_halfspace``, ``pair_sep_power``) the span
+    ``pose.center_gate`` holds its making, and under a profiler the device
+    counters ``center_pairs_gated`` and ``center_pairs_voting`` add, each
+    center pass, the pairs the gate reads and those it lets vote (a nonzero
+    weight; every pair under ``coplanar_halfspace``, which thins votes)."""
     valid_mask = torch.arange(pc.shape[0], device=pc.device) < n_valid
     preds_tr = decode_translation(preds, draws.tr_gumbel, pcfg)
     res = torch.tensor(pcfg.res, dtype=pc.dtype, device=pc.device)
     prof.host_sync(pc.device)
     corner, grid_dims = grid_frame(pc, valid_mask, pcfg)
-    center_mask, base_mask, halfspace = center_vote_masks(pc, pc_normal, point_idxs, pcfg)
+    gated = pcfg.filter_coplanar or pcfg.coplanar_halfspace or pcfg.pair_sep_power > 0
+    voting = None
+    with prof.span("pose.center_gate") if gated else contextlib.nullcontext():
+        center_mask, base_mask, halfspace = center_vote_masks(pc, pc_normal, point_idxs, pcfg)
+        if gated and prof.recording():
+            voting = (point_idxs.shape[0] if center_mask is None
+                      else torch.count_nonzero(center_mask))
 
     vote_kw = dict(n_rots=pcfg.num_rots, adaptive=pcfg.adaptive_voting, splat=pcfg.splat,
                    pair_mask=center_mask, halfspace=halfspace)
 
     def center_peak(weights):
+        if voting is not None:
+            prof.device_count("center_pairs_gated", point_idxs.shape[0])
+            prof.device_count("center_pairs_voting", voting)
         if pcfg.center_mode == "grid":
             grid = ppf_vote_dense(pc, preds_tr, weights, point_idxs, corner, res, grid_dims,
                                   pcfg.grid_shape, **vote_kw)
@@ -618,16 +637,18 @@ def vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseC
 
     stages = PairStages(center_peak, consistent_pairs, refine_center, vote_axis, scale_mean)
     return decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg, draws, stages,
-                       laptop_up, laptop_up_valid)
+                       laptop_up, laptop_up_valid, up_gate)
 
 
 def decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
                 draws: PoseDraws, stages: PairStages, laptop_up=None,
-                laptop_up_valid=None) -> PoseResult:
+                laptop_up_valid=None, up_gate=None) -> PoseResult:
     """The pose from the center vote, the back-vote mask and the axis votes
     of ``stages``; the branches run in the order of the JAX
     ``_vote_pose_body``.  ``point_idxs`` [P, 2] are every pair; ``preds``
-    the rows that ``stages`` read (all of them on one device)."""
+    the rows that ``stages`` read (all of them on one device).  ``up_gate``
+    is :func:`up_prior_gate` of ``sphere_pts`` and ``pcfg`` made before (a
+    runner keeps its own); None makes it here."""
     n = pc.shape[0]
     B, R = pcfg.tr_num_bins, pcfg.rot_num_bins
     up_logits = preds[:, 2 * B: 2 * B + R]
@@ -648,7 +669,8 @@ def decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
     # --- orientation axes ---------------------------------------------------
     with prof.span("pose.axis_vote", axis="up"):
         up = stages.vote_axis(pair_mask, up_logits, up_aux, draws.up,
-                              prior_gate=up_prior_gate(sphere_pts, pcfg))
+                              prior_gate=(up_prior_gate(sphere_pts, pcfg) if up_gate is None
+                                          else up_gate))
 
     if pcfg.asym_center_refine:
         # second center pass on the protruding points' votes; only its
@@ -718,17 +740,18 @@ def decode_pose(pc, point_idxs, preds, n_valid, sphere_pts, pcfg: PoseConfig,
 def estimate_pose(point_encoder, ppf_encoder, pc, pc_normal, n_valid, sphere_pts,
                   pcfg: PoseConfig, nbr_idx=None, draws: Optional[PoseDraws] = None,
                   generator: Optional[torch.Generator] = None, laptop_up=None,
-                  laptop_up_valid=None) -> PoseResult:
+                  laptop_up_valid=None, up_gate=None) -> PoseResult:
     """Single-instance 9D pose.  pc/pc_normal: [N, 3] padded, valid points
     compacted to the front; ``n_valid`` real points.  Draws come from
     ``draws`` when given, else from ``generator``.  ``laptop_up`` [3]
-    (with ``laptop_up_valid``, default True) is the laptop plane override."""
+    (with ``laptop_up_valid``, default True) is the laptop plane override;
+    ``up_gate`` as in :func:`decode_pose`."""
     if draws is None:
         draws = PoseDraws.sample(pcfg, generator, pc.device)
     point_idxs, preds = pair_predictions(point_encoder, ppf_encoder, pc, pc_normal, n_valid,
                                          pcfg, draws.pair_u, nbr_idx)
     return vote_pose(pc, pc_normal, point_idxs, preds, n_valid, sphere_pts, pcfg, draws,
-                     laptop_up, laptop_up_valid)
+                     laptop_up, laptop_up_valid, up_gate)
 
 
 @torch.no_grad()

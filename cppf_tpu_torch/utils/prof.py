@@ -24,6 +24,12 @@ a boolean mask's indices) or a copy to the card from pageable host memory
 (``torch.tensor(..., device=cuda)``, ``.to(cuda)`` of a host tensor), which
 ``copy_`` ends with a stream sync.  ``COUNTERS["host_syncs"]`` is the
 running total; each open span records how much it rose while it was open.
+
+Device counters.  ``device_count(name, t)`` adds ``t`` (a 0-d tensor on the
+card, or a host number) to the running total ``name``, kept where ``t`` is,
+while a torch profiler runs; it reads nothing on the host.
+:func:`device_counters` reads the totals once, after the profiled work, and
+:func:`clear_device_counters` drops them.
 """
 from __future__ import annotations
 
@@ -156,12 +162,37 @@ def _stack() -> List[Span]:
     return stack
 
 
+def recording() -> bool:
+    """Whether a torch profiler runs: spans and device counters record."""
+    return torch.autograd._profiler_enabled()
+
+
 def span(name: str, **attrs):
     """A span of the stage ``name`` (a context manager), recorded only while
     a torch profiler runs."""
-    if not torch.autograd._profiler_enabled():
+    if not recording():
         return _NO_SPAN
     return Span(name, attrs)
+
+
+_DEVICE_TOTALS: dict = {}
+
+
+def device_count(name: str, t) -> None:
+    """Add ``t`` (a 0-d tensor, or a number) to the device counter ``name``
+    while a torch profiler runs: an add where ``t`` lives, no host read."""
+    if recording():
+        total = _DEVICE_TOTALS.get(name)
+        _DEVICE_TOTALS[name] = t if total is None else total + t
+
+
+def device_counters() -> dict:
+    """{name: total} of the device counters, each read once on the host."""
+    return {k: v.item() if torch.is_tensor(v) else v for k, v in _DEVICE_TOTALS.items()}
+
+
+def clear_device_counters() -> None:
+    _DEVICE_TOTALS.clear()
 
 
 def annotate(**attrs) -> None:
