@@ -77,8 +77,8 @@ Phases:
    within 1 cm of the stored JAX driver's and its up within 5° (up to sign
    for bowl, bottle, can; one flip is printed and allowed), the pairs front
    ends of both peak kernels launched once (mug twice) a center pass and
-   the votes front ends and ``dense_hist`` never, and ``nocs_eval.main``
-   on the stored JAX pkl equals the stored JAX eval to 1e-12; then the warm
+   the votes front ends and ``dense_hist`` never, the draws' kernel once a
+   pose, and ``nocs_eval.main`` on the stored JAX pkl equals the stored JAX eval to 1e-12; then the warm
    frame loop (median of 3), ms per instance of each chunk, the frame's
    peak device memory, and both peak kernels held and timed on the frame's
    first instance;
@@ -91,8 +91,8 @@ Phases:
    inside the prior, its T within 1 cm of JAX's, its scales within 1e-3
    and its up within 5° (one flip is printed and allowed), the pairs front
    ends launched once (windows at most twice) a center pass and the votes
-   front ends and ``dense_hist`` never, and ``sunrgbd_eval.main`` on the
-   stored JAX pkls equals the stored JAX eval to 1e-12; then the warm loop
+   front ends and ``dense_hist`` never, the draws' kernel once a pose, and
+   ``sunrgbd_eval.main`` on the stored JAX pkls equals the stored JAX eval to 1e-12; then the warm loop
    (s/scan, median of 3), ms an instance by category, the draws of one
    instance, the loop's peak device memory, and both peak kernels held and
    timed on the first instance's grid.
@@ -296,6 +296,15 @@ Phases:
    CUDA tensors; then the kernel alone, the whole CUDA route (the pairs'
    vectors and the kernel) and the plain version timed in turns as in
    phase 3, with the bound; one ``{"sphere_count": ...}`` line.
+23. the JAX-key draws' kernel (``csrc/threefry_draws.cu``, no TPU kernel's
+   counterpart) on the requests of one pose of ``bottle.frames`` and of
+   ``table.scans`` (``portbench/configs/``: 13.40 M and 13.77 M elements,
+   the pair key and the preprocess key): one launch a
+   ``PoseDraws.from_jax_keys``, every draw ``draw_many_plain``'s on the
+   card to the bit; then the kernel and the plain CUDA path timed in turns
+   as in phase 3, with the bound (bytes and operations), and the host's
+   time of a whole ``from_jax_keys`` call, and the kernel's registers,
+   shared memory and spills; one ``{"draws": ...}`` line.
 
 ``--profile`` adds the warm time of each stage of one pose, and a
 torch.profiler table of the kernels of one pose, of one zero-shot frame,
@@ -1468,9 +1477,10 @@ def nocs_driver_phase(tmp, profile=False):
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     vh.reset_launches()
+    threefry.LAUNCHES["draws"] = 0
     frames = ni.main(argv)
     torch.cuda.synchronize()
-    launches = dict(vh.LAUNCHES)
+    launches = dict(vh.LAUNCHES, draws=threefry.LAUNCHES["draws"], poses=n)
     cold_s = time.perf_counter() - t0
     print(f"nocs driver: {n} instances ({', '.join(names)}), chunks "
           f"{[(c.category, c.instances, c.batched) for c in frames[0]]}; launches {launches}; "
@@ -1488,6 +1498,8 @@ def nocs_driver_phase(tmp, profile=False):
     check(all(launches[k] == 0 for k in ("bound_projections", "refine_window", "dense_hist",
                                          "dense_hist_pairs")),
           "nocs driver: a votes front end or dense_hist launched")
+    check(launches["draws"] == n,
+          f"nocs driver: threefry_draws launched {launches['draws']} times, not once a pose ({n})")
 
     with open(ni.result_path(out_dir, record), "rb") as f:
         res = pickle.load(f)
@@ -1632,9 +1644,10 @@ def sun_driver_phase(tmp, profile=False):
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     vh.reset_launches()
+    threefry.LAUNCHES["draws"] = 0
     posed = si.main(argv)
     torch.cuda.synchronize()
-    launches = dict(vh.LAUNCHES)
+    launches = dict(vh.LAUNCHES, draws=threefry.LAUNCHES["draws"], poses=len(posed))
     cold_s = time.perf_counter() - t0
     cats = list(dict.fromkeys(p.category for p in posed))
     print(f"sun driver: {len(scans)} scans, {len(posed)} instances ({', '.join(cats)}); "
@@ -1652,6 +1665,9 @@ def sun_driver_phase(tmp, profile=False):
     check(all(launches[k] == 0 for k in ("bound_projections", "refine_window", "dense_hist",
                                          "dense_hist_pairs")),
           "sun driver: a votes front end or dense_hist launched")
+    check(launches["draws"] == len(posed),
+          f"sun driver: threefry_draws launched {launches['draws']} times, not once a pose "
+          f"({len(posed)})")
 
     # every instance against the stored JAX run, in the drivers' order
     where = [(si.TYPE2CLASS[p.category], int(p.scan), p.index) for p in posed]
@@ -4495,6 +4511,103 @@ def sphere_count_phase(smi):
     return records
 
 
+DRAW_CELLS = (("bottle.frames", "bottle"), ("table.scans", "table"))
+INT32_OPS_PER_S = FP32_OPS_PER_S / 2  # Hopper: 64 int32 lanes an SM a clock, 128 float32
+# operations an element: the hash (20 rounds of add, rotate, xor; 5 key
+# injections), the uniform, and a gumbel's two logf or a normal's log1pf,
+# square root and polynomial
+HASH_OPS, UNIFORM_OPS, TRANSFORM_OPS = 77, 6, 50
+
+
+def draw_pose_config(name):
+    """(PoseConfig, npoint_max) of ``portbench/configs/<name>.json``."""
+    import dataclasses
+
+    from cppf_tpu_torch.pipeline.pose import PoseConfig
+
+    with open(os.path.join(ROOT, "portbench", "configs", f"{name}.json")) as f:
+        cfg = json.load(f)
+    fields = {fl.name for fl in dataclasses.fields(PoseConfig)}
+    return PoseConfig(**{k: v for k, v in cfg.items()
+                         if k in fields and not isinstance(v, (list, dict))}), cfg["npoint_max"]
+
+
+def draws_phase(smi):
+    """Phase 23: the JAX-key draws' kernel on one pose's requests of each
+    cell that draws from JAX keys (see the module's docstring); returns a
+    record a cell."""
+    from cppf_tpu_torch.core import threefry
+    from cppf_tpu_torch.ops import cuda_build
+    from cppf_tpu_torch.pipeline.pose import PoseDraws
+
+    (ptxas,) = cuda_build.resource_usage("threefry_draws").values()
+    print(f"phase 23: threefry_draws_kernel: {ptxas}", flush=True)
+    check("0 bytes spill stores, 0 bytes spill loads" in ptxas, "threefry_draws spills")
+    dev = torch.device("cuda")
+    records = []
+    for cell, name in DRAW_CELLS:
+        pcfg, n_raw = draw_pose_config(name)
+        pre_key, pose_key = threefry.split(threefry.key(3_141_592_653))
+        pose = lambda: PoseDraws.from_jax_keys(pcfg, pre_key, pose_key, dev, n_raw)
+        calls, real = [], threefry.draw_many
+
+        def capture(requests, device):
+            calls.append(requests)
+            return real(requests, device)
+
+        threefry.draw_many = capture
+        try:
+            before = threefry.LAUNCHES["draws"]
+            got = pose()
+            torch.cuda.synchronize()
+            launched = threefry.LAUNCHES["draws"] - before
+        finally:
+            threefry.draw_many = real
+        check(len(calls) == 1 and launched == 1,
+              f"phase 23: {cell}: {len(calls)} draw_many calls, {launched} launches, not one")
+        (reqs,) = calls
+        threefry.draw_many = threefry.draw_many_plain
+        try:
+            want = pose()
+        finally:
+            threefry.draw_many = real
+        fields = lambda d: [d.pair_u, d.tr_gumbel, *d.up, d.fallback_normal, d.jitter,
+                            *(d.right or ())]
+        for n, (g, w) in enumerate(zip(fields(got), fields(want))):
+            check(torch.equal(g, w), f"phase 23: {cell}: draw {n} differs from the plain path "
+                  f"in {int((g != w).sum())} of {w.numel()} elements")
+        sizes = {kind: 0 for kind in ("uniform", "gumbel", "normal", "bernoulli")}
+        for kind, _, shape in reqs:
+            sizes[kind] += int(np.prod(shape))
+        elements = sum(sizes.values())
+        ms, plain_ms = cuda_ms_turns([lambda: threefry.draw_many(reqs, dev),
+                                      lambda: threefry.draw_many_plain(reqs, dev)],
+                                     [True, False])
+        host = []
+        for _ in range(TIMING_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pose()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        ops = ((HASH_OPS + UNIFORM_OPS) * elements
+               + TRANSFORM_OPS * (sizes["gumbel"] + sizes["normal"]))
+        rec = dict(name="threefry_draws", what=cell, requests=len(reqs), elements=elements,
+                   by_kind=sizes, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                   call_host_ms=statistics.median(host), operations=ops,
+                   bytes=4 * elements, int32_bound_ms=ops / INT32_OPS_PER_S * 1e3,
+                   ptxas=ptxas)
+        _set_bound(rec, "", 4 * elements, ops)
+        print(f"phase 23: {cell}: {len(reqs)} requests, {elements} elements {sizes}, equal to "
+              f"the plain path to the bit; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, a whole "
+              f"from_jax_keys call {rec['call_host_ms']:.3f} ms on the host's clock; bound "
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_terms']}; at the int32 rate "
+              f"{rec['int32_bound_ms']:.5f} ms)", flush=True)
+        records.append(rec)
+    print(json.dumps({"draws": records, "smi": smi}), flush=True)
+    return records
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     ap.add_argument("--profile", action="store_true", help="profile one warm pose")
@@ -4522,7 +4635,8 @@ def main():
     cuda_build.build(sources)
     print(f"build: {sources} in {time.perf_counter() - t0:.1f} s", flush=True)
     for kernel, usage in {**cuda_build.resource_usage("vote_hist"),
-                          **cuda_build.resource_usage("sphere_count")}.items():
+                          **cuda_build.resource_usage("sphere_count"),
+                          **cuda_build.resource_usage("threefry_draws")}.items():
         print(f"  ptxas {kernel}: {usage}", flush=True)
         check("0 bytes spill stores, 0 bytes spill loads" in usage, f"{kernel} spills registers")
 
@@ -4706,6 +4820,11 @@ def main():
     sphere_records = sphere_count_phase(smi)
     print(f"phase 22 (sphere count): {time.perf_counter() - t22:.1f} s", flush=True)
 
+    # ---- 23. the JAX-key draws ------------------------------------------------
+    t23 = time.perf_counter()
+    draw_records = draws_phase(smi)
+    print(f"phase 23 (JAX-key draws): {time.perf_counter() - t23:.1f} s", flush=True)
+
     # a kernel's record is that of its pairs front end, which its path
     # launches; its votes front end, launched by no path of this run but the
     # comparisons, stands beside it under votes_ keys.  The peak kernels
@@ -4777,6 +4896,18 @@ def main():
     kernels.append(dict(sphere_records[0], path="main path (phase 4; timed in phase 22)",
                         route="cuda", source="cppf_tpu_torch/csrc/sphere_count.cu",
                         replaces=None, launches=launches["sphere_count"]))
+    # nor do the draws: the frames driver's poses (phase 10) stand for
+    # bottle.frames, the scans driver's (phase 11) for table.scans, each with
+    # the launches counted over its run of main; timed in phase 23
+    driver_draws = {"bottle.frames": ("main path: nocs driver (phase 10; timed in phase 23)",
+                                      nocs_launches),
+                    "table.scans": ("main path: sun driver (phase 11; timed in phase 23)",
+                                    sun_launches)}
+    for rec in draw_records:
+        path, counts = driver_draws[rec["what"]]
+        kernels.append(dict(rec, path=path, route="cuda",
+                            source="cppf_tpu_torch/csrc/threefry_draws.cu", replaces=None,
+                            launches=counts["draws"], poses=counts["poses"]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -13,21 +13,31 @@ differ from XLA's in the last bit.
 
 A key is a pair of Python ints.  This lets the port consume the very draws
 that a JAX run consumed from the same key (``PoseDraws.from_jax_key``);
-:func:`draw_many` makes several draws in one pass of the hash.
+:func:`draw_many` makes several draws in one pass of the hash.  On CUDA
+tensors that pass is one launch of ``csrc/threefry_draws.cu`` (a table of
+up to ``MAX_REQUESTS`` requests a launch, given by value: no upload and no
+host sync), whose floats equal :func:`draw_many_plain`'s on the same card to
+the bit; everywhere else it is :func:`draw_many_plain`, int64 PyTorch.
+``LAUNCHES["draws"]`` counts the kernel's launches.
 """
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from cppf_tpu_torch.ops import cuda_build
 from cppf_tpu_torch.utils import prof
 
 Key = Tuple[int, int]
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+MAX_REQUESTS = 64  # rows of one launch's table (csrc/threefry_draws.cu kMaxRequests)
+LAUNCHES = {"draws": 0}
+_lib = None
 
 
 def key(seed: int) -> Key:
@@ -65,6 +75,12 @@ def fold_in(k: Key, data: int) -> Key:
     return threefry2x32(k, 0, data & _MASK)
 
 
+# the float32 [lo, hi) of each kind's uniform
+_LO_HI = {"uniform": (0.0, 1.0), "bernoulli": (0.0, 1.0),
+          "gumbel": (float(torch.finfo(torch.float32).tiny), 1.0),
+          "normal": (float(np.nextafter(np.float32(-1.0), np.float32(0.0))), 1.0)}
+
+
 def _uniform(bits: torch.Tensor, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32 from 32 random bits an element."""
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
@@ -77,16 +93,15 @@ def _uniform(bits: torch.Tensor, minval: float = 0.0, maxval: float = 1.0) -> to
 
 def _gumbel(bits: torch.Tensor) -> torch.Tensor:
     """``jax.random.gumbel`` (its default "low" mode) in float32."""
-    return -torch.log(-torch.log(_uniform(bits, float(torch.finfo(torch.float32).tiny), 1.0)))
+    return -torch.log(-torch.log(_uniform(bits, *_LO_HI["gumbel"])))
 
 
 def _normal(bits: torch.Tensor) -> torch.Tensor:
     """``jax.random.normal`` in float32: √2 · erfinv(u), u uniform on
     (-1, 1)."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     prof.host_sync(bits.device)  # the upload of √2
     return (torch.tensor(math.sqrt(2), dtype=torch.float32, device=bits.device)
-            * erfinv(_uniform(bits, lo, 1.0)))
+            * erfinv(_uniform(bits, *_LO_HI["normal"])))
 
 
 # XLA's float32 ErfInv: Giles' single-precision approximation, a degree-8
@@ -120,10 +135,21 @@ _KINDS = {"uniform": _uniform, "gumbel": _gumbel, "normal": _normal, "bernoulli"
 
 def draw_many(requests, device) -> List[torch.Tensor]:
     """Several draws, each ``(kind, key, shape)`` with kind ``"uniform"``,
-    ``"gumbel"``, ``"normal"`` or ``"bernoulli"`` (p = ½), from one pass of the hash over all their
-    counters, each counter with its own draw's key.  Equal element for
-    element to the draws made one at a time (the hash is elementwise), in
-    one set of launches instead of one a draw."""
+    ``"gumbel"``, ``"normal"`` or ``"bernoulli"`` (p = ½), from one pass of
+    the hash over all their counters, each counter with its own draw's key:
+    float32 tensors (bool for bernoulli) of the requests' shapes, in their
+    order.  On a CUDA device one launch of ``csrc/threefry_draws.cu`` a
+    ``MAX_REQUESTS`` requests, equal to :func:`draw_many_plain` to the bit;
+    elsewhere :func:`draw_many_plain`."""
+    if torch.device(device).type == "cuda":
+        return _draw_many_cuda(requests, device)
+    return draw_many_plain(requests, device)
+
+
+def draw_many_plain(requests, device) -> List[torch.Tensor]:
+    """Plain version of :func:`draw_many`, on any device: the hash in int64
+    tensors, in one set of launches for all the requests.  Equal element
+    for element to the draws made one at a time (the hash is elementwise)."""
     sizes = [math.prod(shape) for _, _, shape in requests]
     prof.host_sync(device, n=2)  # the uploads of the keys and the sizes
     keys = torch.repeat_interleave(
@@ -133,3 +159,85 @@ def draw_many(requests, device) -> List[torch.Tensor]:
     b0, b1 = threefry2x32((keys[:, 0], keys[:, 1]), i >> 32, i & _MASK)
     return [_KINDS[kind](bits.reshape(shape))
             for (kind, _, shape), bits in zip(requests, (b0 ^ b1).split(sizes))]
+
+
+# the kernel's kind codes (csrc/threefry_draws.cu Kind)
+_KIND_CODES = {"uniform": 0, "bernoulli": 0, "gumbel": 1, "normal": 2}
+
+
+class DrawTable(NamedTuple):
+    """The kernel's request table: row ``r`` is request ``order[r]``, and
+    owns the elements ``[starts[r], starts[r + 1])`` of the flat output.
+    The bernoulli requests come last, so that one comparison with ½ makes
+    all their booleans."""
+
+    order: List[int]     # row → index of the request
+    starts: np.ndarray   # int64 [n + 1]
+    keys: np.ndarray     # uint32 [n, 2]
+    kinds: np.ndarray    # int32 [n], _KIND_CODES
+    lo: np.ndarray       # float32 [n]
+    hi: np.ndarray       # float32 [n]
+    n_float: int         # rows before the first bernoulli one
+
+
+def draw_table(requests) -> DrawTable:
+    """The request table of :func:`draw_many`'s CUDA route (host memory:
+    the launch takes it by value)."""
+    for kind, _, _ in requests:
+        if kind not in _KIND_CODES:
+            raise ValueError(f"unknown draw kind {kind!r}; one of {sorted(_KIND_CODES)}")
+    order = sorted(range(len(requests)), key=lambda j: requests[j][0] == "bernoulli")
+    rows = [requests[j] for j in order]
+    starts = np.zeros(len(rows) + 1, np.int64)
+    starts[1:] = np.cumsum([math.prod(shape) for _, _, shape in rows], dtype=np.int64)
+    keys = np.array([k for _, k, _ in rows], np.uint32).reshape(len(rows), 2)
+    kinds = np.array([_KIND_CODES[kind] for kind, _, _ in rows], np.int32)
+    lo = np.array([_LO_HI[kind][0] for kind, _, _ in rows], np.float32)
+    hi = np.array([_LO_HI[kind][1] for kind, _, _ in rows], np.float32)
+    n_float = sum(kind != "bernoulli" for kind, _, _ in rows)
+    return DrawTable(order, starts, keys, kinds, lo, hi, n_float)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("threefry_draws")
+        p = ctypes.c_void_p
+        lib.cppf_threefry_draws.argtypes = [ctypes.c_int, p, p, p, p, p, p, p]
+        lib.cppf_threefry_draws.restype = ctypes.c_int
+        lib.cppf_error_string.argtypes = [ctypes.c_int]
+        lib.cppf_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _draw_many_cuda(requests, device) -> List[torch.Tensor]:
+    """:func:`draw_many` on a CUDA device: every float written once into one
+    flat buffer by one launch a ``MAX_REQUESTS`` rows of the table, the
+    bernoulli rows compared with ½ at once; the draws are views."""
+    t = draw_table(requests)
+    out = torch.empty(int(t.starts[-1]), dtype=torch.float32, device=device)
+    lib = _library()
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    for a in range(0, len(t.order), MAX_REQUESTS):
+        b = min(a + MAX_REQUESTS, len(t.order))
+        base = int(t.starts[a])
+        if int(t.starts[b]) == base:
+            continue
+        starts = t.starts[a:b + 1] - base
+        rc = lib.cppf_threefry_draws(b - a, starts.ctypes.data, t.keys[a:b].ctypes.data,
+                                     t.kinds[a:b].ctypes.data, t.lo[a:b].ctypes.data,
+                                     t.hi[a:b].ctypes.data, out.data_ptr() + 4 * base, stream)
+        if rc != 0:
+            raise RuntimeError("threefry_draws launch failed: "
+                               + lib.cppf_error_string(rc).decode())
+        LAUNCHES["draws"] += 1
+        prof.device_count("draw_kernel_launches", 1)
+    split = int(t.starts[t.n_float])
+    flags = out[split:] < 0.5 if t.n_float < len(t.order) else None
+    draws = [None] * len(requests)
+    for r, j in enumerate(t.order):
+        lo, hi = int(t.starts[r]), int(t.starts[r + 1])
+        flat = out[lo:hi] if r < t.n_float else flags[lo - split:hi - split]
+        draws[j] = flat.view(requests[j][2])
+    return draws
